@@ -7,12 +7,16 @@
 Each call returns a :class:`Route` with per-pool trades in spec order, the
 net trade vector, dual prices, and solver diagnostics; ``certify=True``
 adds a float64 certification report (feasibility residuals + duality gap,
-``solver/certify.py``).  The solve runs on the card unless ``device="cpu"``
-is passed (with the other solver keywords: ``dtype=``, ``options=``).
+``solver/certify.py``); ``refine_to=`` refines the f32 solve on the device
+to that certified relative gap (``solver/refine_device.py``) and returns the
+refined route with its certificate.  The solve runs on the card unless
+``device="cpu"`` is passed (with the other solver keywords: ``dtype=``,
+``options=``).
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -27,6 +31,8 @@ __all__ = [
     "Route", "arbitrage", "liquidate", "route", "make_solver",
     "make_solver_compiled",
 ]
+
+_LOG = logging.getLogger("cfmm_routing_tpu_torch.api")
 
 
 @dataclasses.dataclass
@@ -92,12 +98,47 @@ def _route_from(solver: AdmmSolver, res, obj: Objective, do_certify: bool,
     )
 
 
-def _reject(refine_to, solver, precondition):
-    if refine_to is not None:
-        raise NotImplementedError(
-            "refine_to= (device refinement) is slice 2 of the port "
-            "(queue 1, item 8 in ROADMAP.md)"
+def _refined_route(solver, compiled, solve_objective, res, refine_to,
+                   cert_space=None) -> Route:
+    """Refine on the solver's device to ``refine_to`` and build the Route
+    from the refined point (it always carries its certificate).
+    ``cert_space``: the (cert_compiled, cert_objective, unscale_fn) triple
+    of a preconditioned solve."""
+    from .solver.refine_device import refine_device
+
+    out = refine_device(compiled, solve_objective, res, target_gap=refine_to,
+                        cert_space=cert_space, device=solver.device)
+    route = _route_from(solver, out.result, solve_objective, False)
+    route.certificate = out.certificate
+    route.converged = bool(out.achieved)
+    # the certificate recomputes the objective from the trades in f64 in
+    # the caller's units: authoritative over the solve-space value
+    route.objective = float(out.certificate.objective)
+    return route
+
+
+def _floor_options(solver_kwargs, refine_to):
+    """Refinement lifts the f32 noise floor but converges at ADMM's usual
+    rate: it needs a base iterate at the floor, not a rough one.  When the
+    caller asked for a certified gap without choosing options, run the base
+    solve to residual 1e-7 (its f32 floor neighbourhood) and say so."""
+    if refine_to is not None and "options" not in solver_kwargs:
+        _LOG.info(
+            "refine_to=%g with no explicit options: running the base solve "
+            "to its f32 floor (max_iters=20000, eps=1e-7); pass "
+            "options=AdmmOptions(...) to choose the base budget yourself",
+            refine_to,
         )
+        solver_kwargs = dict(
+            solver_kwargs,
+            options=AdmmOptions(max_iters=20_000, eps_abs=1e-7, eps_rel=1e-7),
+        )
+    return solver_kwargs
+
+
+def _reject(solver, precondition, refine_to):
+    if refine_to is not None and not refine_to > 0:
+        raise ValueError(f"refine_to must be a positive gap, got {refine_to}")
     if precondition and solver is not None:
         raise ValueError(
             "solver= and precondition=True are mutually exclusive: the "
@@ -107,9 +148,11 @@ def _reject(refine_to, solver, precondition):
         )
 
 
-def _solve_preconditioned(spec, objective, certify, solver_kwargs) -> Route:
+def _solve_preconditioned(spec, objective, certify, solver_kwargs,
+                          refine_to=None) -> Route:
     """Equilibrated solve in scaled units, results in original units; the
-    optional certificate is evaluated against the original problem."""
+    optional certificate (and a refinement's) is evaluated against the
+    original problem."""
     from .solver.precondition import equilibrate, unscale_result
 
     table = PoolTable.from_spec(spec)
@@ -117,6 +160,12 @@ def _solve_preconditioned(spec, objective, certify, solver_kwargs) -> Route:
     compiled_eq = compile_table(eq.table, spec=spec)
     solver = make_solver_compiled(compiled_eq, **solver_kwargs)
     res = solver.solve(eq.objective)
+    if refine_to is not None:
+        return _refined_route(
+            solver, compiled_eq, eq.objective, res, refine_to,
+            cert_space=(compile_table(table, spec=spec), objective,
+                        lambda r: unscale_result(r, eq.d, compiled_eq)),
+        )
     res_host = RouteResult(
         *[
             {k: host(v) for k, v in f.items()} if isinstance(f, dict) else host(f)
@@ -142,17 +191,24 @@ def route(
     """Generic routing: maximize an :class:`Objective` (linear + box) over
     the network.  ``precondition=True`` solves in equilibrated per-asset
     units (``solver/precondition.py``) and returns results (and the
-    optional certificate) in the original units."""
+    optional certificate) in the original units.  ``refine_to``: refine on
+    the device to that certified relative gap (``solver/refine_device.py``);
+    the returned Route carries the certificate."""
     if not isinstance(objective, Objective):
         raise NotImplementedError(
             f"{type(objective).__name__} objectives are not ported yet "
             "(queue 1, item 12 in ROADMAP.md)"
         )
-    _reject(refine_to, solver, precondition)
+    _reject(solver, precondition, refine_to)
+    if solver is None:
+        solver_kwargs = _floor_options(solver_kwargs, refine_to)
     if precondition:
-        return _solve_preconditioned(spec, objective, certify, solver_kwargs)
+        return _solve_preconditioned(spec, objective, certify, solver_kwargs,
+                                     refine_to=refine_to)
     solver = solver or make_solver(spec, **solver_kwargs)
     res = solver.solve(objective)
+    if refine_to is not None:
+        return _refined_route(solver, solver.compiled, objective, res, refine_to)
     return _route_from(solver, res, objective, certify)
 
 

@@ -14,36 +14,35 @@ namespace {
 
 constexpr int kThreads = 128;
 
-template <typename T, int K, int KIND>
+template <typename T, int KC, int KIND>
 __global__ void __launch_bounds__(kThreads)
 project_kernel(const T* __restrict__ p, const T* __restrict__ q,
                const T* __restrict__ R, const T* __restrict__ w,
                const T* __restrict__ s, const T* __restrict__ mask,
                const T* __restrict__ gamma, const T* __restrict__ logk0,
                const T* __restrict__ k0, T* __restrict__ D,
-               T* __restrict__ L, int m, int n_bisect, int n_total) {
+               T* __restrict__ L, int K, int m, int n_bisect, int n_total) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= m) return;
-  T pp[K], qq[K], RR[K], ww[K], ss[K], mm[K], DD[K], LL[K];
-#pragma unroll
-  for (int c = 0; c < K; ++c) {
+  auto load = [&](int c) {
     const size_t e = (size_t)c * m + i;
-    pp[c] = p[e];
-    qq[c] = q[e];
-    RR[c] = R[e];
-    ww[c] = w[e];
-    ss[c] = KIND == cfmm::KIND_CS ? T(0) : s[e];
-    mm[c] = mask[e];
-  }
+    cfmm::SlotIn<T> in;
+    in.p = p[e];
+    in.q = q[e];
+    in.R = R[e];
+    in.w = w[e];
+    in.s = KIND == cfmm::KIND_CS ? T(0) : s[e];
+    in.mask = mask[e];
+    return in;
+  };
+  auto store = [&](int c, T Dc, T Lc) {
+    const size_t e = (size_t)c * m + i;
+    D[e] = Dc;
+    L[e] = Lc;
+  };
   const T lk = KIND == cfmm::KIND_CS ? T(0) : logk0[i];
-  cfmm::project_pool<T, K, KIND>(pp, qq, RR, ww, ss, mm, gamma[i], lk, k0[i],
-                                 n_bisect, n_total, DD, LL);
-#pragma unroll
-  for (int c = 0; c < K; ++c) {
-    const size_t e = (size_t)c * m + i;
-    D[e] = DD[c];
-    L[e] = LL[c];
-  }
+  cfmm::project_pool<T, KC, KIND>(load, K, gamma[i], lk, k0[i], n_bisect,
+                                  n_total, store);
 }
 
 }  // namespace
@@ -65,7 +64,7 @@ extern "C" int cfmm_project(int dtype, int kind, int K, int m, const void* p,
   project_kernel<TT, KK, KD><<<grid, kThreads, 0, st>>>(                      \
       (const TT*)p, (const TT*)q, (const TT*)R, (const TT*)w, (const TT*)s,   \
       (const TT*)mask, (const TT*)gamma, (const TT*)logk0, (const TT*)k0,     \
-      (TT*)D, (TT*)L, m, n_bisect, n_bisect + n_polish)
+      (TT*)D, (TT*)L, K, m, n_bisect, n_bisect + n_polish)
   CFMM_DISPATCH(dtype, K, kind, CFMM_LAUNCH_PROJECT)
 #undef CFMM_LAUNCH_PROJECT
   return (int)cudaGetLastError();

@@ -47,15 +47,31 @@ _LIBS = {
         "projection.cu",
         {"cfmm_project": [_C, _C, _C, _C] + [_P] * 11 + [_C, _C, _P]},
     ),
+    "projection_delta": (
+        "projection_delta.cu",
+        {"cfmm_project_delta": [_C, _C, _C, _C] + [_P] * 12 + [_C, _C, _P]},
+    ),
     "fused_step": (
         "fused_step.cu",
         {"cfmm_fused_step": [_C, _C, _C, _C, _C, _D, _D] + [_P] * 16
                             + [_C, _C, _P]},
     ),
+    "fused_step_delta": (
+        "fused_step_delta.cu",
+        {"cfmm_fused_step_delta": [_C, _C, _C, _C, _C, _D, _D] + [_P] * 18
+                                  + [_C, _C, _P]},
+    ),
+    "segment_sum": (
+        "segment_sum.cu",
+        {"cfmm_segment_sum": [_C, _C, _C] + [_P] * 5},
+    ),
 }
-_HEADERS = ("projection.cuh",)
+_HEADERS = ("projection.cuh", "projection_delta.cuh")
 
-LAUNCHES: Dict[str, int] = {"project_gm": 0, "project_cs": 0, "fused_step": 0}
+LAUNCHES: Dict[str, int] = {"project_gm": 0, "project_cs": 0,
+                            "project_gm_delta": 0, "project_cs_delta": 0,
+                            "fused_step": 0, "fused_step_delta": 0,
+                            "segment_sum": 0}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

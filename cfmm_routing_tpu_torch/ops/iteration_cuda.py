@@ -24,9 +24,18 @@ State per bucket:  s = (sD, sL), evolving as  s' = alpha*w + (1-alpha)*s
       y = reduce(alpha*(L-D) + (1-alpha)*(sL-sD))
   (the deferred part contributes -2*(1-alpha)*degree*wdef in O(n)).
 
-The CUDA kernel is ``csrc/fused_step.cu``.  On a CPU tensor the wrapper runs
-:func:`fused_step_plain` (gather -> plain projection -> update ->
-``index_add_``); on a CUDA tensor it launches the kernel or raises.
+The refinement stage runs the same iteration on the shifted trading sets
+of ``ops/projection_delta.py`` (:func:`fused_step_delta`): the projection
+input is further offset by the pre-broadcast base dual ``nu0e``, and the
+projection is the delta one; the deferred-broadcast algebra is unchanged.
+
+The CUDA kernels are ``csrc/fused_step.cu`` and ``csrc/fused_step_delta.cu``.
+Each writes its slots' consensus terms to a (K, m) plane that the
+segment-sum kernel (``ops/segment.py``) reduces per asset in a fixed order,
+so y is bitwise repeatable on the card.  On a CPU tensor the wrappers run
+the plain versions (gather -> plain projection -> update -> the segment
+sum's plain version, in the kernel's order); on a CUDA tensor they launch
+the kernels or raise.
 
 Shapes: s/D/L (K, m) slot-major; v/y are (n_pad,) with n_pad a multiple of
 128 (``AdmmSolver._fold_pack``).
@@ -38,8 +47,42 @@ import torch
 from . import _build
 from .projection import ProjectionConfig, project_cs, project_gm
 from .projection_cuda import _KIND, check_cuda_args, dtype_code
+from .projection_delta import project_cs_delta, project_gm_delta
+from .segment import segment_sum, segment_sum_plain
 
-__all__ = ["fused_step", "fused_step_plain"]
+__all__ = ["fused_step", "fused_step_plain", "fused_step_delta",
+           "fused_step_delta_plain"]
+
+
+def _gather(v, arrs, K, m):
+    return v.index_select(0, arrs["asset"].reshape(-1)).reshape(K, m) * arrs["mask"]
+
+
+def _update(sD, sL, A, B, v, arrs, alpha):
+    """Relaxation and the consensus reduction, in the segment-sum kernel's
+    fixed order (``segment_sum_plain``)."""
+    a = float(alpha)
+    b = 1.0 - a
+    sDn = a * A + b * sD
+    sLn = a * B + b * sL
+    val = a * (B - A) + b * (sL - sD)
+    y = segment_sum_plain(val, arrs["order"], arrs["seg"], v.shape[0])
+    return sDn, sLn, A, B, y
+
+
+def _check_ids_and_v(sD, v, arrs, what):
+    K, m = sD.shape
+    asset = arrs["asset"]
+    if (asset.dtype != torch.int32 or asset.shape != (K, m)
+            or not asset.is_contiguous() or asset.device != sD.device):
+        raise ValueError(f"{what}: asset ids must be a contiguous int32 "
+                         f"(K, m) tensor on {sD.device}")
+    if (v.dim() != 1 or v.dtype != sD.dtype or v.device != sD.device
+            or not v.is_contiguous() or v.shape[0] % 128 != 0):
+        raise ValueError(f"{what}: v must be a contiguous (n_pad,) vector "
+                         "of the planes' dtype, n_pad a multiple of 128")
+    if arrs["seg"].numel() - 1 > v.shape[0]:
+        raise ValueError(f"{what}: the bucket's asset count exceeds n_pad")
 
 
 def fused_step_plain(sD, sL, v, arrs, kind, needs_floor, alpha: float,
@@ -49,8 +92,7 @@ def fused_step_plain(sD, sL, v, arrs, kind, needs_floor, alpha: float,
     Returns (sD', sL', D, L, y(n_pad,))."""
     K, m = sD.shape
     mask = arrs["mask"]
-    asset = arrs["asset"]
-    ve = v.index_select(0, asset.reshape(-1)).reshape(K, m) * mask
+    ve = _gather(v, arrs, K, m)
     p = sD + ve
     q = sL - ve
     if kind == "gm":
@@ -63,13 +105,7 @@ def fused_step_plain(sD, sL, v, arrs, kind, needs_floor, alpha: float,
             p, q, arrs["R"], arrs["gamma"], arrs["w"], arrs["k0"], mask,
             cfg=cfg,
         )
-    a = float(alpha)
-    b = 1.0 - a
-    sDn = a * D + b * sD
-    sLn = a * L + b * sL
-    val = a * (L - D) + b * (sL - sD)
-    y = torch.zeros_like(v).index_add_(0, asset.reshape(-1), val.reshape(-1))
-    return sDn, sLn, D, L, y
+    return _update(sD, sL, D, L, v, arrs, alpha)
 
 
 def fused_step(sD, sL, v, arrs, kind, needs_floor, alpha: float,
@@ -78,28 +114,22 @@ def fused_step(sD, sL, v, arrs, kind, needs_floor, alpha: float,
 
     sD/sL: (K, m) state planes;  v: (n_pad,) combined broadcast vector
     (wdef - nu, zero-padded);  arrs: the solver's device bucket dict
-    (asset ids int32 in [0, n_pad)).  Returns (sD', sL', D, L, y(n_pad,)).
+    (asset ids int32 in [0, n_pad), slot order and offsets for the
+    reduction).  Returns (sD', sL', D, L, y(n_pad,)).
     """
     if sD.device.type == "cpu":
         return fused_step_plain(sD, sL, v, arrs, kind, needs_floor, alpha, cfg)
     planes = (sD, sL, arrs["R"], arrs["w"], arrs["s"], arrs["mask"])
     vectors = (arrs["gamma"], arrs["logk0"], arrs["k0"])
     K, m = check_cuda_args(planes, vectors, "fused_step")
+    _check_ids_and_v(sD, v, arrs, "fused_step")
     asset = arrs["asset"]
-    if (asset.dtype != torch.int32 or asset.shape != (K, m)
-            or not asset.is_contiguous() or asset.device != sD.device):
-        raise ValueError("fused_step: asset ids must be a contiguous int32 "
-                         f"(K, m) tensor on {sD.device}")
-    if (v.dim() != 1 or v.dtype != sD.dtype or v.device != sD.device
-            or not v.is_contiguous() or v.shape[0] % 128 != 0):
-        raise ValueError("fused_step: v must be a contiguous (n_pad,) vector "
-                         "of the planes' dtype, n_pad a multiple of 128")
     n_pad = v.shape[0]
     sDn = torch.empty_like(sD)
     sLn = torch.empty_like(sD)
     D = torch.empty_like(sD)
     L = torch.empty_like(sD)
-    y = torch.zeros_like(v)
+    val = torch.empty_like(sD)
     a = float(alpha)
     lib = _build.library("fused_step")
     with torch.cuda.device(sD.device):
@@ -112,8 +142,90 @@ def fused_step(sD, sL, v, arrs, kind, needs_floor, alpha: float,
             arrs["mask"].data_ptr(), arrs["gamma"].data_ptr(),
             arrs["logk0"].data_ptr(), arrs["k0"].data_ptr(), v.data_ptr(),
             sDn.data_ptr(), sLn.data_ptr(), D.data_ptr(), L.data_ptr(),
-            y.data_ptr(), int(cfg.n_bisect), int(cfg.n_polish), stream,
+            val.data_ptr(), int(cfg.n_bisect), int(cfg.n_polish), stream,
         )
     _build.check_launch(rc, "fused_step")
     _build.LAUNCHES["fused_step"] += 1
+    y = segment_sum(val, arrs["order"], arrs["seg"], n_pad)
     return sDn, sLn, D, L, y
+
+
+def _nu0e(arrs):
+    nu0e = arrs.get("nu0e")
+    return torch.zeros_like(arrs["mask"]) if nu0e is None else nu0e
+
+
+def fused_step_delta_plain(sD, sL, v, arrs, kind, needs_floor, alpha: float,
+                           cfg: ProjectionConfig = ProjectionConfig()):
+    """The fused delta half-iteration in plain PyTorch, on any device.
+
+    Returns (sD', sL', a, b, y(n_pad,))."""
+    K, m = sD.shape
+    mask = arrs["mask"]
+    off = _gather(v, arrs, K, m) - _nu0e(arrs)
+    p = sD + off
+    q = sL - off
+    if kind == "gm":
+        A, B = project_gm_delta(
+            p, q, arrs["X0"], arrs["w"], arrs["sS"], arrs["gamma"],
+            arrs["nsig"], arrs["aD"], arrs["aL"], mask,
+            needs_floor=needs_floor, cfg=cfg,
+        )
+    else:
+        A, B = project_cs_delta(
+            p, q, arrs["X0"], arrs["gamma"], arrs["w"], arrs["nsig"],
+            arrs["aD"], arrs["aL"], mask, cfg=cfg,
+        )
+    return _update(sD, sL, A, B, v, arrs, alpha)
+
+
+def fused_step_delta(sD, sL, v, arrs, kind, needs_floor, alpha: float,
+                     cfg: ProjectionConfig = ProjectionConfig(), fold=None):
+    """One fused half-iteration for one DELTA bucket (refinement stage).
+
+    sD/sL: (K, m) delta state planes;  v: (n_pad,) combined broadcast vector
+    (wdef - dnu, zero-padded);  arrs: a delta bucket dict from
+    ``DeltaAdmmSolver.delta_buckets`` (X0/w/sS/aD/aL/mask/gamma/nsig and, on
+    the re-centred path, the pre-broadcast base-dual plane nu0e).  The
+    constant-sum reserve floor always applies.  Returns (sD', sL', a, b,
+    y(n_pad,)).
+    """
+    if fold is not None:
+        raise NotImplementedError(
+            "the folded delta kernel (fold=) is not ported yet "
+            "(queue 1, item 13 in ROADMAP.md)"
+        )
+    if sD.device.type == "cpu":
+        return fused_step_delta_plain(sD, sL, v, arrs, kind, needs_floor,
+                                      alpha, cfg)
+    nu0e = arrs.get("nu0e")
+    planes = (sD, sL, arrs["X0"], arrs["w"], arrs["sS"], arrs["aD"],
+              arrs["aL"], arrs["mask"]) + (() if nu0e is None else (nu0e,))
+    K, m = check_cuda_args(planes, (arrs["gamma"], arrs["nsig"]),
+                           "fused_step_delta")
+    _check_ids_and_v(sD, v, arrs, "fused_step_delta")
+    n_pad = v.shape[0]
+    sDn = torch.empty_like(sD)
+    sLn = torch.empty_like(sD)
+    A = torch.empty_like(sD)
+    B = torch.empty_like(sD)
+    val = torch.empty_like(sD)
+    a = float(alpha)
+    lib = _build.library("fused_step_delta")
+    with torch.cuda.device(sD.device):
+        stream = torch.cuda.current_stream(sD.device).cuda_stream
+        rc = lib.cfmm_fused_step_delta(
+            dtype_code(sD.dtype), _KIND[(kind, bool(needs_floor))], K, m,
+            n_pad, a, 1.0 - a,
+            sD.data_ptr(), sL.data_ptr(), arrs["asset"].data_ptr(),
+            arrs["X0"].data_ptr(), arrs["w"].data_ptr(), arrs["sS"].data_ptr(),
+            arrs["aD"].data_ptr(), arrs["aL"].data_ptr(),
+            arrs["mask"].data_ptr(), None if nu0e is None else nu0e.data_ptr(),
+            arrs["gamma"].data_ptr(), arrs["nsig"].data_ptr(), v.data_ptr(),
+            sDn.data_ptr(), sLn.data_ptr(), A.data_ptr(), B.data_ptr(),
+            val.data_ptr(), int(cfg.n_bisect), int(cfg.n_polish), stream,
+        )
+    _build.check_launch(rc, "fused_step_delta")
+    _build.LAUNCHES["fused_step_delta"] += 1
+    y = segment_sum(val, arrs["order"], arrs["seg"], n_pad)
+    return sDn, sLn, A, B, y

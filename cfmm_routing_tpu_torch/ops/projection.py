@@ -55,6 +55,38 @@ def _log_floor(x: torch.Tensor) -> float:
     return 1e-300 if x.dtype == torch.float64 else 1e-30
 
 
+class _Consts(NamedTuple):
+    """Constants of the working dtype.  On the CPU they are zero-dimensional
+    tensors: the root-find evaluates h(mu) ~50 times on small tensors, where
+    an operand given as a Python number costs a tensor construction per
+    operation.  On the card they stay Python numbers (no tensor is created
+    inside a captured CUDA graph).  The rounded results are the same."""
+
+    zero: object
+    half: object
+    two: object
+    four: object
+    tiny: object
+
+
+def _consts(x: torch.Tensor) -> _Consts:
+    vals = (0.0, 0.5, 2.0, 4.0, _tiny(x))
+    if x.device.type != "cpu":
+        return _Consts(*vals)
+    return _Consts(*(torch.tensor(v, dtype=x.dtype) for v in vals))
+
+
+def _slot_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum a (K, m) plane over its slots, slot 0 first: the kernel's order,
+    so the per-pool constraint value h(mu) rounds as on the card (a
+    reduction kernel's order can flip a bisection step near the root)."""
+    rows = x.unbind(0)
+    h = rows[0]
+    for r in rows[1:]:
+        h = h + r
+    return h
+
+
 def _xi_of_theta(p, q, Rp, gamma, theta):
     """xi(theta) = Rp + gamma*relu(p + gamma*theta) - relu(q - theta).
 
@@ -121,6 +153,7 @@ class _GmPrep(NamedTuple):
     bb: tuple
     xi0: torch.Tensor  # xi(theta = 0)
     thf: torch.Tensor  # reserve-floor multiplier (None without a floor)
+    k: _Consts
 
 
 def _gm_prep(p, q, Rp, gamma, s, needs_floor):
@@ -136,40 +169,42 @@ def _gm_prep(p, q, Rp, gamma, s, needs_floor):
     thf = _solve_theta_linear(p, q, Rp, gamma, s) if needs_floor else None
     return _GmPrep(
         G1, G2, tuple(r[0] for r in regions), tuple(r[1] for r in regions),
-        xi0, thf,
+        xi0, thf, _consts(p),
     )
 
 
-def _stable_quad_root(a, c):
+def _stable_quad_root(a, c, k: _Consts):
     """Positive root of xi^2 - a*xi - c = 0 (c >= 0), cancellation-safe."""
-    sq = torch.sqrt(a * a + 4.0 * c)
-    pos = 0.5 * (a + sq)
-    neg = (2.0 * c) / torch.clamp_min(sq - a, _tiny(a))
-    return torch.where(a > 0, pos, neg)
+    sq = torch.sqrt(a * a + k.four * c)
+    pos = k.half * (a + sq)
+    neg = (k.two * c) / torch.clamp_min(sq - a, k.tiny)
+    return torch.where(a > k.zero, pos, neg)
 
 
 def _inner_gm(pre: _GmPrep, t):
     """Solve xi = xi_of_theta(theta), theta = t / xi  (t >= 0) in closed form.
 
     Exactly one clip region is consistent; it is found by bracketing the
-    root of G(theta) = theta*xi(theta) - t at the clip breakpoints, then
-    that region's quadratic formula applies.  Returns xi > 0 (for t > 0).
+    root of G(theta) = theta*xi(theta) - t at the clip breakpoints (region
+    1 if G1 >= t, else region 2 if G2 >= t, else region 3), then that
+    region's quadratic formula applies.  Returns xi > 0 (for t > 0).
     """
-    in_r1 = (pre.G1 - t) >= 0
-    in_r2 = (~in_r1) & ((pre.G2 - t) >= 0)
+    k = pre.k
+    in_r1 = (pre.G1 - t) >= k.zero
+    in_r2 = (pre.G2 - t) >= k.zero
     a = torch.where(in_r1, pre.a[0], torch.where(in_r2, pre.a[1], pre.a[2]))
     bb = torch.where(in_r1, pre.bb[0], torch.where(in_r2, pre.bb[1], pre.bb[2]))
-    xi = _stable_quad_root(a, bb * t)
+    xi = _stable_quad_root(a, bb * t, k)
     # t == 0: theta = 0 exactly -> direct evaluation (the quadratic form is
     # wrong there for a < 0)
-    return torch.where(t > _tiny(t), xi, pre.xi0)
+    return torch.where(t > k.tiny, xi, pre.xi0)
 
 
 def _eval_gm(mu, p, q, gamma, w, k0, mask, s, pre: _GmPrep, needs_floor,
              want_dl=False):
     """Coordinate solve at multiplier mu (m,): h(mu) = sum_slots w * log xi,
     monotone nondecreasing in mu; with ``want_dl`` also (D, L)."""
-    t = mu[None, :] * w * k0[None, :]
+    t = mu * w * k0
     xi = _inner_gm(pre, t)
     theta = None
     if want_dl:
@@ -179,7 +214,7 @@ def _eval_gm(mu, p, q, gamma, w, k0, mask, s, pre: _GmPrep, needs_floor,
         if want_dl:
             theta = torch.where(clamped, torch.maximum(pre.thf, theta), theta)
         xi = torch.where(clamped, s, xi)
-    h = torch.sum(w * torch.log(torch.clamp_min(xi, _log_floor(xi))), dim=0)
+    h = _slot_sum(w * torch.log(torch.clamp_min(xi, _log_floor(xi))))
     if not want_dl:
         return h
     D = torch.relu(p + gamma * theta) * mask
@@ -196,7 +231,7 @@ def _eval_cs(mu, p, q, R, gamma, w, mask, thf, want_dl=False):
     nondecreasing in mu.  The reserve floor x >= 0 is clamped in closed
     form through ``thf`` (the multiplier that drives x to 0).
     """
-    theta = mu[None, :] * w
+    theta = w * mu
     D = torch.relu(p + gamma * theta)
     L = torch.relu(q - theta)
     x = R + gamma * D - L
@@ -204,7 +239,7 @@ def _eval_cs(mu, p, q, R, gamma, w, mask, thf, want_dl=False):
     D = torch.relu(p + gamma * theta) * mask
     L = torch.relu(q - theta) * mask
     x = torch.clamp_min(R + gamma * D - L, 0.0) * mask
-    h = torch.sum(w * x, dim=0)
+    h = _slot_sum(w * x)
     if not want_dl:
         return h
     return h, D, L
@@ -217,7 +252,7 @@ def _root_find(h_of_mu, mu_hi, h_target, cfg: ProjectionConfig):
     A fixed trip count: ``cfg.n_bisect`` halvings, then ``cfg.n_polish``
     safeguarded regula-falsi steps.
     """
-    tiny = _tiny(mu_hi)
+    k = _consts(mu_hi)
     zero = torch.zeros_like(mu_hi)
     h0 = h_of_mu(zero)
     feasible0 = h0 >= h_target
@@ -227,13 +262,11 @@ def _root_find(h_of_mu, mu_hi, h_target, cfg: ProjectionConfig):
     hhi = h_of_mu(hi)
     for i in range(cfg.n_bisect + cfg.n_polish):
         if i < cfg.n_bisect:
-            frac = 0.5
+            frac = k.half
         else:
             denom = hhi - hlo
             falsi = torch.where(
-                torch.abs(denom) > tiny,
-                (h_target - hlo) / denom,
-                torch.full_like(denom, 0.5),
+                torch.abs(denom) > k.tiny, (h_target - hlo) / denom, k.half,
             )
             frac = torch.clamp(falsi, 0.05, 0.95)
         mid = lo + frac * (hi - lo)

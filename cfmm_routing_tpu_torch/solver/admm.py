@@ -27,7 +27,14 @@ prices).
 
 The solver runs on the card unless it is given ``device="cpu"``.  The
 iteration loops are Python loops that never read a device value back,
-except the residual check once every ``check_every`` iterations.
+except the residual check once every ``check_every`` iterations.  On the
+card every consensus reduction is a fixed-order segment sum
+(``ops/segment.py``), so two runs give bitwise-equal iterates; on the CPU it
+is ``index_add_``, which is sequential there.
+
+The methods that touch bucket arrays take an optional ``buckets=`` override
+(the refinement stage's delta arrays ride it; see
+``solver/refine_device.py``).
 """
 from __future__ import annotations
 
@@ -44,6 +51,7 @@ from ..ops.iteration_cuda import fused_step
 from ..ops.projection import ProjectionConfig
 from ..ops.projection_cuda import project_cs_cuda, project_gm_cuda
 from ..ops.prox import psi_prox
+from ..ops.segment import segment_sum, slot_order
 from .compiler import CompiledProblem
 
 __all__ = ["AdmmOptions", "AdmmSolver", "RouteResult"]
@@ -98,7 +106,8 @@ class RouteResult(NamedTuple):
 
 
 def _bucket_device_arrays(compiled: CompiledProblem, dtype, device):
-    """Slot-major (K, m) device copies.
+    """Slot-major (K, m) device copies, plus the fixed slot order of the
+    deterministic reduction (``order``, ``seg``: ``ops/segment.py``).
 
     Padding slots carry asset index 0: every consensus read/write is masked
     instead, which keeps the asset vectors at exactly n entries."""
@@ -111,6 +120,8 @@ def _bucket_device_arrays(compiled: CompiledProblem, dtype, device):
         def dev(a, dt=dtype):
             return torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)
 
+        order, seg = slot_order(asset.T, b.mask.T, compiled.n_assets)
+
         out[name] = dict(
             R=dev(b.reserves.T),
             w=dev(b.weights.T),
@@ -120,6 +131,8 @@ def _bucket_device_arrays(compiled: CompiledProblem, dtype, device):
             k0=dev(b.k0),
             mask=dev(b.mask.T),
             asset=dev(asset.T, torch.int32),
+            order=dev(order, torch.int32),
+            seg=dev(seg, torch.int32),
         )
     return out
 
@@ -173,14 +186,18 @@ class AdmmSolver:
     # Broadcast the n-vector nu to every (pool, slot) edge, and reduce
     # per-edge values back to the n-vector.
 
-    def _bcast_nu(self, nu, name):
-        arrs = self.buckets[name]
+    def _bcast_nu(self, nu, name, buckets=None):
+        arrs = (self.buckets if buckets is None else buckets)[name]
         K, m = arrs["mask"].shape
         return nu.index_select(0, arrs["asset"].reshape(-1)).reshape(K, m) * arrs["mask"]
 
-    def _reduce_edges(self, vals, name):
-        """sum_{slots with asset j} vals -> (n,).  vals must be pre-masked."""
-        arrs = self.buckets[name]
+    def _reduce_edges(self, vals, name, buckets=None):
+        """sum_{slots with asset j} vals -> (n,).  vals must be pre-masked.
+        On the card: the fixed-order segment-sum kernel."""
+        arrs = (self.buckets if buckets is None else buckets)[name]
+        if vals.device.type == "cuda":
+            return segment_sum(vals.contiguous(), arrs["order"], arrs["seg"],
+                               self.n)
         return self._zeros(self.n).index_add_(
             0, arrs["asset"].reshape(-1), vals.reshape(-1)
         )
@@ -201,18 +218,19 @@ class AdmmSolver:
             arrs["mask"], cfg=cfg,
         )
 
-    def _iterate(self, z, nu, rho, c, lo, hi, with_stats=True):
+    def _iterate(self, z, nu, rho, c, lo, hi, with_stats=True, buckets=None):
         """One ADMM iteration. Returns (z_new, nu_new, psi, w, stats).
 
         ``with_stats=False`` skips the residual accumulations (the
         ``check_every`` fast path).  z / w are dicts name -> (D, L) pairs of
         (K, m) planes."""
+        buckets = self.buckets if buckets is None else buckets
         alpha = self._alpha
         w_hat = {}
         w_norm2 = self._zeros()
         yhat = self._zeros(self.n)
-        for name, arrs in self.buckets.items():
-            nu_e = self._bcast_nu(nu, name)
+        for name, arrs in buckets.items():
+            nu_e = self._bcast_nu(nu, name, buckets)
             zD, zL = z[name]
             D, L = self._project(name, arrs, zD - nu_e, zL + nu_e)
             if with_stats:
@@ -220,7 +238,7 @@ class AdmmSolver:
             hD = alpha * D + (1.0 - alpha) * zD
             hL = alpha * L + (1.0 - alpha) * zL
             w_hat[name] = (D, L, hD, hL)
-            yhat = yhat + self._reduce_edges(hL - hD, name)
+            yhat = yhat + self._reduce_edges(hL - hD, name, buckets)
 
         s = yhat - 2.0 * self.degree * nu
         psi, mu = psi_prox(s, self.degree, c, lo, hi, rho)
@@ -230,9 +248,9 @@ class AdmmSolver:
         r2 = self._zeros()
         s2 = self._zeros()
         z_norm2 = self._zeros()
-        for name in self.buckets:
+        for name in buckets:
             D, L, hD, hL = w_hat[name]
-            dmu = self._bcast_nu(nu - mu, name)
+            dmu = self._bcast_nu(nu - mu, name, buckets)
             znD = hD + dmu
             znL = hL - dmu
             if with_stats:
@@ -258,10 +276,11 @@ class AdmmSolver:
     # ops/iteration_cuda.py for the derivation).  One kernel launch per
     # bucket per iteration; all consensus algebra outside is O(n).
 
-    def fused_init(self):
+    def fused_init(self, buckets=None):
+        buckets = self.buckets if buckets is None else buckets
         s0 = {
             name: (self._zeros(*arrs["mask"].shape), self._zeros(*arrs["mask"].shape))
-            for name, arrs in self.buckets.items()
+            for name, arrs in buckets.items()
         }
         return s0, self._zeros(self.n), self._zeros(self.n)
 
@@ -276,13 +295,14 @@ class AdmmSolver:
         v = torch.cat([w, self._zeros(n_pad - n)])
         return v, lambda y: y[:n]
 
-    def _iterate_fused(self, s, wdef, nu, rho, c, lo, hi):
+    def _iterate_fused(self, s, wdef, nu, rho, c, lo, hi, buckets=None):
+        buckets = self.buckets if buckets is None else buckets
         alpha = float(self.options.alpha)
         v, unpack = self._fold_pack(wdef - nu)
         y = torch.zeros_like(v)
         s_new = {}
         w_out = {}
-        for name, arrs in self.buckets.items():
+        for name, arrs in buckets.items():
             kind, floor = self._meta[name]
             sD, sL = s[name]
             sDn, sLn, D, L, yp = fused_step(
@@ -297,11 +317,12 @@ class AdmmSolver:
         wdef_new = (1.0 - alpha) * wdef + nu - mu
         return s_new, wdef_new, mu, psi, w_out
 
-    def fused_to_z(self, s, wdef):
+    def fused_to_z(self, s, wdef, buckets=None):
         """Materialize the classic edge state z from the fused state."""
+        buckets = self.buckets if buckets is None else buckets
         z = {}
-        for name in self.buckets:
-            we = self._bcast_nu(wdef, name)
+        for name in buckets:
+            we = self._bcast_nu(wdef, name, buckets)
             sD, sL = s[name]
             z[name] = (sD + we, sL - we)
         return z
@@ -310,19 +331,30 @@ class AdmmSolver:
         """sqrt of the edge count: the absolute-tolerance scale."""
         return math.sqrt(sum(2 * a["mask"].numel() for a in self.buckets.values()))
 
-    def _solve_fused_impl(self, c, lo, hi, rho, n_iters):
+    def _solve_fused_impl(self, c, lo, hi, rho, n_iters, buckets=None,
+                          z0=None, nu0=None):
         """Fixed-iteration solve on the fused-kernel path.
 
         Runs ``n_iters`` fused iterations (one kernel launch per bucket per
         iteration, no residual bookkeeping in the loop), then materializes
         the classic edge state and runs ONE classic iteration to harvest
-        exact residual norms and exactly-feasible primal trades."""
+        exact residual norms and exactly-feasible primal trades.
+
+        ``z0``/``nu0`` warm-start the fused state: z = s + wdef_e with
+        wdef = 0 reproduces any classic edge state exactly, so chunked
+        callers (the refinement stage) chain fused chunks through
+        :meth:`warm_state` with no conversion."""
         opts = self.options
-        s, wdef, nu = self.fused_init()
+        s, wdef, nu = self.fused_init(buckets)
+        if z0 is not None:
+            s = dict(z0)
+        if nu0 is not None:
+            nu = nu0
         for _ in range(n_iters):
-            s, wdef, nu, _, _ = self._iterate_fused(s, wdef, nu, rho, c, lo, hi)
-        z = self.fused_to_z(s, wdef)
-        z, nu, psi, w, st = self._iterate(z, nu, rho, c, lo, hi)
+            s, wdef, nu, _, _ = self._iterate_fused(s, wdef, nu, rho, c, lo, hi,
+                                                    buckets=buckets)
+        z = self.fused_to_z(s, wdef, buckets)
+        z, nu, psi, w, st = self._iterate(z, nu, rho, c, lo, hi, buckets=buckets)
         r = torch.sqrt(st["r2"])
         sd = torch.sqrt(st["s2"])
         sqn = self._sqrt_edges()
@@ -334,8 +366,8 @@ class AdmmSolver:
             objective=torch.sum(c * psi),
             psi=psi,
             prices=rho * nu,
-            deltas={name: w[name][0] for name in self.buckets},
-            lambdas={name: w[name][1] for name in self.buckets},
+            deltas={name: w[name][0] for name in w},
+            lambdas={name: w[name][1] for name in w},
             iters=torch.tensor(n_iters + 1, device=self.device),
             r_norm=r,
             s_norm=sd,  # st["s2"] is already rho-scaled inside _iterate
@@ -382,17 +414,19 @@ class AdmmSolver:
 
     # ---- full solve ---------------------------------------------------------
 
-    def _solve_impl(self, c, lo, hi, rho0, z0=None, nu0=None, max_iters=None):
+    def _solve_impl(self, c, lo, hi, rho0, z0=None, nu0=None, max_iters=None,
+                    buckets=None):
         """Residual-checked solve.  The loop reads one boolean back from the
         device per check (every ``check_every`` iterations)."""
         opts = self.options
+        buckets = self.buckets if buckets is None else buckets
         budget = int(opts.max_iters if max_iters is None else max_iters)
         sqn = self._sqrt_edges()
         if z0 is None:
             z0 = {
                 name: (self._zeros(*arrs["mask"].shape),
                        self._zeros(*arrs["mask"].shape))
-                for name, arrs in self.buckets.items()
+                for name, arrs in buckets.items()
             }
         z = z0
         nu = self._zeros(self.n) if nu0 is None else nu0
@@ -408,8 +442,9 @@ class AdmmSolver:
         while k < budget:
             for _ in range(check_every - 1):
                 z, nu, _, _, _ = self._iterate(z, nu, rho, c, lo, hi,
-                                               with_stats=False)
-            z, nu, psi, w, st = self._iterate(z, nu, rho, c, lo, hi)
+                                               with_stats=False, buckets=buckets)
+            z, nu, psi, w, st = self._iterate(z, nu, rho, c, lo, hi,
+                                              buckets=buckets)
             r = torch.sqrt(st["r2"])
             sd = torch.sqrt(st["s2"])
             eps_pri = opts.eps_abs * sqn + opts.eps_rel * torch.sqrt(

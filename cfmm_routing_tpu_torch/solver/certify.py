@@ -30,6 +30,10 @@ prices nu:
 where hi_j = +inf, nu_j := c_j where the asset is unconstrained, nu_j >= 0
 everywhere.  The reported gap is therefore a TRUE bound on suboptimality
 regardless of how converged the ADMM iterate is.
+
+:func:`polish_prices` tightens the bound by minimizing it over nu (L-BFGS-B
+with the bound's Danskin subgradient); any nu it returns still gives a
+valid bound.
 """
 from __future__ import annotations
 
@@ -43,7 +47,7 @@ from .._device import host, resolve_device
 from ..models.utility import Objective
 from .compiler import CompiledProblem
 
-__all__ = ["Certificate", "certify", "dual_bound"]
+__all__ = ["Certificate", "certify", "dual_bound", "polish_prices"]
 
 _TINY = 1e-300
 # eta search inside the gm support bound: log-space bisection to isolate a
@@ -129,10 +133,14 @@ def _repair_prices(
     return np.maximum(nu, 0.0)
 
 
-def _gm_bound(nu_s, R, w, s, gamma, logk0, mask, evals=None, device=None):
+def _gm_bound(nu_s, R, w, s, gamma, logk0, mask, evals=None, device=None,
+              want_grad=False):
     """Per-pool arbitrage support bound for geo-mean pools.
 
-    nu_s, R, w, s, mask: (m, K);  gamma, logk0: (m,).  Returns (m,) numpy.
+    nu_s, R, w, s, mask: (m, K);  gamma, logk0: (m,).  Returns (m,) numpy,
+    or ((m,), (m, K) d(bound)/d(nu_s)) when ``want_grad`` (Danskin
+    envelope: the pool's net-trade response at the evaluated multiplier and
+    regime, or R where the drain cap binds).
 
     The bound is valid for EVERY inner multiplier eta >= 0; the float64
     search (log-bisection + safeguarded Newton on the piecewise linear
@@ -162,13 +170,15 @@ def _gm_bound(nu_s, R, w, s, gamma, logk0, mask, evals=None, device=None):
         y = torch.where(valid, torch.clamp(y, _TINY, 1e300), 1.0)
         h = torch.sum(w * torch.log(y), dim=1)
         dy = yR - y
+        # response = d(profit)/d(nu): dy when withdrawing, dy/g depositing
+        resp = torch.where(valid, torch.where(dy > 0, dy, dy / g), 0.0)
         profit = torch.where(dy > 0, nu_safe * dy, (nu_safe / g) * dy)
         profit = torch.sum(torch.where(valid, profit, 0.0), dim=1)
         # h is piecewise linear in log(eta): coords on either eta-scaling
         # branch contribute w, clamped (yR / floor) coords contribute 0
         on_eta = ((y_w < yR) & (y_w > floor_y)) | ((y_w >= yR) & (y_d > yR))
         slope = torch.sum(torch.where(on_eta & valid, w, 0.0), dim=1)
-        return profit + eta * (h - logk0), h, slope
+        return profit + eta * (h - logk0), h, slope, resp
 
     hi = torch.amax(
         torch.where(valid, nu_safe * yR / torch.clamp_min(w, 1e-12), 0.0), dim=1
@@ -177,13 +187,13 @@ def _gm_bound(nu_s, R, w, s, gamma, logk0, mask, evals=None, device=None):
 
     for _ in range(nb):
         mid = torch.sqrt(lo) * torch.sqrt(hi)  # geometric midpoint
-        _, h, _ = eval_bound(mid)
+        _, h, _, _ = eval_bound(mid)
         up = h < logk0
         lo, hi = torch.where(up, mid, lo), torch.where(up, hi, mid)
 
     eta = torch.sqrt(lo) * torch.sqrt(hi)
     for _ in range(nn):
-        _, h, slope = eval_bound(eta)
+        _, h, slope, _ = eval_bound(eta)
         up = h < logk0
         lo = torch.where(up, eta, lo)
         hi = torch.where(up, hi, eta)
@@ -193,15 +203,23 @@ def _gm_bound(nu_s, R, w, s, gamma, logk0, mask, evals=None, device=None):
         # flat piece (slope 0): fall back to the geometric midpoint
         eta = torch.where(slope > 1e-12, eta_n, torch.sqrt(lo) * torch.sqrt(hi))
 
-    b_lo, _, _ = eval_bound(torch.clamp_min(lo, 1e-12))
-    b_hi, _, _ = eval_bound(hi)
+    b_lo, _, _, r_lo = eval_bound(torch.clamp_min(lo, 1e-12))
+    b_hi, _, _, r_hi = eval_bound(hi)
     drain = torch.sum(torch.where(valid, nu_safe * R, 0.0), dim=1)
     cand = torch.minimum(torch.minimum(b_lo, b_hi), drain)
     cand = torch.where(torch.isfinite(cand), cand, drain)
-    return host(cand)
+    if not want_grad:
+        return host(cand)
+    r_best = torch.where((b_lo <= b_hi)[:, None], r_lo, r_hi)
+    R_v = torch.where(valid, R, 0.0)
+    grad = torch.where(
+        (cand >= drain - 1e-300)[:, None], R_v,
+        torch.where(torch.isfinite(r_best), r_best, R_v),
+    )
+    return host(cand), host(grad)
 
 
-def _cs_bound(nu_s, R, gamma, q, mask):
+def _cs_bound(nu_s, R, gamma, q, mask, want_grad=False):
     """Closed-form (weighted) constant-sum support.
 
     phi = sum_j q_j x_j: withdrawing L_j and re-depositing through the
@@ -214,7 +232,17 @@ def _cs_bound(nu_s, R, gamma, q, mask):
     ratio = np.where(mask > 0, nu_s / q_safe, np.inf)
     cstar = np.min(ratio, axis=1) / gamma
     gain = np.maximum(nu_s - q_safe * cstar[:, None], 0.0)
-    return np.sum(np.where(mask > 0, R * gain, 0.0), axis=1)
+    bound = np.sum(np.where(mask > 0, R * gain, 0.0), axis=1)
+    if not want_grad:
+        return bound
+    active = (gain > 0.0) & (mask > 0)
+    grad = np.where(active, R, 0.0)
+    # the argmin (deposited) asset absorbs -sum(active q R)/(g q_kmin)
+    kmin = np.argmin(ratio, axis=1)
+    qmin = np.take_along_axis(q_safe, kmin[:, None], axis=1)[:, 0]
+    dep = -np.sum(np.where(active, q * R, 0.0), axis=1) / (gamma * qmin)
+    np.put_along_axis(grad, kmin[:, None], dep[:, None], axis=1)
+    return bound, grad
 
 
 def _linear(objective):
@@ -364,3 +392,80 @@ def certify(
         psi_scale=float(np.max(np.abs(psi_hat), initial=0.0)),
         feasibility_rel_value=feas_rel,
     )
+
+
+def _dual_value_and_grad(compiled, c, lo, hi, nu, device=None):
+    """g(nu) = box support + sum of pool supports, with its subgradient.
+
+    grad g = -psi*(nu) + sum_i (pool i's net-trade response at nu): the
+    market's excess supply at prices nu.  g is convex and minimized where
+    the market clears; any nu in the repair box gives a VALID bound, so a
+    minimizer only ever tightens the certificate."""
+    n = compiled.n_assets
+    d = c - nu
+    lo_f = np.where(np.isfinite(lo), lo, 0.0)
+    hi_f = np.where(np.isfinite(hi), hi, 0.0)
+    take_lo = np.where(np.isfinite(lo), d * lo_f, -np.inf)
+    take_hi = np.where(np.isfinite(hi), d * hi_f, -np.inf)
+    psi_box = np.where(take_lo >= take_hi, lo_f, hi_f)
+    val = np.maximum(take_lo, take_hi)
+    psi_box = np.where(np.isfinite(val), psi_box, 0.0)
+    g_val = float(np.sum(np.where(np.isfinite(val), val, 0.0)))
+    grad = -psi_box.copy()
+
+    nu_ext = np.concatenate([nu, [0.0]])
+    acc = np.zeros(n + 1)
+    for _, b in compiled.buckets.items():
+        nu_s = nu_ext[b.asset]
+        gam = b.gamma[:, 0]
+        if b.kind == "gm":
+            bound, gb = _gm_bound(nu_s, b.reserves, b.weights, b.shift, gam,
+                                  b.logk0, b.mask, device=device, want_grad=True)
+        else:
+            bound, gb = _cs_bound(nu_s, b.reserves, gam, b.weights, b.mask,
+                                  want_grad=True)
+        g_val += float(np.sum(bound))
+        np.add.at(acc, b.asset.reshape(-1), gb.reshape(-1))
+    grad += acc[:n]
+    return g_val, grad
+
+
+def polish_prices(
+    compiled: CompiledProblem,
+    objective: Objective,
+    nu0: np.ndarray,
+    max_evals: int = 200,
+    device=None,
+) -> np.ndarray:
+    """Tighten the dual bound by minimizing g(nu) from ``nu0`` (L-BFGS-B).
+
+    Returns whichever prices give the LOWER bound; rigor is free because
+    every repaired nu >= 0 yields a valid bound.  Linear ``Objective``s
+    only here (queue 1, item 12 in ROADMAP.md covers the utilities).
+    ``device``: where the geo-mean support search runs (the card unless
+    ``"cpu"`` is given)."""
+    from scipy.optimize import minimize
+
+    c, lo, hi = _linear(objective)
+    # the repair box keeps the box support finite: nu >= c where hi=inf,
+    # nu <= c where lo=-inf, nu == c where both, nu >= 0
+    lb = np.maximum(np.where(np.isfinite(hi), 0.0, c), 0.0)
+    ub = np.maximum(np.where(np.isfinite(lo), np.inf, c), lb)
+    x0 = np.clip(_repair_prices(np.asarray(host(nu0), np.float64), c, lo, hi),
+                 lb, ub)
+
+    def fun(x):
+        return _dual_value_and_grad(compiled, c, lo, hi, x, device=device)
+
+    g0, _ = fun(x0)
+    res = minimize(
+        fun, x0, jac=True, method="L-BFGS-B",
+        bounds=list(zip(lb, np.where(np.isfinite(ub), ub, None))),
+        options=dict(maxfun=max_evals, maxiter=max_evals),
+    )
+    if np.all(np.isfinite(res.x)):
+        xr = np.clip(res.x, lb, ub)
+        g1, _ = fun(xr)
+        if g1 < g0:
+            return xr
+    return x0

@@ -1,0 +1,625 @@
+"""Device-resident mixed-precision refinement: an f32 solve polished to a
+certified gap by f32 correction solves on the card, certified in f64.
+
+1.  From the f32 base solve (D0, L0, psi0, nu0), compute in f64 on the host
+    the residual data: post-trade reserves x0 = R + s + gamma*D0 - L0, the
+    log-domain constraint slack, the box residuals, and a correction scale
+    eps from the certificate.
+2.  Re-parametrize exactly: D = D0 + eps*a, L = L0 + eps*b.  The trading
+    sets become the SHIFTED sets of ``ops/projection_delta.py``: same
+    geometry, but the constraint residual is evaluated through ``log1p`` of
+    O(eps)-relative quantities, so f32 carries ~eps * 1e-7 absolute
+    precision on the correction.
+3.  Run the same consensus ADMM on the correction problem with the dual
+    RE-CENTRED at the base prices (:meth:`DeltaAdmmSolver._iterate`: the
+    state dual is dnu = nu - nu0, so no degree-amplified O(d*|nu|) f32
+    products enter the consensus).  On the card the iteration is the fused
+    ``fused_step_delta`` kernel, one launch per bucket.
+4.  Compose D = D0 + eps*a in f64 on the host and certify rigorously
+    (``solver/certify.py``).  Passes re-centre at the refined point.
+
+Linear :class:`Objective`s are covered; utilities raise (queue 1, item 12
+in ROADMAP.md), as do the batched and folded sweep entry points (item 13).
+"""
+from __future__ import annotations
+
+import dataclasses
+import logging
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .._device import host, resolve_device
+from ..models.utility import Objective
+from ..ops.iteration_cuda import fused_step_delta
+from ..ops.projection_cuda import project_cs_delta_cuda, project_gm_delta_cuda
+from .admm import AdmmOptions, AdmmSolver, RouteResult, _F32_BIG, _not_ported
+from .certify import certify, dual_bound, polish_prices
+from .compiler import CompiledProblem
+from .refine import RefineResult, to_host
+
+__all__ = ["DeltaAdmmSolver", "refine_device", "refine_sweep",
+           "SweepRefineResult"]
+
+_LOG = logging.getLogger("cfmm_routing_tpu_torch.refine_device")
+
+
+def _utilities_not_ported(what):
+    return _not_ported(f"{what} for nonlinear utilities", "queue 1, item 12")
+
+
+class DeltaAdmmSolver(AdmmSolver):
+    """The consensus-ADMM solver re-targeted at shifted-scaled trading sets.
+    Topology (asset ids, masks, slot order, degree) is the base problem's;
+    only the per-bucket projection changes.  The pass-varying delta arrays
+    (X0, aD, aL, sS, nsig, nu0e) ride the ``buckets=`` override."""
+
+    def _project(self, name, arrs, pD, pL):
+        kind, floor = self._meta[name]
+        cfg = self.options.projection
+        if kind == "gm":
+            return project_gm_delta_cuda(
+                pD, pL, arrs["X0"], arrs["w"], arrs["sS"], arrs["gamma"],
+                arrs["nsig"], arrs["aD"], arrs["aL"], arrs["mask"],
+                needs_floor=floor, cfg=cfg,
+            )
+        return project_cs_delta_cuda(
+            pD, pL, arrs["X0"], arrs["gamma"], arrs["w"], arrs["nsig"],
+            arrs["aD"], arrs["aL"], arrs["mask"], cfg=cfg,
+        )
+
+    def _delta_prox(self, yhat, c, nu, lo, hi):
+        """The re-centred linear prox: ``c`` carries e0 = c_true/rho - nu0
+        and ``nu`` the delta dual dnu, both small, so no O(d*|nu0|) product
+        is formed:  psi = clip(yhat + 2 d (e0 - dnu)),  dmu = dnu + (psi -
+        yhat) / (2 d)."""
+        d_safe = torch.clamp_min(self.degree, 1.0)
+        live = self.degree > 0
+        psi = torch.clamp(yhat + 2.0 * d_safe * (c - nu), lo, hi)
+        psi = torch.where(live, psi, torch.zeros_like(psi))
+        dmu = nu + (psi - yhat) / (2.0 * d_safe)
+        return psi, torch.where(live, dmu, torch.zeros_like(dmu))
+
+    def _iterate(self, z, nu, rho, c, lo, hi, with_stats=True, buckets=None):
+        """Delta-dual iteration (linear objectives): ``nu`` carries the
+        DELTA dual dnu := nu_full - nu0 and ``c`` the folded constant
+        e0 := c_true/rho - nu0 (f64-computed, small).  The base dual enters
+        the projection input only through the pre-broadcast plane ``nu0e``
+        (no degree amplification)."""
+        buckets = self.buckets if buckets is None else buckets
+        alpha = self._alpha
+        w_hat = {}
+        w_norm2 = self._zeros()
+        yhat = self._zeros(self.n)
+        for name, arrs in buckets.items():
+            off = arrs["nu0e"] + self._bcast_nu(nu, name, buckets)
+            zD, zL = z[name]
+            D, L = self._project(name, arrs, zD - off, zL + off)
+            if with_stats:
+                w_norm2 = w_norm2 + (torch.sum(D * D) + torch.sum(L * L))
+            hD = alpha * D + (1.0 - alpha) * zD
+            hL = alpha * L + (1.0 - alpha) * zL
+            w_hat[name] = (D, L, hD, hL)
+            yhat = yhat + self._reduce_edges(hL - hD, name, buckets)
+
+        psi, dmu = self._delta_prox(yhat, c, nu, lo, hi)
+
+        z_new = {}
+        w_out = {}
+        r2 = self._zeros()
+        s2 = self._zeros()
+        z_norm2 = self._zeros()
+        for name in buckets:
+            D, L, hD, hL = w_hat[name]
+            dmu_e = self._bcast_nu(nu - dmu, name, buckets)
+            znD = hD + dmu_e
+            znL = hL - dmu_e
+            if with_stats:
+                zD, zL = z[name]
+                s2 = s2 + (torch.sum((znD - zD) ** 2) + torch.sum((znL - zL) ** 2))
+                rD = D - znD
+                rL = L - znL
+                r2 = r2 + (torch.sum(rD * rD) + torch.sum(rL * rL))
+                z_norm2 = z_norm2 + (torch.sum(znD * znD) + torch.sum(znL * znL))
+            z_new[name] = (znD, znL)
+            w_out[name] = (D, L)
+
+        u_norm2 = torch.sum(2.0 * self.degree * dmu * dmu)
+        stats = dict(
+            r2=r2, s2=s2 * rho * rho, w_norm2=w_norm2, z_norm2=z_norm2,
+            u_norm2=u_norm2 * rho * rho,
+        )
+        return z_new, dmu, psi, w_out, stats
+
+    def _iterate_fused(self, s, wdef, nu, rho, c, lo, hi, buckets=None):
+        """Fused delta iteration: one ``fused_step_delta`` launch per bucket.
+        The deferred-broadcast identity z = s +/- wdef_e is untouched by
+        the re-centring (nu0e enters only the projection input, inside the
+        kernel), so the O(n) recursion is the base fused path's."""
+        buckets = self.buckets if buckets is None else buckets
+        alpha = float(self.options.alpha)
+        v, unpack = self._fold_pack(wdef - nu)
+        y = torch.zeros_like(v)
+        s_new = {}
+        w_out = {}
+        for name, arrs in buckets.items():
+            kind, floor = self._meta[name]
+            sD, sL = s[name]
+            sDn, sLn, A, B, yp = fused_step_delta(
+                sD, sL, v, arrs, kind, floor, alpha, cfg=self.options.projection,
+            )
+            s_new[name] = (sDn, sLn)
+            w_out[name] = (A, B)
+            y = y + yp
+        yhat = unpack(y) - 2.0 * (1.0 - alpha) * self.degree * wdef
+        psi, mu = self._delta_prox(yhat, c, nu, lo, hi)
+        wdef_new = (1.0 - alpha) * wdef + nu - mu
+        return s_new, wdef_new, mu, psi, w_out
+
+    def solve_fused(self, *a, **k):
+        raise ValueError(
+            "DeltaAdmmSolver's fused path needs the per-pass delta bucket "
+            "arrays: use solve_delta(..., fused=True)"
+        )
+
+    def delta_buckets(self, base: RouteResult, eps: float, nu0=None):
+        """Pass-varying device arrays for the correction problem.
+
+        ``base``: a host RouteResult in the units of the solver's
+        CompiledProblem.  ``nu0``: the f32-exact base scaled dual; when
+        given, every bucket gains the pre-broadcast ``nu0e`` plane the
+        delta-dual iteration reads.  Returns (buckets, min_x0) with min_x0
+        the smallest real-slot post-trade reserve: callers fall back to the
+        host path unless it is positive (the log-domain constraint needs
+        x0 > 0)."""
+        out = {}
+        min_x0 = np.inf
+        nu0_ext = (None if nu0 is None
+                   else np.concatenate([np.asarray(nu0, np.float64), [0.0]]))
+        for name, b in self.compiled.buckets.items():
+            kind, _ = self._meta[name]
+            D0 = np.asarray(base.deltas[name], np.float64)  # (K, m)
+            L0 = np.asarray(base.lambdas[name], np.float64)
+            maskT = b.mask.T
+            gamma = b.gamma[:, 0][None, :]
+            if kind == "gm":
+                x0 = (b.reserves + b.shift).T + gamma * D0 - L0
+                x0 = np.where(maskT > 0, x0, 1.0)
+                logx0 = np.log(np.maximum(x0, 1e-300))
+                nsig = -(np.sum(b.weights.T * logx0, axis=0) - b.logk0)
+                real = np.where(maskT > 0, x0, np.inf)
+                min_x0 = min(min_x0, float(np.min(real, initial=np.inf)))
+            else:
+                x0 = b.reserves.T + gamma * D0 - L0
+                x0 = np.where(maskT > 0, x0, 1.0)
+                s0 = np.sum(b.weights.T * np.where(maskT > 0, x0, 0.0), axis=0)
+                nsig = -(s0 - b.k0) / eps  # scaled linear slack target
+            planes = dict(
+                w=b.weights.T,
+                # lower-bounded: an extreme eps must not underflow X0 to 0
+                # (it divides the constraint argument u = v / X0)
+                X0=np.where(maskT > 0, np.maximum(x0 / eps, 1e-30), 1.0),
+                aD=-D0 / eps,
+                aL=-L0 / eps,
+                sS=b.shift.T / eps,
+                nsig=nsig,
+            )
+            if nu0_ext is not None:
+                planes["nu0e"] = nu0_ext[b.asset].T * maskT
+            arrs = dict(self.buckets[name])  # asset/mask/gamma/order reused
+            for key, val in planes.items():
+                # f64 -> working dtype on the host, then one upload
+                arrs[key] = torch.as_tensor(
+                    np.ascontiguousarray(val).astype(_np_dtype(self.dtype)),
+                    device=self.device,
+                )
+            out[name] = arrs
+        return out, min_x0
+
+    def solve_delta(
+        self,
+        objective,
+        bdict,
+        nu0: np.ndarray,
+        rho: float,
+        max_iters: int,
+        warm: Optional[RouteResult] = None,
+        fused: bool = False,
+    ) -> RouteResult:
+        """One correction solve on the delta bucket arrays.
+
+        Linear objectives run the delta-dual iteration: the state dual is
+        dnu = nu - nu0 (starts at 0), ``c`` carries e0 = c/rho - nu0, and
+        the returned ``prices`` are rho*dnu (add rho*nu0 for the true
+        prices; :func:`refine_device` does).  ``warm`` chains chunks within
+        a pass (a same-space RouteResult).
+
+        ``fused=True`` runs ``max_iters`` fused delta iterations (the
+        ``fused_step_delta`` kernel on the card, its plain version on the
+        CPU) plus one classic residual-harvest iteration; every bucket's
+        pool count must be a multiple of 128."""
+        c, lo, hi, start_nu = _prep_delta_solve(objective, nu0, rho, self)
+        if warm is not None:
+            z0, nu_start = self.warm_state(warm, rho)
+        else:
+            z0, nu_start = None, self._t(start_nu)
+        rho_t = self._t(rho)
+        if fused:
+            if not _fused_delta_ok(self):
+                raise ValueError(
+                    "fused=True needs every bucket's pool count to be a "
+                    "multiple of 128: compile with pad_pools_to=128"
+                )
+            return self._solve_fused_impl(c, lo, hi, rho_t, int(max_iters),
+                                          buckets=bdict, z0=z0, nu0=nu_start)
+        return self._solve_impl(c, lo, hi, rho_t, z0, nu_start,
+                                max_iters=int(max_iters), buckets=bdict)
+
+    def delta_buckets_batch(self, *args, **kwargs):
+        raise _not_ported("batched delta arrays (delta_buckets_batch)",
+                          "queue 1, item 13")
+
+    def solve_delta_batch(self, *args, **kwargs):
+        raise _not_ported("batched correction solves (solve_delta_batch)",
+                          "queue 1, item 13")
+
+
+def _np_dtype(dtype: torch.dtype):
+    return np.float64 if dtype == torch.float64 else np.float32
+
+
+def _prep_delta_solve(objective, nu0, rho: float, solver):
+    """(c, lo, hi, start_nu) for one correction solve of a linear objective:
+    c = e0 = c/rho - nu0 (f64, then the working dtype), the box clipped to
+    the f32 range, and the delta dual starting at 0."""
+    if not isinstance(objective, Objective):
+        raise _utilities_not_ported("correction solves")
+    nu0 = np.asarray(nu0, np.float64)
+    e0 = np.asarray(objective.c, np.float64) / float(rho) - nu0
+    lo = solver._t(np.maximum(objective.lo, -_F32_BIG))
+    hi = solver._t(np.minimum(objective.hi, _F32_BIG))
+    return solver._t(e0), lo, hi, np.zeros_like(nu0)
+
+
+def _curvature_scale(objective, psi0: np.ndarray) -> float:
+    """max_j |U''_j(psi0_j)| of the objective: 0 for a linear one.  The
+    delta objective's curvature is eps times this, which sets the
+    eps-regime penalty of :func:`refine_device`."""
+    if not isinstance(objective, Objective):
+        raise _utilities_not_ported("refinement")
+    return 0.0
+
+
+def _delta_precise(objective) -> bool:
+    """Whether the re-centred (delta-dual) iteration covers the objective:
+    every linear one does."""
+    if not isinstance(objective, Objective):
+        raise _utilities_not_ported("refinement")
+    return True
+
+
+def _delta_objective(objective, psi0: np.ndarray, eps: float):
+    """The correction problem's objective U(psi0 + eps d)/eps.  The 1/eps
+    scaling keeps the correction's dual prices on the original price scale,
+    so the base dual warm-starts it and the refined prices feed the
+    certificate unchanged.  Linear: c d on the shifted, scaled box."""
+    if not isinstance(objective, Objective):
+        raise _utilities_not_ported("refinement")
+    return Objective(objective.c, (objective.lo - psi0) / eps,
+                     (objective.hi - psi0) / eps)
+
+
+def _compose(compiled, base, delta: RouteResult, eps: float, objective,
+             prices=None):
+    """f64 host composition of the refined point: D = D0 + eps*a, clamped
+    to the orthant (the scaled bound is exact to f32, so the clamp moves a
+    coordinate by at most ~1e-7*eps*|D0|, toward feasibility).  psi is
+    recomputed from the composed trades."""
+    deltas = {}
+    lambdas = {}
+    for name in compiled.buckets:
+        D0 = np.asarray(base.deltas[name], np.float64)
+        L0 = np.asarray(base.lambdas[name], np.float64)
+        deltas[name] = np.maximum(
+            D0 + eps * np.asarray(delta.deltas[name], np.float64), 0.0)
+        lambdas[name] = np.maximum(
+            L0 + eps * np.asarray(delta.lambdas[name], np.float64), 0.0)
+    composed = base._replace(deltas=deltas, lambdas=lambdas)
+    psi = _psi_from_trades(compiled, composed)
+    if prices is None:
+        prices = np.asarray(delta.prices, np.float64)
+    return composed._replace(
+        objective=np.float64(np.asarray(objective.c, np.float64) @ psi),
+        psi=psi,
+        prices=prices,
+        iters=np.asarray(base.iters) + np.asarray(delta.iters),
+        r_norm=np.asarray(delta.r_norm),
+        s_norm=np.asarray(delta.s_norm),
+        converged=np.asarray(delta.converged),
+        rho_final=np.asarray(delta.rho_final),
+    )
+
+
+def _psi_from_trades(compiled, point: RouteResult) -> np.ndarray:
+    """Exact f64 net trade of the point's TRADES (the consensus iterate
+    ``point.psi`` lags them by the primal residual)."""
+    psi = np.zeros(compiled.n_assets + 1)
+    for name, b in compiled.buckets.items():
+        D = np.asarray(point.deltas[name], np.float64)
+        L = np.asarray(point.lambdas[name], np.float64)
+        np.add.at(psi, b.asset.reshape(-1), ((L.T - D.T) * b.mask).reshape(-1))
+    return psi[: compiled.n_assets]
+
+
+def _fused_delta_ok(solver) -> bool:
+    """Whether the fused delta path can run: every bucket's pool count is a
+    multiple of 128."""
+    return all(int(a["mask"].shape[1]) % 128 == 0 for a in solver.buckets.values())
+
+
+def _on_accelerator(solver) -> bool:
+    """Whether the solver runs on the card (the fused kernel's device)."""
+    return solver.device.type == "cuda"
+
+
+class SweepRefineResult:
+    """Batched refinement output; not ported yet (queue 1, item 13)."""
+
+    def __init__(self, *args, **kwargs):
+        raise _not_ported("SweepRefineResult", "queue 1, item 13")
+
+
+def _delta_buckets_folded(*args, **kwargs):
+    raise _not_ported("folded delta arrays (_delta_buckets_folded)",
+                      "queue 1, item 13")
+
+
+def refine_sweep(*args, **kwargs):
+    raise _not_ported("refine_sweep (batched sweep refinement)",
+                      "queue 1, item 13")
+
+
+def refine_device(
+    compiled: CompiledProblem,
+    objective,
+    result: RouteResult,
+    target_gap: float = 1e-6,
+    options: Optional[AdmmOptions] = None,
+    max_passes: int = 4,
+    chunk_iters: int = 250,
+    chunks_per_pass: int = 8,
+    solver: Optional[DeltaAdmmSolver] = None,
+    polish: bool = True,
+    cert_space=None,
+    rho0: Optional[float] = None,
+    eps_factor: float = 10.0,
+    fused: Optional[bool] = None,
+    entry_cert=None,
+    device=None,
+) -> RefineResult:
+    """Polish an f32 solve to a certified gap with f32 correction solves on
+    the device (see the module docstring); the certificate stays a rigorous
+    f64 pass.  Returns host-side numpy arrays only.
+
+    ``solver``: a pre-built :class:`DeltaAdmmSolver` (with
+    ``adapt_rho=False``) to reuse across calls.  ``device``: where the
+    correction solves and the certificates' eta search run; the card
+    unless ``"cpu"`` is given (a passed solver brings its own).
+
+    ``cert_space``: optional ``(cert_compiled, cert_objective, unscale_fn)``:
+    refine in this (typically equilibrated) space but evaluate every
+    certificate, and return the result, in the space ``unscale_fn`` maps to.
+
+    ``fused``: run the correction solves on the fused delta path.  Default
+    ``None`` = auto: fused when every bucket's pool count is a multiple of
+    128 AND the solver runs on the card.  ``fused=True`` on a CPU solver
+    runs the plain fused delta version.
+
+    ``entry_cert``: a certificate of ``result`` the caller already has, in
+    cert_space units (skips the entry certificate)."""
+    if not isinstance(objective, Objective):
+        raise _utilities_not_ported("refine_device")
+    dev = solver.device if solver is not None else resolve_device(device)
+    base_opts = options if options is not None else AdmmOptions()
+    cur = to_host(result)
+    if cert_space is None:
+        cert_compiled, cert_objective = compiled, objective
+        unscale_fn = lambda r: r  # noqa: E731
+    else:
+        cert_compiled, cert_objective, unscale_fn = cert_space
+
+    def _hit(c):
+        return abs(c.gap_rel) <= target_gap and c.feasibility_rel <= target_gap
+
+    # at most 2 polish attempts per call: the L-BFGS dual search costs ~n
+    # dual-bound evaluations, and repeated attempts from near-identical
+    # prices rediscover the same point
+    polish_budget = [2]
+
+    def _cert(point):
+        point = unscale_fn(point)
+        cert = certify(cert_compiled, cert_objective, point.deltas,
+                       point.lambdas, point.prices, psi_claimed=point.psi,
+                       device=dev)
+        # the price polish closes NEAR-MISS dual looseness only: it cannot
+        # repair primal feasibility
+        near_miss = (
+            cert.gap_rel < max(20.0 * target_gap, 1e-5)
+            and cert.feasibility_rel <= target_gap
+            and polish_budget[0] > 0
+        )
+        if polish and not _hit(cert) and cert.gap_abs > 0 and near_miss:
+            polish_budget[0] -= 1
+            nu_p = polish_prices(cert_compiled, cert_objective,
+                                 np.asarray(point.prices), max_evals=60,
+                                 device=dev)
+            cert_p = certify(cert_compiled, cert_objective, point.deltas,
+                             point.lambdas, nu_p, psi_claimed=point.psi,
+                             device=dev)
+            if cert_p.gap_abs < cert.gap_abs:
+                cert = cert_p
+        return cert
+
+    cert = entry_cert if entry_cert is not None else _cert(cur)
+    if _hit(cert):
+        return RefineResult(result=unscale_fn(cur), certificate=cert, iters=0,
+                            achieved=True)
+
+    if solver is None:
+        opts = dataclasses.replace(
+            base_opts,
+            max_iters=max(base_opts.max_iters, chunk_iters),
+            # residual tolerances on the SCALED correction (its f32 floor);
+            # rho adaptation off: the delta-dual iteration folds c/rho - nu0
+            # into a per-solve constant that a penalty rescale would break
+            eps_abs=1e-8, eps_rel=1e-8, adapt_rho=False,
+        )
+        solver = DeltaAdmmSolver(compiled, dtype=torch.float32, options=opts,
+                                 device=dev)
+    elif solver.options.adapt_rho:
+        raise ValueError(
+            "refine_device needs a solver with adapt_rho=False: the "
+            "delta-dual iteration folds c/rho - nu0 into a per-solve "
+            "constant that an in-solve penalty rescale invalidates (build "
+            "the solver with AdmmOptions(adapt_rho=False, eps_abs=1e-8, "
+            "eps_rel=1e-8))"
+        )
+    if fused is None:
+        fused = _fused_delta_ok(solver) and _on_accelerator(solver)
+    elif fused and not _fused_delta_ok(solver):
+        raise ValueError(
+            "fused=True needs every bucket's pool count to be a multiple of "
+            "128: compile with pad_pools_to=128"
+        )
+
+    total = 0
+    # Two penalty regimes, tried as a ladder: 'base' (the base solve's
+    # penalty, clamped) suits feasibility repair and near-converged entry
+    # duals; 'eps' (curvature-matched, eps-scaled) grinds a positive gap.
+    # A pass that fails to improve switches regime; two in a row end it.
+    mode = "base"
+    pass_fails = 0
+    for _ in range(int(max_passes)):
+        score_entry = max(abs(cert.gap_rel), cert.feasibility_rel)
+        psi0 = _psi_from_trades(compiled, cur)
+        cur = cur._replace(psi=psi0)
+        # eps in solve-space PER-SLOT trade units (a per-asset psi scale
+        # oversizes it by the fan-in and the fixed-penalty solve crawls)
+        scale = max(1.0, max(
+            max(float(np.max(np.abs(np.asarray(cur.deltas[k])))),
+                float(np.max(np.abs(np.asarray(cur.lambdas[k])))))
+            for k in cur.deltas
+        ))
+        err = max(cert.feasibility_rel, abs(cert.gap_rel), 1e-12)
+        eps = float(np.clip(eps_factor * err * scale, 1e-10 * scale, np.inf))
+        curv = _curvature_scale(objective, psi0)
+        if rho0 is not None:
+            rho = float(rho0)
+        elif mode == "eps":
+            rho = float(np.clip(eps * max(curv, 1.0), 1e-6, 4.0))
+        else:
+            # a collapsed base rho blows nu0 = prices/rho up and the
+            # delta-dual design's f32 noise with it: clamp into [0.25, 4]
+            rho = float(np.clip(np.asarray(cur.rho_final), 0.25, 4.0))
+        precise = _delta_precise(objective)
+        # f32-round nu0 ONCE and use the identical values in the nu0e
+        # planes, in e0, and in the price reconstruction: consistency of
+        # the re-centring constant is what makes the fold exact
+        nu0f = ((np.asarray(cur.prices, np.float64) / rho)
+                .astype(np.float32).astype(np.float64))
+        bdict, min_x0 = solver.delta_buckets(cur, eps,
+                                             nu0=nu0f if precise else None)
+        if not (min_x0 > 0.0) or not np.isfinite(min_x0):
+            _LOG.warning(
+                "refine_device: base point has a non-positive post-trade "
+                "reserve (min x0 = %g); falling back to the float64 refine "
+                "path", min_x0,
+            )
+            from .refine import refine as _f64_refine
+
+            out = _f64_refine(cert_compiled, cert_objective, unscale_fn(cur),
+                              target_gap=target_gap, options=base_opts,
+                              device=dev)
+            return RefineResult(result=out.result, certificate=out.certificate,
+                                iters=total + out.iters, achieved=out.achieved)
+        dobj = _delta_objective(objective, psi0, eps)
+        dwarm = None
+        improved = False
+        # the chunked delta trajectory is relative to THIS pass's centre
+        center = cur
+        prev_gate = None
+        full_misses = 0
+        for _c in range(int(chunks_per_pass)):
+            dres = solver.solve_delta(dobj, bdict, nu0f, rho, chunk_iters,
+                                      warm=dwarm, fused=fused)
+            # cheap solve-space gate on the small (n,) leaves; the trade
+            # planes stay on the device until a candidate is certified
+            it = int(host(dres.iters))
+            total += it
+            done = it < chunk_iters or bool(host(dres.converged))
+            psi_cand = psi0 + eps * np.asarray(host(dres.psi), np.float64)
+            prices_solve = np.asarray(host(dres.prices), np.float64)
+            if precise:
+                prices_solve = rho * nu0f + prices_solve
+            dualb = dual_bound(compiled, objective, prices_solve, evals=(8, 4),
+                               device=dev)
+            obj_cand = float(np.asarray(objective.c, np.float64) @ psi_cand)
+            gap_est = (dualb - obj_cand) / max(1.0, abs(obj_cand), abs(dualb))
+            lo_o = np.asarray(objective.lo, np.float64)
+            hi_o = np.asarray(objective.hi, np.float64)
+            box_est = float(np.max(
+                np.maximum(lo_o - psi_cand, psi_cand - hi_o).clip(min=0.0),
+                initial=0.0,
+            )) / max(1.0, float(np.max(np.abs(psi_cand), initial=0.0)))
+            gate_score = max(abs(gap_est), box_est)
+            # the gate reads the consensus psi, which lags the trades: fire
+            # the full certificate with slack (5x target) and whenever the
+            # gate stops improving quickly
+            gate_hit = gate_score <= 5.0 * target_gap
+            stalled = prev_gate is not None and gate_score > 0.7 * prev_gate
+            prev_gate = gate_score
+            if not (gate_hit or done or stalled or _c == int(chunks_per_pass) - 1):
+                dwarm = dres  # chain chunks on the device
+                continue
+            dwarm = dres
+            dhost = to_host(dres)
+            prices_true = (rho * nu0f + np.asarray(dhost.prices, np.float64)
+                           if precise else None)
+            cand = _compose(compiled, center, dhost, eps, objective,
+                            prices=prices_true)
+            cand_cert = _cert(cand)
+            _LOG.debug(
+                "refine chunk: r=%.2e s=%.2e gap=%.2e feas=%.2e (eps=%.3g rho=%.3g)",
+                float(dhost.r_norm), float(dhost.s_norm), cand_cert.gap_rel,
+                cand_cert.feasibility_rel, eps, rho,
+            )
+            if (max(cand_cert.feasibility_rel, abs(cand_cert.gap_rel))
+                    < max(cert.feasibility_rel, abs(cert.gap_rel))):
+                improved = True
+                full_misses = 0
+                cur, cert = cand, cand_cert
+            else:
+                full_misses += 1
+            if _hit(cert):
+                return RefineResult(result=unscale_fn(cur), certificate=cert,
+                                    iters=total, achieved=True)
+            if done:
+                break  # delta solve residual-converged; re-centre
+            if full_misses >= 2 and max(abs(cert.gap_rel),
+                                        cert.feasibility_rel) > 10.0 * target_gap:
+                break  # two certified misses in a row, far from target
+        if not improved:
+            pass_fails += 1
+            if pass_fails >= 2:
+                break  # both penalty regimes stalled
+            mode = "eps" if mode == "base" else "base"
+        else:
+            pass_fails = 0
+            score_now = max(abs(cert.gap_rel), cert.feasibility_rel)
+            if score_now > 0.5 * score_entry:
+                # progress is slowing in this regime: the other one attacks
+                # the orthogonal mode (dual vs primal)
+                mode = "eps" if mode == "base" else "base"
+    return RefineResult(result=unscale_fn(cur), certificate=cert, iters=total,
+                        achieved=False)

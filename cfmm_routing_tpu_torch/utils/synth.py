@@ -22,6 +22,7 @@ __all__ = [
     "random_arbitrage",
     "random_network_table",
     "random_arbitrage_table",
+    "mixed_width_arbitrage",
 ]
 
 
@@ -150,3 +151,29 @@ def random_arbitrage_table(n_assets: int, n_pools: int, seed: int = 0, **kw):
     rng = np.random.default_rng(seed + 1)
     prices = np.exp(rng.normal(0.0, 1.0, size=n_assets))
     return table, Objective.arbitrage(prices)
+
+
+def mixed_width_arbitrage(widths=(3, 5, 12), n_assets: int = 16,
+                          pools_per_width: int = 48, seed: int = 0):
+    """A network of wide pools + an arbitrage objective: for each width in
+    ``widths``, geo-mean, bounded-liquidity (reserve floor) and
+    constant-sum pools in turn, each over that many distinct assets.
+    Compiled with ``pad_pow2=False`` its buckets keep those widths; with
+    ``pad_pow2=True`` they round up to powers of two."""
+    rng = np.random.default_rng(seed)
+    value = np.exp(rng.normal(0.0, 0.5, size=n_assets))
+    pools = []
+    for k in widths:
+        for i in range(pools_per_width):
+            assets = rng.choice(n_assets, size=k, replace=False)
+            R = rng.uniform(50.0, 150.0) / value[assets] * rng.lognormal(0.0, 0.1, k)
+            if i % 3 == 0:
+                pools.append(GeoMeanPool(assets, R, rng.uniform(0.5, 2.0, k),
+                                         fee=0.997))
+            elif i % 3 == 1:
+                pools.append(BoundedProductPool(
+                    assets, R, R * rng.uniform(0.5, 2.0, k), fee=0.997))
+            else:
+                pools.append(ConstantSumPool(assets, R, fee=0.999))
+    market = value * rng.lognormal(0.0, 0.05, size=n_assets)
+    return ProblemSpec(n_assets, pools), Objective.arbitrage(market)

@@ -9,35 +9,59 @@ Phases (any failure raises and the script exits nonzero):
 
 1. The card's name and power limit, the torch and CUDA versions, and the
    build of every CUDA kernel from ``cfmm_routing_tpu_torch/csrc``.
-2. Each kernel against its plain PyTorch version on the card, at the five
-   bucket shapes of the 100k-pool network, from a mid-solve state (20 plain
-   fused iterations): ``project_gm`` (gm2, gm2f, gm4) and ``project_cs``
-   (cs2f, cs4f) in float32 at the main path's ProjectionConfig(24, 4) and in
-   float64 at the default (48, 6); ``fused_step`` on every bucket.
-   Tolerances: projections atol 5e-5 (float32) / 1e-10 (float64); the fused
-   step atol 2e-5 on (sD', sL', D, L) and atol 2e-5 + rtol 1e-5 on y, whose
-   per-asset sums of thousands of slots are taken with atomics.
-3. The reference optima in float64 on the card through ``api.arbitrage`` /
-   ``api.liquidate`` / ``api.route`` with ``certify=True``; each pin must
-   hold to 1e-6 relative.
+2. Each kernel against its plain PyTorch version on the card.
+   a. At the five bucket shapes of the 100k-pool network, from a mid-solve
+      state (20 plain fused iterations): ``project_gm`` (gm2, gm2f, gm4)
+      and ``project_cs`` (cs2f, cs4f) in float32 at the main path's
+      ProjectionConfig(24, 4) and in float64 at the default (48, 6);
+      ``fused_step`` and ``segment_sum`` on every bucket.
+   b. ``fused_step_delta`` and the standalone ``project_gm_delta`` /
+      ``project_cs_delta`` at the same five shapes, on the delta arrays
+      that ``DeltaAdmmSolver.delta_buckets`` builds from a real 100k base
+      solve, after 5 plain fused delta iterations: float32 and float64 at
+      (48, 6).
+   c. Any K: a network of 3-, 5- and 12-asset pools compiled with
+      ``pad_pow2=False`` (the run-time-K kernels) and ``pad_pow2=True``
+      (K = 4, 8, 16): all six kernels in float32.
+   Tolerances: projections atol 5e-5 (float32) / 1e-10 (float64); fused
+   steps atol 2e-5 (1e-10) on the planes and also rtol 1e-5 on y; the
+   segment sum must be bitwise equal to its plain version, whose order of
+   additions the plain fused steps share.
+3. The reference optima on the card: in float64 through ``api.arbitrage`` /
+   ``api.liquidate`` / ``api.route(certify=True)``, each pin to 1e-6; in
+   float32 through the same calls with ``refine_to=1e-7`` (bench.py's base
+   options), each certified and pinned to 2e-6; and again compiled with
+   ``pad_pools_to=128`` through ``refine_device(fused=True)``, where the
+   ``fused_step_delta`` launches must equal buckets x fused iterations.
 4. The main path at full width: ``random_arbitrage_table(256, 100_000,
    seed=7)`` -> ``equilibrate`` -> ``compile_table(pad_pools_to=1024)`` ->
    ``AdmmSolver.solve_fused(iters=499)`` in float32 -> ``unscale_result`` ->
    ``certify``, with every kernel's launch count reset just before and read
-   just after.  The kernel path's objective must match the plain path's
-   (the same solve with the solver's kernel wrappers replaced by their
-   plain versions) and the classic path's to 1e-3 relative, and a second
-   kernel run must match the first to 1e-5 relative.
+   just after.  The kernel path's objective must match the plain path's and
+   the classic path's to 1e-3 relative; a second kernel run, and a second
+   50-iteration classic solve, must be bitwise equal to the first.
+5. The certified route at full width: the same network -> float32 classic
+   ``AdmmSolver.solve`` (max_iters=3000, eps 1e-7, ProjectionConfig(24, 4))
+   -> ``refine_device(target_gap=1e-6)`` on the fused delta kernel, with the
+   certificate in original units.  Counts reset before, read after; the
+   kernel must run 5 launches per fused delta iteration, no host fallback
+   may be taken, and the certificate must be finite and no worse than at
+   entry.  Whether 1e-6 was reached is printed, not asserted.
 
 It prints one JSON line describing every kernel of the path (device times
 from CUDA events around CUDA-graph replays of back-to-back calls, summed
-over the buckets one iteration runs; bounds from this run's shapes), the
-card's name and power limit as ``nvidia-smi`` reports them, and last
-``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+over the buckets one iteration runs; the plain fused steps and the plain
+segment sum, which read a size back to the host, from eager calls; the
+fused steps' times include their segment-sum launch; bounds from this run's shapes; launches summed over the
+runs of phases 4 and 5), the card's name and power limit as ``nvidia-smi``
+reports them, and last ``{"ok": true, "device": {"platform": "gpu",
+"kind": ..., "count": ...}}``.
 """
 import argparse
 import contextlib
+import dataclasses
 import json
+import logging
 import math
 import statistics
 import subprocess
@@ -54,6 +78,24 @@ EXPECTED_BUCKETS = {"gm2": (73728, 2), "gm2f": (10240, 2), "gm4": (7168, 4),
                     "cs2f": (4096, 2), "cs4f": (7168, 4)}
 PINS = (("arbitrage", 21.499805), ("liquidation", 15.883010),
         ("two-asset t=25", 31.005495))
+SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
+    "project_gm": ("cfmm_routing_tpu_torch/csrc/projection.cu",
+                   "cfmm_routing_tpu/ops/projection_pallas.py:303"),
+    "project_cs": ("cfmm_routing_tpu_torch/csrc/projection.cu",
+                   "cfmm_routing_tpu/ops/projection_pallas.py:319"),
+    # the refinement's classic projections: plain jnp on the TPU, no Pallas
+    "project_gm_delta": ("cfmm_routing_tpu_torch/csrc/projection_delta.cu",
+                         "cfmm_routing_tpu/ops/projection_delta.py:188"),
+    "project_cs_delta": ("cfmm_routing_tpu_torch/csrc/projection_delta.cu",
+                         "cfmm_routing_tpu/ops/projection_delta.py:237"),
+    "fused_step": ("cfmm_routing_tpu_torch/csrc/fused_step.cu",
+                   "cfmm_routing_tpu/ops/iteration_pallas.py:260"),
+    "fused_step_delta": ("cfmm_routing_tpu_torch/csrc/fused_step_delta.cu",
+                         "cfmm_routing_tpu/ops/iteration_pallas.py:602"),
+    # the consensus reduction of both fused kernels (one-hot products)
+    "segment_sum": ("cfmm_routing_tpu_torch/csrc/segment_sum.cu",
+                    "cfmm_routing_tpu/ops/iteration_pallas.py:252"),
+}
 
 
 def log(msg):
@@ -88,6 +130,21 @@ def graph_ms(fn, n=20, reps=5):
     return statistics.median(samples)
 
 
+def eager_ms(fn, n=5):
+    """Time of one call of ``fn`` from CUDA events around ``n`` eager calls,
+    host launch overhead included: for a plain version that reads a size
+    back to the host and so cannot be captured in a CUDA graph."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / n
+
+
 def max_err(got, want):
     return max(float((a - b).abs().max()) for a, b in zip(got, want))
 
@@ -100,6 +157,12 @@ def check_close(label, got, want, atol, rtol=0.0):
                 f"{label}: output {i} differs from the plain version by "
                 f"{float((a - b).abs().max()):.3e} (atol {atol}, rtol {rtol})"
             )
+
+
+def check_fused(label, got, want, atol):
+    """A fused step's (sD', sL', D, L) to atol, y also to rtol 1e-5."""
+    check_close(label, got[:4], want[:4], atol)
+    check_close(f"{label} y", got[4:], want[4:], atol, rtol=1e-5)
 
 
 def gm_or_cs_bytes(kind, K, m, es):
@@ -115,10 +178,29 @@ def bound_ms(bytes_, flops, dtype):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def projection_flops(cfg, K, m):
-    # the Pallas kernels' own cost model: 60 flops per slot per root-find
-    # step (projection_pallas.py:292-296, iteration_pallas.py:357-361)
-    return 60 * (cfg.n_bisect + cfg.n_polish) * K * m
+def projection_flops(cfg, K, m, per_step=60):
+    # the Pallas kernels' own cost models, without their one-hot exchange:
+    # 60 flops per slot per root-find step (projection_pallas.py:292-296,
+    # iteration_pallas.py:357-361), 80 for the delta projection (:701-705)
+    return per_step * (cfg.n_bisect + cfg.n_polish) * K * m
+
+
+def delta_projection_calls(kind, floor, p, q, a, cfg, kernels, plains):
+    """(kernel, plain) zero-argument calls of the standalone delta
+    projection of one delta bucket ``a`` at input (p, q)."""
+    if kind == "gm":
+        args = (p, q, a["X0"], a["w"], a["sS"], a["gamma"], a["nsig"], a["aD"],
+                a["aL"], a["mask"])
+        return (lambda: kernels[0](*args, needs_floor=floor, cfg=cfg),
+                lambda: plains[0](*args, needs_floor=floor, cfg=cfg))
+    args = (p, q, a["X0"], a["gamma"], a["w"], a["nsig"], a["aD"], a["aL"],
+            a["mask"])
+    return (lambda: kernels[1](*args, cfg=cfg), lambda: plains[1](*args, cfg=cfg))
+
+
+def segment_bytes(n_real, n, n_out, es):
+    # each real slot's value and its index read once, the offsets, y out
+    return es * n_real + 4 * n_real + 4 * (n + 1) + es * n_out
 
 
 def main(argv=None):
@@ -136,20 +218,36 @@ def main(argv=None):
     )
     from cfmm_routing_tpu_torch.ops import _build
     from cfmm_routing_tpu_torch.ops import projection as plain
-    from cfmm_routing_tpu_torch.ops.iteration_cuda import fused_step, fused_step_plain
-    from cfmm_routing_tpu_torch.ops.projection_cuda import (
-        project_cs_cuda, project_gm_cuda,
+    from cfmm_routing_tpu_torch.ops.iteration_cuda import (
+        fused_step, fused_step_delta, fused_step_delta_plain, fused_step_plain,
     )
+    from cfmm_routing_tpu_torch.ops.projection_cuda import (
+        project_cs_cuda, project_cs_delta_cuda, project_gm_cuda,
+        project_gm_delta_cuda,
+    )
+    from cfmm_routing_tpu_torch.ops.projection_delta import (
+        project_cs_delta, project_gm_delta,
+    )
+    from cfmm_routing_tpu_torch.ops.segment import segment_sum, segment_sum_plain
     from cfmm_routing_tpu_torch.solver import admm as admm_mod
+    from cfmm_routing_tpu_torch.solver import refine_device as rd_mod
     from cfmm_routing_tpu_torch.solver.admm import AdmmOptions, AdmmSolver
     from cfmm_routing_tpu_torch.solver.certify import certify
-    from cfmm_routing_tpu_torch.solver.compiler import compile_table
+    from cfmm_routing_tpu_torch.solver.compiler import compile_spec, compile_table
     from cfmm_routing_tpu_torch.solver.precondition import equilibrate, unscale_result
-    from cfmm_routing_tpu_torch.utils.synth import random_arbitrage_table
+    from cfmm_routing_tpu_torch.solver.refine import to_host
+    from cfmm_routing_tpu_torch.solver.refine_device import (
+        DeltaAdmmSolver, _delta_objective, _prep_delta_solve, _psi_from_trades,
+        refine_device,
+    )
+    from cfmm_routing_tpu_torch.utils.synth import (
+        mixed_width_arbitrage, random_arbitrage_table,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     report = {}
+    t_script = time.perf_counter()
 
     # ---- 1. card, versions, build -------------------------------------------
     smi = subprocess.run(
@@ -169,18 +267,23 @@ def main(argv=None):
 
     @contextlib.contextmanager
     def plain_versions():
-        """For the comparison runs only: the solver module's kernel
+        """For the comparison runs only: the solver modules' kernel
         wrappers are replaced by their plain PyTorch versions."""
-        saved = (admm_mod.fused_step, admm_mod.project_gm_cuda,
-                 admm_mod.project_cs_cuda)
-        admm_mod.fused_step = fused_step_plain
-        admm_mod.project_gm_cuda = plain.project_gm
-        admm_mod.project_cs_cuda = plain.project_cs
+        swaps = [(admm_mod, "fused_step", fused_step_plain),
+                 (admm_mod, "project_gm_cuda", plain.project_gm),
+                 (admm_mod, "project_cs_cuda", plain.project_cs),
+                 (admm_mod, "segment_sum", segment_sum_plain),
+                 (rd_mod, "fused_step_delta", fused_step_delta_plain),
+                 (rd_mod, "project_gm_delta_cuda", project_gm_delta),
+                 (rd_mod, "project_cs_delta_cuda", project_cs_delta)]
+        saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
         try:
             yield
         finally:
-            (admm_mod.fused_step, admm_mod.project_gm_cuda,
-             admm_mod.project_cs_cuda) = saved
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
 
     # ---- the full-width problem ---------------------------------------------
     t0 = time.perf_counter()
@@ -193,10 +296,11 @@ def main(argv=None):
     if shapes != EXPECTED_BUCKETS:
         raise AssertionError(f"bucket shapes {shapes} != {EXPECTED_BUCKETS}")
     cfg_main = plain.ProjectionConfig(n_bisect=24, n_polish=4)
+    cfg64 = plain.ProjectionConfig()
     opts = AdmmOptions(max_iters=500, eps_abs=0.0, eps_rel=0.0, adapt_rho=False,
                        projection=cfg_main)
 
-    # ---- 2. kernels vs plain at the full-width shapes ------------------------
+    # ---- 2a. base kernels vs plain at the full-width shapes ------------------
     t_phase = time.perf_counter()
     solver = AdmmSolver(compiled, dtype=torch.float32, options=opts)
     c, lo, hi = solver._objective_arrays(eq.objective)
@@ -208,9 +312,8 @@ def main(argv=None):
     z = solver.fused_to_z(s, wdef)
     v, _ = solver._fold_pack(wdef - nu)
     solver64 = AdmmSolver(compiled, dtype=torch.float64)
-    cfg64 = plain.ProjectionConfig()
     n_pad = v.shape[0]
-    rows = {k: [] for k in ("project_gm", "project_cs", "fused_step")}
+    rows = {k: [] for k in SOURCES}
     for name, arrs in solver.buckets.items():
         kind, floor = solver._meta[name]
         K, m = arrs["mask"].shape
@@ -250,57 +353,276 @@ def main(argv=None):
         got, want = ffn(), fpl()
         torch.cuda.synchronize()
         err = max_err(got, want)
-        check_close(f"fused_step[{name}]", got[:4], want[:4], 2e-5)
-        check_close(f"fused_step[{name}] y", got[4:], want[4:], 2e-5, rtol=1e-5)
+        check_fused(f"fused_step[{name}]", got, want, 2e-5)
         y_rel = float(((got[4] - want[4]).abs() / want[4].abs().clamp_min(1.0)).max())
         log(f"# fused_step {name:5s}: max|planes| err {max_err(got[:4], want[:4]):.3e}, "
             f"y max|y| {float(want[4].abs().max()):.4g} max rel err {y_rel:.3e}")
         row = dict(bucket=name, dtype="float32", K=K, m=m, cfg=list(cfg_main),
                    max_abs_err=err, y_max_rel_err=y_rel, ms=graph_ms(ffn),
-                   plain_ms=graph_ms(fpl, n=2, reps=3))
-        # sD sL R w s mask (4 B) + asset ids (4 B) + gamma logk0 k0 + v in;
-        # sD' sL' D L + y out
-        fbytes = 4 * (10 * K * m + 3 * m + 2 * n_pad) + 4 * K * m
+                   plain_ms=eager_ms(fpl))
+        # sD sL R w s mask + asset ids + gamma logk0 k0 + v in;
+        # sD' sL' D L + the consensus-term plane out
+        fbytes = 4 * (11 * K * m + 3 * m + n_pad) + 4 * K * m
         row["bound_ms"], row["bound_by"] = bound_ms(
             fbytes, projection_flops(cfg_main, K, m), torch.float32)
         rows["fused_step"].append(row)
         log(f"# fused_step {name:5s} float32 K={K} m={m}: max|kernel-plain| {err:.3e}  "
             f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.2f} ms  "
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        # the segment sum on this bucket's consensus terms (alpha = 1)
+        val = (want[3] - want[2]).contiguous()
+        order, seg = arrs["order"], arrs["seg"]
+        sfn = lambda: segment_sum(val, order, seg, n_pad)  # noqa: E731
+        spl = lambda: segment_sum_plain(val, order, seg, n_pad)  # noqa: E731
+        got_y, want_y = sfn(), spl()
+        torch.cuda.synchronize()
+        if not torch.equal(got_y, want_y):
+            raise AssertionError(f"segment_sum[{name}] is not bitwise equal to "
+                                 f"its plain version ({max_err([got_y], [want_y]):.3e})")
+        n_real = int(order.numel())
+        row = dict(bucket=name, dtype="float32", K=K, m=m, n_real=n_real,
+                   max_abs_err=0.0, ms=graph_ms(sfn), plain_ms=eager_ms(spl))
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            segment_bytes(n_real, solver.n, n_pad, 4), n_real, torch.float32)
+        rows["segment_sum"].append(row)
+        log(f"# segment_sum {name:5s} ({n_real} real slots): bitwise equal; kernel "
+            f"{row['ms']:.4f} ms  plain {row['plain_ms']:.2f} ms  bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
     del solver64
-    log(f"# phase 2 (kernels vs plain) done in {time.perf_counter() - t_phase:.1f} s")
+    log(f"# phase 2a (base kernels vs plain) done in {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 2b. fused_step_delta vs plain on real delta arrays -----------------
+    t_phase = time.perf_counter()
+    base = to_host(solver.solve_fused(eq.objective, iters=20))
+    base = base._replace(psi=_psi_from_trades(compiled, base))
+    rho_d = float(np.clip(np.asarray(base.rho_final), 0.25, 4.0))
+    nu0f = (np.asarray(base.prices, np.float64) / rho_d).astype(np.float32).astype(np.float64)
+    eps = 1e-3
+    dobj = _delta_objective(eq.objective, base.psi, eps)
+    delta_opts = AdmmOptions(adapt_rho=False, projection=cfg64)
+    for dtype, atol in ((torch.float32, 2e-5), (torch.float64, 1e-10)):
+        ds = DeltaAdmmSolver(compiled, dtype=dtype, options=delta_opts)
+        bdict, min_x0 = ds.delta_buckets(base, eps, nu0=nu0f)
+        if not min_x0 > 0:
+            raise AssertionError(f"100k base point has min x0 = {min_x0}")
+        dc, dlo, dhi, start = _prep_delta_solve(dobj, nu0f, rho_d, ds)
+        rho_t = ds._t(rho_d)
+        st, wd, dnu = ds.fused_init(bdict)
+        dnu = ds._t(start)
+        with plain_versions():
+            for _ in range(5):
+                st, wd, dnu, _, _ = ds._iterate_fused(st, wd, dnu, rho_t, dc, dlo, dhi,
+                                                      buckets=bdict)
+        dv, _ = ds._fold_pack(wd - dnu)
+        for name, arrs in bdict.items():
+            kind, floor = ds._meta[name]
+            K, m = arrs["mask"].shape
+            sD, sL = st[name]
+            kfn = lambda: fused_step_delta(sD, sL, dv, arrs, kind, floor, 1.0, cfg=cfg64)  # noqa: E731
+            pfn = lambda: fused_step_delta_plain(sD, sL, dv, arrs, kind, floor, 1.0, cfg=cfg64)  # noqa: E731
+            got, want = kfn(), pfn()
+            torch.cuda.synchronize()
+            err = max_err(got, want)
+            dname = str(dtype).split(".")[1]
+            check_fused(f"fused_step_delta[{name}, {dname}]", got, want, atol)
+            row = dict(bucket=name, dtype=dname, K=K, m=m, cfg=list(cfg64),
+                       max_abs_err=err, planes_err=max_err(got[:4], want[:4]),
+                       ms=graph_ms(kfn), plain_ms=eager_ms(pfn))
+            es = 4 if dtype == torch.float32 else 8
+            # sD sL X0 w sS aD aL mask nu0e + asset ids + gamma nsig + v in;
+            # sD' sL' A B + the consensus-term plane out
+            dbytes = es * (14 * K * m + 2 * m + n_pad) + 4 * K * m
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                dbytes, projection_flops(cfg64, K, m, per_step=80), dtype)
+            rows["fused_step_delta"].append(row)
+            log(f"# fused_step_delta {name:5s} {dname} K={K} m={m}: max|kernel-plain| "
+                f"planes {row['planes_err']:.3e} all {err:.3e}  kernel {row['ms']:.4f} ms  "
+                f"plain {row['plain_ms']:.2f} ms  bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']})")
+            # the standalone delta projection at this step's input
+            off = ds._bcast_nu(wd - dnu, name, bdict) - arrs["nu0e"]
+            kfn, pfn = delta_projection_calls(
+                kind, floor, sD + off, sL - off, arrs, cfg64,
+                (project_gm_delta_cuda, project_cs_delta_cuda),
+                (project_gm_delta, project_cs_delta))
+            got, want = kfn(), pfn()
+            torch.cuda.synchronize()
+            kname = "project_gm_delta" if kind == "gm" else "project_cs_delta"
+            check_close(f"{kname}[{name}, {dname}]", got, want,
+                        5e-5 if dtype == torch.float32 else 1e-10)
+            row = dict(bucket=name, dtype=dname, K=K, m=m, cfg=list(cfg64),
+                       max_abs_err=max_err(got, want), ms=graph_ms(kfn),
+                       plain_ms=graph_ms(pfn, n=2, reps=3))
+            # p q X0 w (sS) aD aL mask + gamma nsig in; a b out
+            planes = 10 if kind == "gm" else 9
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                es * (planes * K * m + 2 * m), projection_flops(cfg64, K, m, per_step=80),
+                dtype)
+            rows[kname].append(row)
+            log(f"# {kname} {name:5s} {dname} K={K} m={m}: max|kernel-plain| "
+                f"{row['max_abs_err']:.3e}  kernel {row['ms']:.4f} ms  plain "
+                f"{row['plain_ms']:.2f} ms  bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        del ds, bdict, st
+    log(f"# phase 2b (fused_step_delta vs plain) done in {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 2c. any K: run-time-K and K = 4, 8, 16 instantiations ---------------
+    t_phase = time.perf_counter()
+    spec_w, obj_w = mixed_width_arbitrage(seed=2)
+    cfg_w = plain.ProjectionConfig()
+    any_k = []
+    for pad_pow2 in (False, True):
+        comp_w = compile_spec(spec_w, pad_pow2=pad_pow2, pad_pools_to=128)
+        widths = sorted({b.width for b in comp_w.buckets.values()})
+        want_w = [4, 8, 16] if pad_pow2 else [3, 5, 12]
+        if widths != want_w:
+            raise AssertionError(f"widths {widths} != {want_w}")
+        sw = AdmmSolver(comp_w, options=AdmmOptions(max_iters=200, check_every=25,
+                                                    projection=cfg_w))
+        base_w = to_host(sw.solve(obj_w))
+        dsw = DeltaAdmmSolver(comp_w, options=AdmmOptions(adapt_rho=False,
+                                                          projection=cfg_w))
+        nu_w = np.asarray(base_w.prices).astype(np.float32).astype(np.float64)  # rho 1
+        bd_w, min_x0 = dsw.delta_buckets(base_w, 1e-3, nu0=nu_w)
+        if not min_x0 > 0:
+            raise AssertionError(f"mixed-width base point has min x0 = {min_x0}")
+        rng = np.random.default_rng(5)
+        vw = torch.as_tensor(rng.normal(size=128), dtype=torch.float32, device="cuda")
+        worst = 0.0
+        for name, arrs in sw.buckets.items():
+            kind, floor = sw._meta[name]
+            K, m = arrs["mask"].shape
+            sD, sL = (torch.as_tensor(rng.uniform(-2, 2, (K, m)), dtype=torch.float32,
+                                      device="cuda") * arrs["mask"] for _ in range(2))
+            if kind == "gm":
+                largs = (sD, sL, arrs["R"], arrs["w"], arrs["s"], arrs["gamma"],
+                         arrs["logk0"], arrs["k0"], arrs["mask"])
+                got = project_gm_cuda(*largs, needs_floor=floor, cfg=cfg_w)
+                want = plain.project_gm(*largs, needs_floor=floor, cfg=cfg_w)
+            else:
+                largs = (sD, sL, arrs["R"], arrs["gamma"], arrs["w"], arrs["k0"],
+                         arrs["mask"])
+                got = project_cs_cuda(*largs, cfg=cfg_w)
+                want = plain.project_cs(*largs, cfg=cfg_w)
+            torch.cuda.synchronize()
+            check_close(f"any-K projection[{name}, K={K}]", got, want, 5e-5)
+            worst = max(worst, max_err(got, want))
+            kfn, pfn = delta_projection_calls(
+                kind, floor, sD, sL, bd_w[name], cfg_w,
+                (project_gm_delta_cuda, project_cs_delta_cuda),
+                (project_gm_delta, project_cs_delta))
+            got, want = kfn(), pfn()
+            torch.cuda.synchronize()
+            check_close(f"any-K delta projection[{name}, K={K}]", got, want, 5e-5)
+            worst = max(worst, max_err(got, want))
+            for label, kfn, pfn, a2 in (
+                    ("fused_step", fused_step, fused_step_plain, arrs),
+                    ("fused_step_delta", fused_step_delta, fused_step_delta_plain,
+                     bd_w[name])):
+                got = kfn(sD, sL, vw, a2, kind, floor, 1.5, cfg=cfg_w)
+                want = pfn(sD, sL, vw, a2, kind, floor, 1.5, cfg=cfg_w)
+                torch.cuda.synchronize()
+                check_fused(f"any-K {label}[{name}, K={K}]", got, want, 2e-5)
+                worst = max(worst, max_err(got[:4], want[:4]))
+            any_k.append(dict(pad_pow2=pad_pow2, bucket=name, K=K, m=m))
+        log(f"# any K (pad_pow2={pad_pow2}): buckets "
+            f"{[(n, b.width) for n, b in comp_w.buckets.items()]}; all six kernels "
+            f"match their plain versions (worst plane error {worst:.3e})")
+        # the run-time-K fused step's time on the widest bucket
+        name = max(sw.buckets, key=lambda n: sw.buckets[n]["mask"].shape[0])
+        arrs = sw.buckets[name]
+        kind, floor = sw._meta[name]
+        sD = sL = torch.zeros_like(arrs["mask"])
+        t_k = graph_ms(lambda: fused_step(sD, sL, vw, arrs, kind, floor, 1.0, cfg=cfg_w))
+        any_k.append(dict(pad_pow2=pad_pow2, timed_bucket=name,
+                          K=int(arrs["mask"].shape[0]), m=int(arrs["mask"].shape[1]),
+                          fused_step_ms=t_k))
+        log(f"# any K (pad_pow2={pad_pow2}): fused_step on {name} "
+            f"(K={arrs['mask'].shape[0]}, m={arrs['mask'].shape[1]}) {t_k:.4f} ms")
+    report["any_k"] = any_k
+    log(f"# phase 2c (any K) done in {time.perf_counter() - t_phase:.1f} s")
     report["kernel_checks"] = rows
 
-    # ---- 3. reference pins in float64 on the card ---------------------------
+    # ---- 3. reference pins on the card ---------------------------------------
     t_phase = time.perf_counter()
     pin_opts = AdmmOptions(max_iters=30000, eps_abs=1e-11, eps_rel=1e-11,
                            check_every=25)
+    bench_opts = AdmmOptions(max_iters=6000, eps_abs=2e-6, eps_rel=2e-6)
+    instances = {"arbitrage": arbitrage_instance, "liquidation": liquidation_instance,
+                 "two-asset t=25": lambda: two_asset_instance(25.0)}
+
+    def api_call(label, **kw):
+        spec, o = instances[label]()
+        if label == "arbitrage":
+            route = api.arbitrage(spec, o.c, **kw)
+            return route, route.objective
+        if label == "liquidation":
+            route = api.liquidate(spec, [2, 1, 3, 5, 10], numeraire=4, **kw)
+            return route, float(route.psi[4])
+        route = api.route(spec, o, **kw)
+        return route, route.objective
+
     pins = []
     for (label, pin) in PINS:
-        if label == "arbitrage":
-            spec, o = arbitrage_instance()
-            route = api.arbitrage(spec, o.c, certify=True, dtype=torch.float64,
-                                  options=pin_opts)
-            value = route.objective
-        elif label == "liquidation":
-            spec, o = liquidation_instance()
-            route = api.liquidate(spec, [2, 1, 3, 5, 10], numeraire=4, certify=True,
-                                  dtype=torch.float64, options=pin_opts)
-            value = float(route.psi[4])
-        else:
-            spec, o = two_asset_instance(25.0)
-            route = api.route(spec, o, certify=True, dtype=torch.float64,
-                              options=pin_opts)
-            value = route.objective
+        for mode, kw, bar in (
+                ("float64 certify", dict(certify=True, dtype=torch.float64,
+                                         options=pin_opts), 1e-6),
+                ("float32 refine_to=1e-7", dict(refine_to=1e-7, options=bench_opts),
+                 2e-6)):
+            t0 = time.perf_counter()
+            route, value = api_call(label, **kw)
+            rel = abs(value - pin) / abs(pin)
+            cert = route.certificate
+            log(f"# pin {label} ({mode}): {value:.9f} vs {pin} (rel {rel:.2e}) "
+                f"iters {route.iters} gap_rel {cert.gap_rel:.3e} feasibility_rel "
+                f"{cert.feasibility_rel:.3e} ({time.perf_counter() - t0:.2f} s)")
+            if not rel < bar:
+                raise AssertionError(f"pin {label} ({mode}): {value} is {rel:.2e} from {pin}")
+            if "refine" in mode and not route.converged:
+                raise AssertionError(f"pin {label} ({mode}): not certified: {cert.summary()}")
+            pins.append(dict(label=label, mode=mode, value=value, pin=pin, rel=rel,
+                             iters=route.iters, gap_rel=cert.gap_rel,
+                             feasibility_rel=cert.feasibility_rel))
+
+    class CountingDeltaSolver(DeltaAdmmSolver):
+        """Counts the correction solves (chunks) refine_device runs."""
+        chunks = 0
+
+        def solve_delta(self, *a, **k):
+            self.chunks += 1
+            return super().solve_delta(*a, **k)
+
+    refine_opts = dataclasses.replace(AdmmOptions(), eps_abs=1e-8, eps_rel=1e-8,
+                                      adapt_rho=False)  # refine_device's own
+    for (label, pin) in PINS:
+        spec, o = instances[label]()
+        comp128 = compile_spec(spec, pad_pools_to=128)
+        res = AdmmSolver(comp128, options=bench_opts).solve(o)
+        dsolver = CountingDeltaSolver(comp128, options=refine_opts)
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = refine_device(comp128, o, res, target_gap=1e-7, fused=True, solver=dsolver)
+        torch.cuda.synchronize()
+        fused_iters = out.iters - dsolver.chunks  # each chunk: k fused + 1 classic
+        launches = _build.LAUNCHES["fused_step_delta"]
+        value = float(out.result.psi[4]) if label == "liquidation" else float(
+            out.certificate.objective)
         rel = abs(value - pin) / abs(pin)
-        cert = route.certificate
-        log(f"# pin {label}: {value:.9f} vs {pin} (rel {rel:.2e}) iters {route.iters} "
-            f"gap_rel {cert.gap_rel:.3e} feasibility_rel {cert.feasibility_rel:.3e}")
-        if not rel < 1e-6:
-            raise AssertionError(f"pin {label}: {value} is {rel:.2e} from {pin}")
-        pins.append(dict(label=label, value=value, pin=pin, rel=rel,
-                         iters=route.iters, gap_rel=cert.gap_rel,
-                         feasibility_rel=cert.feasibility_rel))
+        log(f"# refine_device(fused=True) {label}: {value:.9f} (rel {rel:.2e}) "
+            f"gap_rel {out.certificate.gap_rel:.3e} feasibility_rel "
+            f"{out.certificate.feasibility_rel:.3e}; {dsolver.chunks} chunks, "
+            f"{fused_iters} fused iterations, fused_step_delta launches {launches} "
+            f"({time.perf_counter() - t0:.2f} s)")
+        if not (out.achieved and rel < 2e-6):
+            raise AssertionError(f"refine_device(fused=True) {label}: "
+                                 f"{out.certificate.summary()} rel {rel:.2e}")
+        if launches != len(comp128.buckets) * fused_iters or launches == 0:
+            raise AssertionError(f"fused_step_delta launches {launches} != "
+                                 f"{len(comp128.buckets)} x {fused_iters}")
+        pins.append(dict(label=label, mode="refine_device(fused=True)", value=value,
+                         pin=pin, rel=rel, chunks=dsolver.chunks,
+                         fused_iters=fused_iters, launches=launches,
+                         gap_rel=out.certificate.gap_rel,
+                         feasibility_rel=out.certificate.feasibility_rel))
     log(f"# phase 3 (pins) done in {time.perf_counter() - t_phase:.1f} s")
     report["pins"] = pins
 
@@ -316,15 +638,16 @@ def main(argv=None):
     cert = certify(compile_table(table, pad_pools_to=1024), obj, res0.deltas,
                    res0.lambdas, res0.prices, psi_claimed=res0.psi)
     torch.cuda.synchronize()
-    launches = dict(_build.LAUNCHES)
-    log(f"# main path: launches {launches} "
+    launches4 = dict(_build.LAUNCHES)
+    log(f"# main path (fused base): launches {launches4} "
         f"({time.perf_counter() - t_phase:.1f} s with the host set-up)")
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k in ("project_gm", "project_cs", "fused_step", "segment_sum")
+               if launches4[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     expect_fused = 499 * len(compiled.buckets)
-    if launches["fused_step"] != expect_fused:
-        raise AssertionError(f"fused_step launches {launches['fused_step']} != {expect_fused}")
+    if launches4["fused_step"] != expect_fused:
+        raise AssertionError(f"fused_step launches {launches4['fused_step']} != {expect_fused}")
     obj_k = float(res.objective)
     psi0 = np.asarray(res0.psi)
     if not (math.isfinite(obj_k) and psi0.shape == (256,) and np.isfinite(psi0).all()):
@@ -334,18 +657,28 @@ def main(argv=None):
         raise AssertionError(f"certificate not finite: {cert.summary()}")
     log(f"# certificate: {cert.summary()}  feasibility_rel {cert.feasibility_rel:.3e}")
 
+    def bitwise_equal(a, b):
+        leaves = [(a.objective, b.objective), (a.psi, b.psi), (a.prices, b.prices)]
+        leaves += [(a.deltas[k], b.deltas[k]) for k in a.deltas]
+        leaves += [(a.lambdas[k], b.lambdas[k]) for k in a.lambdas]
+        return all(torch.equal(x, y) for x, y in leaves)
+
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     res2 = solver.solve_fused(eq.objective, iters=499)
     stop.record()
     stop.synchronize()
     fused_s = start.elapsed_time(stop) / 1e3
-    rel_repeat = abs(float(res2.objective) - obj_k) / max(1.0, abs(obj_k))
     log(f"# fused kernel path: 500 iterations in {fused_s:.4f} s -> "
-        f"{500 / fused_s:.1f} it/s on {smi}; objective {obj_k:.6f}, "
-        f"repeat run differs by {rel_repeat:.2e} relative")
-    if not rel_repeat <= 1e-5:
-        raise AssertionError(f"second kernel run differs by {rel_repeat:.2e}")
+        f"{500 / fused_s:.1f} it/s on {smi}; objective {obj_k:.6f}")
+    if not bitwise_equal(res, res2):
+        raise AssertionError("a second fused kernel run is not bitwise equal to the first")
+    classic50 = AdmmSolver(compiled, dtype=torch.float32, options=dataclasses.replace(
+        opts, max_iters=50))
+    if not bitwise_equal(classic50.solve(eq.objective), classic50.solve(eq.objective)):
+        raise AssertionError("two 50-iteration classic solves are not bitwise equal")
+    log("# repeat runs: two 499+1-iteration fused solves and two 50-iteration classic "
+        "solves are bitwise equal (objective, psi, prices, every D/L plane)")
 
     # device time of one whole fused iteration (graph replay: no host
     # launch gaps) against the eager loop's time per iteration
@@ -381,34 +714,118 @@ def main(argv=None):
     if not (rel_c <= 1e-3 and rel_p <= 1e-3):
         raise AssertionError(f"objective mismatch: classic {rel_c:.2e}, plain {rel_p:.2e}")
     report["main_path"] = dict(
-        launches=launches, objective=obj_k, fused_iters_per_s=500 / fused_s,
+        launches=launches4, objective=obj_k, fused_iters_per_s=500 / fused_s,
         classic_iters_per_s=int(res_c.iters) / classic_s,
         plain_iters_per_s=500 / plain_s, rel_classic=rel_c, rel_plain=rel_p,
         iteration_device_ms=iter_dev_ms, iteration_wall_ms=iter_wall_ms,
-        idle_share=idle,
-        rel_repeat=rel_repeat, r_norm=float(res.r_norm), s_norm=float(res.s_norm),
+        idle_share=idle, repeat_bitwise_equal=True,
+        r_norm=float(res.r_norm), s_norm=float(res.s_norm),
         certificate=dict(objective=cert.objective, dual_bound=cert.dual_bound,
                          gap_rel=cert.gap_rel, feasibility_rel=cert.feasibility_rel),
     )
+    del solver, classic50, res, res2, res_c, res_p
     log(f"# phase 4 (main path) done in {time.perf_counter() - t_phase:.1f} s")
 
+    # ---- 5. the certified route at full width --------------------------------
+    t_phase = time.perf_counter()
+    fallbacks = []
+
+    class Fallbacks(logging.Handler):
+        def emit(self, record):
+            if record.levelno >= logging.WARNING:
+                fallbacks.append(record.getMessage())
+
+    rd_log = logging.getLogger("cfmm_routing_tpu_torch.refine_device")
+    rd_log.setLevel(logging.DEBUG)
+    rd_log.addHandler(Fallbacks())
+    chunk_log = logging.StreamHandler(sys.stdout)
+    chunk_log.setFormatter(logging.Formatter("# %(message)s"))
+    rd_log.addHandler(chunk_log)
+
+    _build.reset_launch_counts()
+    t_start = time.perf_counter()
+    table, obj = random_arbitrage_table(256, 100_000, seed=7)
+    eq = equilibrate(table, obj)
+    compiled = compile_table(eq.table, pad_pools_to=1024)
+    cert_compiled = compile_table(table, pad_pools_to=1024)
+    base_solver = AdmmSolver(compiled, dtype=torch.float32, options=AdmmOptions(
+        max_iters=3000, eps_abs=1e-7, eps_rel=1e-7, check_every=25,
+        projection=cfg_main))
+    t_base0 = time.perf_counter()
+    res = base_solver.solve(eq.objective)
+    torch.cuda.synchronize()
+    base_s = time.perf_counter() - t_base0
+    base_iters = int(res.iters)
+    log(f"# certified route: base solve {base_iters} classic iterations in "
+        f"{base_s:.3f} s (converged {bool(res.converged)})")
+
+    def unscale(r):
+        return unscale_result(r, eq.d, compiled)
+
+    r0 = unscale(to_host(res))
+    entry = certify(cert_compiled, obj, r0.deltas, r0.lambdas, r0.prices,
+                    psi_claimed=r0.psi)
+    log(f"# certified route: entry certificate {entry.summary()} "
+        f"feasibility_rel {entry.feasibility_rel:.3e}")
+    dsolver = CountingDeltaSolver(compiled, options=refine_opts)
+    t0 = time.perf_counter()
+    out = refine_device(compiled, eq.objective, res, target_gap=1e-6,
+                        cert_space=(cert_compiled, obj, unscale), entry_cert=entry,
+                        solver=dsolver)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    refine_s = t_end - t0
+    wall_s = t_end - t_base0
+    launches5 = dict(_build.LAUNCHES)
+    rd_log.removeHandler(chunk_log)
+    fc = out.certificate
+    fused_iters = out.iters - dsolver.chunks
+    log(f"# certified route: refinement {out.iters} iterations ({dsolver.chunks} "
+        f"chunks, {fused_iters} fused) in {refine_s:.3f} s")
+    log(f"# certified route: final gap_rel {fc.gap_rel:.3e} feasibility_rel "
+        f"{fc.feasibility_rel:.3e}; target 1e-6 achieved: {bool(out.achieved)}")
+    log(f"# certified route: wall clock from the start of the base solve to the "
+        f"accepted certificate {wall_s:.3f} s (network set-up before it: "
+        f"{t_base0 - t_start:.3f} s)")
+    log(f"# certified route: launches {launches5}")
+    if launches5["fused_step_delta"] == 0:
+        raise AssertionError("fused_step_delta was never launched on the certified route")
+    if launches5["fused_step_delta"] != len(compiled.buckets) * fused_iters:
+        raise AssertionError(f"fused_step_delta launches {launches5['fused_step_delta']} "
+                             f"!= {len(compiled.buckets)} x {fused_iters}")
+    missing = [k for k in ("project_gm", "project_cs", "project_gm_delta",
+                           "project_cs_delta", "segment_sum") if launches5[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the certified route: {missing}")
+    if fallbacks:
+        raise AssertionError(f"refine_device took a fallback: {fallbacks}")
+    score = lambda ct: max(abs(ct.gap_rel), ct.feasibility_rel)  # noqa: E731
+    if not all(math.isfinite(x) for x in (fc.objective, fc.dual_bound, fc.gap_rel,
+                                          fc.feasibility_rel)):
+        raise AssertionError(f"certificate not finite: {fc.summary()}")
+    if not score(fc) <= score(entry):
+        raise AssertionError(f"refinement made the certificate worse: "
+                             f"{score(fc):.3e} > {score(entry):.3e}")
+    report["certified_route"] = dict(
+        base_iters=base_iters, base_s=base_s, refine_iters=int(out.iters),
+        refine_chunks=dsolver.chunks, fused_iters=fused_iters, refine_s=refine_s,
+        wall_s=wall_s, achieved=bool(out.achieved), launches=launches5,
+        entry=dict(gap_rel=entry.gap_rel, feasibility_rel=entry.feasibility_rel),
+        final=dict(objective=fc.objective, dual_bound=fc.dual_bound,
+                   gap_rel=fc.gap_rel, feasibility_rel=fc.feasibility_rel),
+    )
+    log(f"# phase 5 (certified route) done in {time.perf_counter() - t_phase:.1f} s")
+
     # ---- report -------------------------------------------------------------
-    sources = {
-        "project_gm": ("cfmm_routing_tpu_torch/csrc/projection.cu",
-                       "cfmm_routing_tpu/ops/projection_pallas.py:303"),
-        "project_cs": ("cfmm_routing_tpu_torch/csrc/projection.cu",
-                       "cfmm_routing_tpu/ops/projection_pallas.py:319"),
-        "fused_step": ("cfmm_routing_tpu_torch/csrc/fused_step.cu",
-                       "cfmm_routing_tpu/ops/iteration_pallas.py:260"),
-    }
     kernels = []
-    for kname, (src, replaces) in sources.items():
-        f32 = [r for r in rows[kname] if r["dtype"] == "float32"]
+    for kname, (src, replaces) in SOURCES.items():
+        dtype = "float32"
+        f32 = [r for r in rows[kname] if r["dtype"] == dtype]
         # one main-path iteration's worth: every bucket the kernel serves
         tot = {k: sum(r[k] for r in f32) for k in ("ms", "plain_ms", "bound_ms")}
         kernels.append(dict(
             name=kname, route="cuda", source=src, replaces=replaces,
-            launches=launches[kname],
+            launches=launches4[kname] + launches5[kname],
             max_abs_err=max(r["max_abs_err"] for r in f32),
             ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
             bound_by=("operations" if all(r["bound_by"] == "operations" for r in f32)
@@ -416,6 +833,8 @@ def main(argv=None):
             library_ms=None,
         ))
     report["kernels"] = kernels
+    report["script_s"] = time.perf_counter() - t_script
+    log(f"# chip_smoke done in {report['script_s']:.1f} s")
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(report, fh, indent=1)

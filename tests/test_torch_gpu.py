@@ -7,22 +7,34 @@ that has only PyTorch:
     python -m pytest --noconftest -q tests/test_torch_gpu.py
 
 Tolerances are the port's parity bars: atol 5e-5 (float32) and 1e-10
-(float64) for a projection, 2e-5 (1e-10) for one fused step, 2e-4 for a 20-step
-fused trajectory.  The fused step's y sums many slots per asset with
-atomics, in another order than ``index_add_``, so y also gets rtol 1e-5
-(float32 roundoff of a sum of up to thousands of terms).
+(float64) for a projection, 2e-5 (1e-10) for one fused step (plain or
+delta), 2e-4 for a 20-step fused trajectory; y also gets rtol 1e-5.  The
+fused steps' y is the same fixed-order segment sum in the kernel path and
+the plain version, so with equal planes it is equal too.
 """
 import numpy as np
 import pytest
 import torch
 
+from cfmm_routing_tpu_torch.models.reference_instances import arbitrage_instance
 from cfmm_routing_tpu_torch.ops import _build
 from cfmm_routing_tpu_torch.ops import projection as plain
-from cfmm_routing_tpu_torch.ops.iteration_cuda import fused_step, fused_step_plain
-from cfmm_routing_tpu_torch.ops.projection_cuda import project_cs_cuda, project_gm_cuda
+from cfmm_routing_tpu_torch.ops.iteration_cuda import (
+    fused_step, fused_step_delta, fused_step_delta_plain, fused_step_plain,
+)
+from cfmm_routing_tpu_torch.ops.projection_cuda import (
+    project_cs_cuda, project_cs_delta_cuda, project_gm_cuda, project_gm_delta_cuda,
+)
+from cfmm_routing_tpu_torch.ops.projection_delta import (
+    project_cs_delta, project_gm_delta,
+)
 from cfmm_routing_tpu_torch.solver.admm import AdmmOptions, AdmmSolver
-from cfmm_routing_tpu_torch.solver.compiler import compile_table
-from cfmm_routing_tpu_torch.utils.synth import random_arbitrage_table
+from cfmm_routing_tpu_torch.solver.compiler import compile_spec, compile_table
+from cfmm_routing_tpu_torch.solver.refine import to_host
+from cfmm_routing_tpu_torch.solver.refine_device import DeltaAdmmSolver, refine_device
+from cfmm_routing_tpu_torch.utils.synth import (
+    mixed_width_arbitrage, random_arbitrage_table,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -112,3 +124,141 @@ def test_fused_trajectory_card_matches_cpu(cuda_device):
                                atol=2e-4, rtol=0)
     np.testing.assert_allclose(float(res_card.objective), float(res_cpu.objective),
                                rtol=1e-4)
+
+
+def _delta_state(compiled, obj, dtype, device, seed):
+    """Delta bucket arrays from a real base solve (DeltaAdmmSolver
+    .delta_buckets, as refinement builds them) plus a random masked
+    state and price vector."""
+    base = AdmmSolver(compiled, device=device,
+                      options=AdmmOptions(max_iters=200, check_every=25)).solve(obj)
+    solver = DeltaAdmmSolver(compiled, dtype=dtype, device=device,
+                             options=AdmmOptions(alpha=1.5, projection=CFG,
+                                                 adapt_rho=False))
+    nu0 = to_host(base).prices.astype(np.float32).astype(np.float64)
+    bdict, min_x0 = solver.delta_buckets(to_host(base), 1e-3, nu0=nu0)
+    assert min_x0 > 0
+    rng = np.random.default_rng(seed)
+    s = {}
+    for name, arrs in bdict.items():
+        mask = arrs["mask"].cpu().numpy()
+        s[name] = tuple(torch.as_tensor(x * mask, dtype=dtype, device=device)
+                        for x in rng.uniform(-2.0, 2.0, size=(2,) + mask.shape))
+    v = torch.as_tensor(rng.normal(size=128), dtype=dtype, device=device)
+    return solver, bdict, s, v
+
+
+def _check_delta_projection(sD, sL, a, kind, floor, atol):
+    """The standalone delta projection kernel vs its plain version."""
+    if kind == "gm":
+        args = (sD, sL, a["X0"], a["w"], a["sS"], a["gamma"], a["nsig"], a["aD"],
+                a["aL"], a["mask"])
+        got = project_gm_delta_cuda(*args, needs_floor=floor, cfg=CFG)
+        want = project_gm_delta(*args, needs_floor=floor, cfg=CFG)
+    else:
+        args = (sD, sL, a["X0"], a["gamma"], a["w"], a["nsig"], a["aD"], a["aL"],
+                a["mask"])
+        got = project_cs_delta_cuda(*args, cfg=CFG)
+        want = project_cs_delta(*args, cfg=CFG)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, atol=atol, rtol=0)
+
+
+def _check_fused(got, want, atol):
+    torch.cuda.synchronize()
+    for a, b in zip(got[:4], want[:4]):
+        torch.testing.assert_close(a, b, atol=atol, rtol=0)
+    torch.testing.assert_close(got[4], want[4], atol=atol, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fused_step_delta_kernel_matches_plain(cuda_device, dtype):
+    table, obj = random_arbitrage_table(16, 600, seed=4)
+    solver, bdict, s, v = _delta_state(compile_table(table, pad_pools_to=128),
+                                       obj, dtype, cuda_device, seed=3)
+    atol = 2e-5 if dtype == torch.float32 else 1e-10
+    before = _build.LAUNCHES["fused_step_delta"]
+    for name, arrs in bdict.items():
+        kind, floor = solver._meta[name]
+        got = fused_step_delta(*s[name], v, arrs, kind, floor, 1.5, cfg=CFG)
+        want = fused_step_delta_plain(*s[name], v, arrs, kind, floor, 1.5, cfg=CFG)
+        _check_fused(got, want, atol)
+        _check_delta_projection(*s[name], arrs, kind, floor, ATOL[dtype])
+    assert _build.LAUNCHES["fused_step_delta"] - before == len(bdict)
+
+
+@pytest.mark.parametrize("pad_pow2", [False, True])
+def test_any_k_kernels_match_plain(cuda_device, pad_pow2):
+    """Pools of 3, 5 and 12 assets: the run-time-K kernels (pad_pow2=False)
+    and the register kernels at K = 4, 8, 16 (pad_pow2=True), every
+    projection and fused-step kernel against its plain version in float32."""
+    spec, obj = mixed_width_arbitrage(seed=2)
+    compiled = compile_spec(spec, pad_pow2=pad_pow2, pad_pools_to=128)
+    widths = {b.width for b in compiled.buckets.values()}
+    assert widths == ({4, 8, 16} if pad_pow2 else {3, 5, 12})
+    solver, s, v = _state(compiled, torch.float32, cuda_device, seed=5)
+    dsolver, bdict, ds, dv = _delta_state(compiled, obj, torch.float32,
+                                          cuda_device, seed=6)
+    for name, arrs in solver.buckets.items():
+        kind, floor = solver._meta[name]
+        sD, sL = s[name]
+        if kind == "gm":
+            args = (arrs["R"], arrs["w"], arrs["s"], arrs["gamma"],
+                    arrs["logk0"], arrs["k0"], arrs["mask"])
+            got = project_gm_cuda(sD, sL, *args, needs_floor=floor, cfg=CFG)
+            want = plain.project_gm(sD, sL, *args, needs_floor=floor, cfg=CFG)
+        else:
+            cs = (arrs["R"], arrs["gamma"], arrs["w"], arrs["k0"], arrs["mask"])
+            got = project_cs_cuda(sD, sL, *cs, cfg=CFG)
+            want = plain.project_cs(sD, sL, *cs, cfg=CFG)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, atol=ATOL[torch.float32], rtol=0)
+        _check_fused(fused_step(sD, sL, v, arrs, kind, floor, 1.5, cfg=CFG),
+                     fused_step_plain(sD, sL, v, arrs, kind, floor, 1.5, cfg=CFG),
+                     2e-5)
+        darrs = bdict[name]
+        _check_delta_projection(*ds[name], darrs, kind, floor, ATOL[torch.float32])
+        _check_fused(
+            fused_step_delta(*ds[name], dv, darrs, kind, floor, 1.5, cfg=CFG),
+            fused_step_delta_plain(*ds[name], dv, darrs, kind, floor, 1.5, cfg=CFG),
+            2e-5,
+        )
+
+
+def test_two_runs_are_bitwise_equal(cuda_device):
+    """The consensus sums are fixed-order segment sums: two fused solves
+    and two classic solves give bitwise-equal results."""
+    table, obj = random_arbitrage_table(64, 3000, seed=8)
+    compiled = compile_table(table, pad_pools_to=128)
+    solver = AdmmSolver(compiled, device=cuda_device,
+                        options=AdmmOptions(max_iters=50, eps_abs=0.0, eps_rel=0.0))
+    for run in (lambda: solver.solve_fused(obj, iters=60), lambda: solver.solve(obj)):
+        a, b = run(), run()
+        for x, y in zip((a.objective, a.psi, a.prices), (b.objective, b.psi, b.prices)):
+            assert torch.equal(x, y)
+        for name in compiled.buckets:
+            assert torch.equal(a.deltas[name], b.deltas[name])
+            assert torch.equal(a.lambdas[name], b.lambdas[name])
+
+
+def test_refine_device_fused_certifies_arbitrage(cuda_device, monkeypatch):
+    spec, obj = arbitrage_instance()
+    compiled = compile_spec(spec, pad_pools_to=128)
+    base = AdmmSolver(compiled, device=cuda_device, options=AdmmOptions(
+        max_iters=6000, eps_abs=2e-6, eps_rel=2e-6)).solve(obj)
+    calls = []
+    solve_delta = DeltaAdmmSolver.solve_delta
+
+    def counted(self, *a, **k):
+        res = solve_delta(self, *a, **k)
+        calls.append(int(res.iters) - 1)  # fused iterations of this chunk
+        return res
+
+    monkeypatch.setattr(DeltaAdmmSolver, "solve_delta", counted)
+    _build.reset_launch_counts()
+    out = refine_device(compiled, obj, base, target_gap=1e-7, fused=True)
+    assert out.achieved, out.certificate.summary()
+    assert abs(out.certificate.objective - 21.499805) / 21.499805 < 2e-6
+    assert _build.LAUNCHES["fused_step_delta"] == len(compiled.buckets) * sum(calls) > 0

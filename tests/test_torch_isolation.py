@@ -18,8 +18,9 @@ import torch
 
 from cfmm_routing_tpu_torch import api
 from cfmm_routing_tpu_torch.models.reference_instances import arbitrage_instance
-from cfmm_routing_tpu_torch.solver.admm import AdmmSolver
+from cfmm_routing_tpu_torch.solver.admm import AdmmOptions, AdmmSolver
 from cfmm_routing_tpu_torch.solver.compiler import compile_spec
+from cfmm_routing_tpu_torch.solver.refine_device import refine_device
 
 REPO = Path(__file__).resolve().parent.parent
 _FORBIDDEN = ("jax", "jaxlib", "cfmm_routing_tpu")
@@ -60,6 +61,7 @@ def test_package_imports_with_jax_blocked():
         "import cfmm_routing_tpu_torch, cfmm_routing_tpu_torch.convert\n"
         "import cfmm_routing_tpu_torch.utils.synth\n"
         "import cfmm_routing_tpu_torch.models.reference_instances\n"
+        "import cfmm_routing_tpu_torch.solver.refine_device\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m]]\n"
         "print('ok')\n"
     )
@@ -77,5 +79,11 @@ def test_entry_points_without_a_card_raise(monkeypatch):
         AdmmSolver(compile_spec(spec))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         api.arbitrage(spec, obj.c)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.arbitrage(spec, obj.c, refine_to=1e-6)
     # asked for explicitly, the CPU works
-    assert AdmmSolver(compile_spec(spec), device="cpu").device.type == "cpu"
+    on_cpu = AdmmSolver(compile_spec(spec), device="cpu",
+                        options=AdmmOptions(max_iters=1))
+    assert on_cpu.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        refine_device(on_cpu.compiled, obj, on_cpu.solve(obj))

@@ -103,5 +103,8 @@ def test_wrappers_run_plain_version_on_cpu_tensors():
         assert torch.equal(a, b)
     for a, b in zip(project_cs_cuda(*cs, cfg=CFG), port_proj.project_cs(*cs, cfg=CFG)):
         assert torch.equal(a, b)
-    assert _build.LAUNCHES == {"project_gm": 0, "project_cs": 0, "fused_step": 0}
+    assert set(_build.LAUNCHES) == {
+        "project_gm", "project_cs", "project_gm_delta", "project_cs_delta",
+        "fused_step", "fused_step_delta", "segment_sum"}
+    assert all(n == 0 for n in _build.LAUNCHES.values())
 

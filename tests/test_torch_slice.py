@@ -201,9 +201,11 @@ def test_compiled_from_numpy_round_trips_reference_arrays():
     assert torch.equal(a.psi, b.psi)
 
 
-@pytest.mark.parametrize("kw,err", [(dict(refine_to=1e-7), NotImplementedError),
+@pytest.mark.parametrize("kw,err", [(dict(refine_to=0.0), ValueError),
                                     (dict(precondition=True), ValueError)])
 def test_api_rejects_unported_or_conflicting_options(kw, err):
+    # refine_to= is ported (tests/test_torch_refine.py); a target gap that
+    # is not positive is refused before any work
     spec, obj = arbitrage_instance()
     solver = api.make_solver(spec, device="cpu")
     with pytest.raises(err):
