@@ -2,6 +2,7 @@
 
     arbitrage(spec, market_values)        ~ arbitrage.py
     liquidate(spec, holdings, numeraire)  ~ liquidation.py
+    sweep(spec, give, receive, amounts)   ~ two-asset.py
     route(spec, objective)                ~ any linear objective + box
 
 Each call returns a :class:`Route` with per-pool trades in spec order, the
@@ -9,9 +10,10 @@ net trade vector, dual prices, and solver diagnostics; ``certify=True``
 adds a float64 certification report (feasibility residuals + duality gap,
 ``solver/certify.py``); ``refine_to=`` refines the f32 solve on the device
 to that certified relative gap (``solver/refine_device.py``) and returns the
-refined route with its certificate.  The solve runs on the card unless
-``device="cpu"`` is passed (with the other solver keywords: ``dtype=``,
-``options=``).
+refined route with its certificate.  ``sweep`` solves every grid point of
+a trade-size frontier in one batched solve and certifies or refines the
+whole grid at once.  The solve runs on the card unless ``device="cpu"`` is
+passed (with the other solver keywords: ``dtype=``, ``options=``).
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ from .solver.admm import AdmmOptions, AdmmSolver, RouteResult
 from .solver.compiler import PoolTable, ProblemSpec, compile_spec, compile_table
 
 __all__ = [
-    "Route", "arbitrage", "liquidate", "route", "make_solver",
+    "Route", "Sweep", "arbitrage", "liquidate", "sweep", "route", "make_solver",
     "make_solver_compiled",
 ]
 
@@ -49,6 +51,19 @@ class Route:
     r_norm: float
     s_norm: float
     certificate: Optional[object] = None
+
+
+@dataclasses.dataclass
+class Sweep:
+    """Batched solve over a grid of input amounts (price-impact frontier)."""
+
+    amounts: np.ndarray
+    utilities: np.ndarray  # u(t) per grid point
+    net_trades: List[np.ndarray]  # per pool: (k, T) array of Lambda - Delta
+    iters: np.ndarray
+    converged: np.ndarray
+    prices: Optional[np.ndarray] = None  # (T, n) dual prices per grid point
+    certificates: Optional[List[object]] = None  # per-point Certificate
 
 
 def make_solver(
@@ -242,3 +257,102 @@ def liquidate(
     return route(spec, obj, solver=solver, certify=certify,
                  precondition=precondition, refine_to=refine_to,
                  **solver_kwargs)
+
+
+def _net_trades(compiled, deltas, lambdas):
+    """Per-pool (k, T) net trades Lambda - Delta from batched (T, K, m)
+    bucket planes (the reference's ``all_values``, two-asset.py:93-94)."""
+    per_pool = [None] * compiled.n_pools
+    for name, b in compiled.buckets.items():
+        D, L = deltas[name], lambdas[name]
+        for r, pid in enumerate(b.pool_ids):
+            k = int(compiled.widths[pid])
+            per_pool[pid] = (L[:, :k, r] - D[:, :k, r]).T
+    return per_pool
+
+
+def sweep(
+    spec: ProblemSpec,
+    give: int,
+    receive: int,
+    amounts: Sequence[float],
+    solver: Optional[AdmmSolver] = None,
+    certify: bool = False,
+    refine_to: Optional[float] = None,
+    **solver_kwargs,
+) -> Sweep:
+    """Trade-size sweep: u(t) = max psi[receive] s.t. psi >= -t e_give.
+
+    One batched solve over the whole grid (``AdmmSolver.solve_batch``: each
+    point with its own stopping test).  ``certify=True`` certifies every
+    point in float64 with one :func:`~.solver.certify.certify_batch` call.
+    ``refine_to``: refine every point to that certified relative gap with
+    :func:`~.solver.refine_device.refine_sweep` (one correction solve per
+    pass for the whole grid), then each point the sweep leaves short with
+    :func:`~.solver.refine_device.refine_device`; every point then carries
+    its certificate."""
+    _reject(solver, False, refine_to)
+    if solver is None:
+        solver_kwargs = _floor_options(solver_kwargs, refine_to)
+    solver = solver or make_solver(spec, **solver_kwargs)
+    compiled = solver.compiled
+    n = spec.n_assets
+    amounts = np.asarray(amounts, np.float64)
+    T = len(amounts)
+    c = np.zeros((T, n))
+    c[:, receive] = 1.0
+    lo = np.zeros((T, n))
+    lo[:, give] = -amounts
+    hi = np.full((T, n), np.finfo(np.float32).max / 4)
+
+    res = solver.solve_batch(c, lo, hi)
+    dbat = {k: host(v) for k, v in res.deltas.items()}
+    lbat = {k: host(v) for k, v in res.lambdas.items()}
+    prices = np.array(host(res.prices))
+    utilities = np.asarray(host(res.objective), np.float64).copy()
+    iters_arr = np.array(host(res.iters))
+    conv_arr = np.array(host(res.converged))
+    hi_cert = np.full((T, n), np.inf)
+    certs = None
+    if refine_to is not None:
+        from .solver.refine_device import refine_device, refine_sweep
+
+        out = refine_sweep(compiled, c, lo, hi_cert, res, target_gap=refine_to,
+                           device=solver.device)
+        certs = list(out.certificates)
+        utilities[:] = out.objectives
+        prices[:] = out.prices
+        iters_arr = iters_arr + out.iters
+        conv_arr[:] = out.achieved
+        # the points the batched refinement left short go one by one
+        rho_f = np.broadcast_to(np.asarray(host(res.rho_final)), (T,))
+        for t in np.flatnonzero(~out.achieved):
+            obj_t = Objective(c[t], lo=lo[t], hi=hi_cert[t])
+            point = RouteResult(
+                objective=utilities[t],
+                psi=np.zeros(n),  # refine_device recomputes it from the trades
+                prices=prices[t],
+                deltas={k: v[t] for k, v in out.deltas.items()},
+                lambdas={k: v[t] for k, v in out.lambdas.items()},
+                iters=iters_arr[t], r_norm=np.zeros(()), s_norm=np.zeros(()),
+                converged=np.asarray(False), rho_final=rho_f[t],
+            )
+            out_t = refine_device(compiled, obj_t, point, target_gap=refine_to,
+                                  device=solver.device)
+            certs[t] = out_t.certificate
+            utilities[t] = float(out_t.certificate.objective)
+            prices[t] = host(out_t.result.prices)
+            conv_arr[t] = bool(out_t.achieved)
+            for k in out.deltas:
+                out.deltas[k][t] = host(out_t.result.deltas[k])
+                out.lambdas[k][t] = host(out_t.result.lambdas[k])
+        dbat, lbat = out.deltas, out.lambdas
+    elif certify:
+        from .solver.certify import certify_batch
+
+        certs = certify_batch(compiled, c, lo, hi_cert, dbat, lbat, prices,
+                              psi_claimed=host(res.psi), device=solver.device)
+    return Sweep(amounts=amounts, utilities=utilities,
+                 net_trades=_net_trades(compiled, dbat, lbat),
+                 iters=iters_arr, converged=conv_arr, prices=prices,
+                 certificates=certs)

@@ -8,7 +8,8 @@ carries a hash of its sources and flags, so an edited source is rebuilt.
 A failed build raises: there is no fallback.
 
 Every kernel wrapper adds one to its entry in :data:`LAUNCHES` where it
-launches its kernel, so a run can show which kernels it went through.
+launches its kernel, so a run can show which kernels it went through (the
+folded launches of the fused steps count under ``*_fold``).
 """
 from __future__ import annotations
 
@@ -53,12 +54,11 @@ _LIBS = {
     ),
     "fused_step": (
         "fused_step.cu",
-        {"cfmm_fused_step": [_C, _C, _C, _C, _C, _D, _D] + [_P] * 16
-                            + [_C, _C, _P]},
+        {"cfmm_fused_step": [_C] * 7 + [_D, _D] + [_P] * 16 + [_C, _C, _P]},
     ),
     "fused_step_delta": (
         "fused_step_delta.cu",
-        {"cfmm_fused_step_delta": [_C, _C, _C, _C, _C, _D, _D] + [_P] * 18
+        {"cfmm_fused_step_delta": [_C] * 7 + [_D, _D] + [_P] * 18
                                   + [_C, _C, _P]},
     ),
     "segment_sum": (
@@ -71,6 +71,7 @@ _HEADERS = ("projection.cuh", "projection_delta.cuh")
 LAUNCHES: Dict[str, int] = {"project_gm": 0, "project_cs": 0,
                             "project_gm_delta": 0, "project_cs_delta": 0,
                             "fused_step": 0, "fused_step_delta": 0,
+                            "fused_step_fold": 0, "fused_step_delta_fold": 0,
                             "segment_sum": 0}
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -39,6 +39,14 @@ the kernels or raise.
 
 Shapes: s/D/L (K, m) slot-major; v/y are (n_pad,) with n_pad a multiple of
 128 (``AdmmSolver._fold_pack``).
+
+``fold=(T, n_pt)``: the bucket is a scenario fold (``solver/fold.py``), T
+points one after another on the pool axis with m / T pools each (a
+multiple of 128, else ``ValueError``) and point t's asset ids offset by
+t * n_pt, so v and y keep the unfolded layout.  Each block of the kernel
+stages only its own point's n_pt prices; a slot whose id lies outside its
+point's block (a padding slot) reads 0 before the mask, in the kernel and
+in the plain version alike.
 """
 from __future__ import annotations
 
@@ -54,8 +62,30 @@ __all__ = ["fused_step", "fused_step_plain", "fused_step_delta",
            "fused_step_delta_plain"]
 
 
-def _gather(v, arrs, K, m):
-    return v.index_select(0, arrs["asset"].reshape(-1)).reshape(K, m) * arrs["mask"]
+def _gather(v, arrs, K, m, fold=None):
+    ids = arrs["asset"]
+    if fold is None:
+        return v.index_select(0, ids.reshape(-1)).reshape(K, m) * arrs["mask"]
+    T, n_pt = fold
+    base = torch.arange(m, device=ids.device) // (m // T) * n_pt  # (m,)
+    ok = (ids >= base) & (ids < base + n_pt)
+    ve = v.index_select(0, torch.where(ok, ids, base).reshape(-1)).reshape(K, m)
+    return torch.where(ok, ve, torch.zeros_like(ve)) * arrs["mask"]
+
+
+def _check_fold(m, v, fold, what):
+    """(T, n_pt) of a fold call, or raise: every block of 128 pools must lie
+    inside one point, and the T price blocks inside v."""
+    T, n_pt = int(fold[0]), int(fold[1])
+    if T < 1 or m % T != 0 or (m // T) % 128 != 0:
+        raise ValueError(
+            f"{what}(fold={fold}): {m} pools do not split into {T} points of "
+            "a multiple of 128 pools each; compile with pad_pools_to=128"
+        )
+    if T * n_pt > v.shape[0]:
+        raise ValueError(f"{what}(fold={fold}): v has {v.shape[0]} entries, "
+                         f"fewer than {T} x {n_pt}")
+    return T, n_pt
 
 
 def _update(sD, sL, A, B, v, arrs, alpha):
@@ -86,13 +116,15 @@ def _check_ids_and_v(sD, v, arrs, what):
 
 
 def fused_step_plain(sD, sL, v, arrs, kind, needs_floor, alpha: float,
-                     cfg: ProjectionConfig = ProjectionConfig()):
+                     cfg: ProjectionConfig = ProjectionConfig(), fold=None):
     """The fused half-iteration in plain PyTorch, on any device.
 
     Returns (sD', sL', D, L, y(n_pad,))."""
     K, m = sD.shape
     mask = arrs["mask"]
-    ve = _gather(v, arrs, K, m)
+    if fold is not None:
+        fold = _check_fold(m, v, fold, "fused_step")
+    ve = _gather(v, arrs, K, m, fold)
     p = sD + ve
     q = sL - ve
     if kind == "gm":
@@ -109,16 +141,20 @@ def fused_step_plain(sD, sL, v, arrs, kind, needs_floor, alpha: float,
 
 
 def fused_step(sD, sL, v, arrs, kind, needs_floor, alpha: float,
-               cfg: ProjectionConfig = ProjectionConfig()):
+               cfg: ProjectionConfig = ProjectionConfig(), fold=None):
     """One fused half-iteration for one bucket.
 
     sD/sL: (K, m) state planes;  v: (n_pad,) combined broadcast vector
     (wdef - nu, zero-padded);  arrs: the solver's device bucket dict
     (asset ids int32 in [0, n_pad), slot order and offsets for the
-    reduction).  Returns (sD', sL', D, L, y(n_pad,)).
+    reduction);  fold: (T, n_pt) of a scenario fold (module docstring).
+    Returns (sD', sL', D, L, y(n_pad,)).
     """
+    if fold is not None:
+        fold = _check_fold(sD.shape[1], v, fold, "fused_step")
     if sD.device.type == "cpu":
-        return fused_step_plain(sD, sL, v, arrs, kind, needs_floor, alpha, cfg)
+        return fused_step_plain(sD, sL, v, arrs, kind, needs_floor, alpha, cfg,
+                                fold)
     planes = (sD, sL, arrs["R"], arrs["w"], arrs["s"], arrs["mask"])
     vectors = (arrs["gamma"], arrs["logk0"], arrs["k0"])
     K, m = check_cuda_args(planes, vectors, "fused_step")
@@ -132,11 +168,12 @@ def fused_step(sD, sL, v, arrs, kind, needs_floor, alpha: float,
     val = torch.empty_like(sD)
     a = float(alpha)
     lib = _build.library("fused_step")
+    fm, fn = _fold_args(m, fold)
     with torch.cuda.device(sD.device):
         stream = torch.cuda.current_stream(sD.device).cuda_stream
         rc = lib.cfmm_fused_step(
             dtype_code(sD.dtype), _KIND[(kind, bool(needs_floor))], K, m,
-            n_pad, a, 1.0 - a,
+            n_pad, fm, fn, a, 1.0 - a,
             sD.data_ptr(), sL.data_ptr(), asset.data_ptr(),
             arrs["R"].data_ptr(), arrs["w"].data_ptr(), arrs["s"].data_ptr(),
             arrs["mask"].data_ptr(), arrs["gamma"].data_ptr(),
@@ -145,9 +182,15 @@ def fused_step(sD, sL, v, arrs, kind, needs_floor, alpha: float,
             val.data_ptr(), int(cfg.n_bisect), int(cfg.n_polish), stream,
         )
     _build.check_launch(rc, "fused_step")
-    _build.LAUNCHES["fused_step"] += 1
+    _build.LAUNCHES["fused_step" if fold is None else "fused_step_fold"] += 1
     y = segment_sum(val, arrs["order"], arrs["seg"], n_pad)
     return sDn, sLn, D, L, y
+
+
+def _fold_args(m, fold):
+    """The C launchers' (fold_m, fold_n): pools and prices per point, or
+    (0, 0) unfolded."""
+    return (0, 0) if fold is None else (m // fold[0], fold[1])
 
 
 def _nu0e(arrs):
@@ -156,13 +199,15 @@ def _nu0e(arrs):
 
 
 def fused_step_delta_plain(sD, sL, v, arrs, kind, needs_floor, alpha: float,
-                           cfg: ProjectionConfig = ProjectionConfig()):
+                           cfg: ProjectionConfig = ProjectionConfig(), fold=None):
     """The fused delta half-iteration in plain PyTorch, on any device.
 
     Returns (sD', sL', a, b, y(n_pad,))."""
     K, m = sD.shape
     mask = arrs["mask"]
-    off = _gather(v, arrs, K, m) - _nu0e(arrs)
+    if fold is not None:
+        fold = _check_fold(m, v, fold, "fused_step_delta")
+    off = _gather(v, arrs, K, m, fold) - _nu0e(arrs)
     p = sD + off
     q = sL - off
     if kind == "gm":
@@ -187,17 +232,14 @@ def fused_step_delta(sD, sL, v, arrs, kind, needs_floor, alpha: float,
     (wdef - dnu, zero-padded);  arrs: a delta bucket dict from
     ``DeltaAdmmSolver.delta_buckets`` (X0/w/sS/aD/aL/mask/gamma/nsig and, on
     the re-centred path, the pre-broadcast base-dual plane nu0e).  The
-    constant-sum reserve floor always applies.  Returns (sD', sL', a, b,
-    y(n_pad,)).
+    constant-sum reserve floor always applies;  fold: (T, n_pt) of a
+    scenario fold (module docstring).  Returns (sD', sL', a, b, y(n_pad,)).
     """
     if fold is not None:
-        raise NotImplementedError(
-            "the folded delta kernel (fold=) is not ported yet "
-            "(queue 1, item 13 in ROADMAP.md)"
-        )
+        fold = _check_fold(sD.shape[1], v, fold, "fused_step_delta")
     if sD.device.type == "cpu":
         return fused_step_delta_plain(sD, sL, v, arrs, kind, needs_floor,
-                                      alpha, cfg)
+                                      alpha, cfg, fold)
     nu0e = arrs.get("nu0e")
     planes = (sD, sL, arrs["X0"], arrs["w"], arrs["sS"], arrs["aD"],
               arrs["aL"], arrs["mask"]) + (() if nu0e is None else (nu0e,))
@@ -212,11 +254,12 @@ def fused_step_delta(sD, sL, v, arrs, kind, needs_floor, alpha: float,
     val = torch.empty_like(sD)
     a = float(alpha)
     lib = _build.library("fused_step_delta")
+    fm, fn = _fold_args(m, fold)
     with torch.cuda.device(sD.device):
         stream = torch.cuda.current_stream(sD.device).cuda_stream
         rc = lib.cfmm_fused_step_delta(
             dtype_code(sD.dtype), _KIND[(kind, bool(needs_floor))], K, m,
-            n_pad, a, 1.0 - a,
+            n_pad, fm, fn, a, 1.0 - a,
             sD.data_ptr(), sL.data_ptr(), arrs["asset"].data_ptr(),
             arrs["X0"].data_ptr(), arrs["w"].data_ptr(), arrs["sS"].data_ptr(),
             arrs["aD"].data_ptr(), arrs["aL"].data_ptr(),
@@ -226,6 +269,7 @@ def fused_step_delta(sD, sL, v, arrs, kind, needs_floor, alpha: float,
             val.data_ptr(), int(cfg.n_bisect), int(cfg.n_polish), stream,
         )
     _build.check_launch(rc, "fused_step_delta")
-    _build.LAUNCHES["fused_step_delta"] += 1
+    _build.LAUNCHES["fused_step_delta" if fold is None
+                    else "fused_step_delta_fold"] += 1
     y = segment_sum(val, arrs["order"], arrs["seg"], n_pad)
     return sDn, sLn, A, B, y

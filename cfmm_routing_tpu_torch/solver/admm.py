@@ -35,6 +35,15 @@ is ``index_add_``, which is sequential there.
 The methods that touch bucket arrays take an optional ``buckets=`` override
 (the refinement stage's delta arrays ride it; see
 ``solver/refine_device.py``).
+
+A solver built with ``fold=(T, n_pt)`` runs a scenario fold
+(``solver/fold.py``): T copies of a problem one after another on the pool
+axis, point t's assets at t*n_pt..(t+1)*n_pt-1.  Its residual sums come out
+per point, (T,) vectors; the joint solves (``solve``, ``solve_fused``,
+``ChunkedDriver``) add them up, and ``_solve_batch_impl`` runs every point
+with its own penalty and its own stopping test, freezing a point's state
+once it has converged while the others go on — what ``AdmmSolver.solve_batch``
+and ``solve_batch_reserves`` return.
 """
 from __future__ import annotations
 
@@ -105,15 +114,20 @@ class RouteResult(NamedTuple):
     rho_final: torch.Tensor  # penalty at exit (prices == rho_final * nu)
 
 
-def _bucket_device_arrays(compiled: CompiledProblem, dtype, device):
+def _bucket_device_arrays(compiled: CompiledProblem, dtype, device, fold=None):
     """Slot-major (K, m) device copies, plus the fixed slot order of the
     deterministic reduction (``order``, ``seg``: ``ops/segment.py``).
 
-    Padding slots carry asset index 0: every consensus read/write is masked
-    instead, which keeps the asset vectors at exactly n entries."""
+    Padding slots carry the first asset index of their scenario point (0
+    unfolded): every consensus read/write is masked instead, which keeps
+    the asset vectors at exactly n entries, and a folded kernel block reads
+    only ids of its own point."""
     out = {}
     for name, b in compiled.buckets.items():
-        asset = np.where(b.mask > 0, b.asset, 0).astype(np.int32)
+        pad_id = 0
+        if fold is not None:
+            pad_id = (np.arange(b.m) // (b.m // fold[0]) * fold[1])[:, None]
+        asset = np.where(b.mask > 0, b.asset, pad_id).astype(np.int32)
         if asset.size and (asset.min() < 0 or asset.max() >= compiled.n_assets):
             raise ValueError(f"bucket {name!r} has asset ids outside [0, n)")
 
@@ -137,11 +151,38 @@ def _bucket_device_arrays(compiled: CompiledProblem, dtype, device):
     return out
 
 
+def _fused_ok(solver) -> bool:
+    """Whether the fused kernels can run a solver's buckets: every bucket's
+    pool count per scenario point (all of it unfolded) is a multiple of 128,
+    the kernels' block of pools.  (The JAX package tests the folded count,
+    which lets a fold of unaligned points through to a kernel that cannot
+    tile them.)"""
+    T = 1 if solver._fold is None else solver._fold[0]
+    return all(
+        a["mask"].shape[1] % T == 0 and (a["mask"].shape[1] // T) % 128 == 0
+        for a in solver.buckets.values()
+    )
+
+
+def _reserve_buckets(solver, compiled_scaled):
+    """The solver's bucket arrays with R, k0 and logk0 taken from a compiled
+    problem of the same topology (scaled reserves)."""
+    out = {}
+    for name, b in compiled_scaled.buckets.items():
+        arrs = dict(solver.buckets[name])
+        arrs.update(R=solver._t(np.ascontiguousarray(b.reserves.T)),
+                    k0=solver._t(b.k0), logk0=solver._t(b.logk0))
+        out[name] = arrs
+    return out
+
+
 class AdmmSolver:
     """ADMM solver bound to one problem structure and one device.
 
     ``device=None`` runs on the current CUDA device and raises without
     one; ``device="cpu"`` runs the plain PyTorch versions of the kernels.
+    ``fold=(T, n_pt)``: ``compiled`` is a scenario fold of T points of n_pt
+    assets each (``solver/fold.py``; see the module docstring).
     """
 
     def __init__(
@@ -151,17 +192,24 @@ class AdmmSolver:
         options: AdmmOptions = AdmmOptions(),
         device=None,
         axis_name: Optional[str] = None,
+        fold=None,
     ):
         if axis_name is not None:
             raise _not_ported("sharded consensus (axis_name)", "queue 1, item 14")
         if options.consensus not in _CONSENSUS_MODES:
             raise ValueError(f"unknown consensus mode {options.consensus!r}")
+        if fold is not None:
+            fold = (int(fold[0]), int(fold[1]))
+            if fold[0] * fold[1] != compiled.n_assets:
+                raise ValueError(f"fold={fold} does not cover the problem's "
+                                 f"{compiled.n_assets} assets")
+        self._fold = fold
         self.compiled = compiled
         self.dtype = dtype
         self.device = resolve_device(device)
         self.options = options
         self.n = compiled.n_assets
-        self.buckets = _bucket_device_arrays(compiled, dtype, self.device)
+        self.buckets = _bucket_device_arrays(compiled, dtype, self.device, fold)
         self._meta = {
             name: (b.kind, b.needs_floor) for name, b in compiled.buckets.items()
         }
@@ -181,6 +229,44 @@ class AdmmSolver:
 
     def _zeros(self, *shape) -> torch.Tensor:
         return torch.zeros(shape, dtype=self.dtype, device=self.device)
+
+    # ---- scenario folds: per-point sums and broadcasts -----------------------
+
+    def _plane_sum(self, x):
+        """Sum of a (K, m) plane: a scalar, or (T,) per point on a fold."""
+        if self._fold is None:
+            return torch.sum(x)
+        K, m = x.shape
+        T = self._fold[0]
+        return x.reshape(K, T, m // T).sum(dim=(0, 2))
+
+    def _asset_sum(self, x):
+        """Sum of an (n,) vector: a scalar, or (T,) per point on a fold."""
+        if self._fold is None:
+            return torch.sum(x)
+        return x.reshape(self._fold[0], -1).sum(dim=1)
+
+    def _per_asset(self, x):
+        """A scalar unchanged; a (T,) per-point vector repeated to (n,)."""
+        if not isinstance(x, torch.Tensor) or x.dim() == 0:
+            return x
+        return x.repeat_interleave(self._fold[1])
+
+    @staticmethod
+    def _joint(stats):
+        """Residual sums over all points of a fold (scalars pass through)."""
+        return {k: v.sum() for k, v in stats.items()}
+
+    def _residuals(self, stats, sqn):
+        """(r, s, eps_pri, eps_dua) from one iteration's residual sums."""
+        opts = self.options
+        r = torch.sqrt(stats["r2"])
+        sd = torch.sqrt(stats["s2"])
+        eps_pri = opts.eps_abs * sqn + opts.eps_rel * torch.sqrt(
+            torch.maximum(stats["w_norm2"], stats["z_norm2"])
+        )
+        eps_dua = opts.eps_abs * sqn + opts.eps_rel * torch.sqrt(stats["u_norm2"])
+        return r, sd, eps_pri, eps_dua
 
     # ---- consensus exchange -------------------------------------------------
     # Broadcast the n-vector nu to every (pool, slot) edge, and reduce
@@ -234,14 +320,14 @@ class AdmmSolver:
             zD, zL = z[name]
             D, L = self._project(name, arrs, zD - nu_e, zL + nu_e)
             if with_stats:
-                w_norm2 = w_norm2 + (torch.sum(D * D) + torch.sum(L * L))
+                w_norm2 = w_norm2 + (self._plane_sum(D * D) + self._plane_sum(L * L))
             hD = alpha * D + (1.0 - alpha) * zD
             hL = alpha * L + (1.0 - alpha) * zL
             w_hat[name] = (D, L, hD, hL)
             yhat = yhat + self._reduce_edges(hL - hD, name, buckets)
 
         s = yhat - 2.0 * self.degree * nu
-        psi, mu = psi_prox(s, self.degree, c, lo, hi, rho)
+        psi, mu = psi_prox(s, self.degree, c, lo, hi, self._per_asset(rho))
 
         z_new = {}
         w_out = {}
@@ -255,15 +341,17 @@ class AdmmSolver:
             znL = hL - dmu
             if with_stats:
                 zD, zL = z[name]
-                s2 = s2 + (torch.sum((znD - zD) ** 2) + torch.sum((znL - zL) ** 2))
+                s2 = s2 + (self._plane_sum((znD - zD) ** 2)
+                           + self._plane_sum((znL - zL) ** 2))
                 rD = D - znD
                 rL = L - znL
-                r2 = r2 + (torch.sum(rD * rD) + torch.sum(rL * rL))
-                z_norm2 = z_norm2 + (torch.sum(znD * znD) + torch.sum(znL * znL))
+                r2 = r2 + (self._plane_sum(rD * rD) + self._plane_sum(rL * rL))
+                z_norm2 = z_norm2 + (self._plane_sum(znD * znD)
+                                     + self._plane_sum(znL * znL))
             z_new[name] = (znD, znL)
             w_out[name] = (D, L)
 
-        u_norm2 = torch.sum(2.0 * self.degree * mu * mu)
+        u_norm2 = self._asset_sum(2.0 * self.degree * mu * mu)
         stats = dict(
             r2=r2, s2=s2 * rho * rho, w_norm2=w_norm2, z_norm2=z_norm2,
             u_norm2=u_norm2 * rho * rho,
@@ -284,12 +372,16 @@ class AdmmSolver:
         }
         return s0, self._zeros(self.n), self._zeros(self.n)
 
-    def _fold_pack(self, w, fold=None):
+    def _fold_pack(self, w):
         """(n,)-consensus vector -> the fused kernel's padded price layout
         (zero-padded to a multiple of 128), plus the inverse for the
-        reduced y."""
-        if fold is not None:
-            raise _not_ported("scenario folding (fold=)", "queue 1, item 13")
+        reduced y.
+
+        A fold keeps this layout: point t's prices sit at t*n_pt ..
+        (t+1)*n_pt - 1, a per-point stride of n_pt with no padding between
+        points (the TPU's 1024-value per-point blocks were a Mosaic tiling
+        rule), so a folded asset id is its index in v and y, and a kernel
+        block stages n_pt prices from t*n_pt."""
         n = self.n
         n_pad = -(-n // 128) * 128
         v = torch.cat([w, self._zeros(n_pad - n)])
@@ -307,13 +399,14 @@ class AdmmSolver:
             sD, sL = s[name]
             sDn, sLn, D, L, yp = fused_step(
                 sD, sL, v, arrs, kind, floor, alpha, cfg=self.options.projection,
+                fold=self._fold,
             )
             s_new[name] = (sDn, sLn)
             w_out[name] = (D, L)
             y = y + yp
         yhat = unpack(y) - 2.0 * (1.0 - alpha) * self.degree * wdef
         svec = yhat - 2.0 * self.degree * nu
-        psi, mu = psi_prox(svec, self.degree, c, lo, hi, rho)
+        psi, mu = psi_prox(svec, self.degree, c, lo, hi, self._per_asset(rho))
         wdef_new = (1.0 - alpha) * wdef + nu - mu
         return s_new, wdef_new, mu, psi, w_out
 
@@ -327,9 +420,11 @@ class AdmmSolver:
             z[name] = (sD + we, sL - we)
         return z
 
-    def _sqrt_edges(self):
-        """sqrt of the edge count: the absolute-tolerance scale."""
-        return math.sqrt(sum(2 * a["mask"].numel() for a in self.buckets.values()))
+    def _sqrt_edges(self, per_point=False):
+        """sqrt of the edge count (of one point's, ``per_point`` on a fold):
+        the absolute-tolerance scale."""
+        edges = sum(2 * a["mask"].numel() for a in self.buckets.values())
+        return math.sqrt(edges / (self._fold[0] if per_point else 1))
 
     def _solve_fused_impl(self, c, lo, hi, rho, n_iters, buckets=None,
                           z0=None, nu0=None):
@@ -344,7 +439,6 @@ class AdmmSolver:
         wdef = 0 reproduces any classic edge state exactly, so chunked
         callers (the refinement stage) chain fused chunks through
         :meth:`warm_state` with no conversion."""
-        opts = self.options
         s, wdef, nu = self.fused_init(buckets)
         if z0 is not None:
             s = dict(z0)
@@ -355,13 +449,7 @@ class AdmmSolver:
                                                     buckets=buckets)
         z = self.fused_to_z(s, wdef, buckets)
         z, nu, psi, w, st = self._iterate(z, nu, rho, c, lo, hi, buckets=buckets)
-        r = torch.sqrt(st["r2"])
-        sd = torch.sqrt(st["s2"])
-        sqn = self._sqrt_edges()
-        eps_pri = opts.eps_abs * sqn + opts.eps_rel * torch.sqrt(
-            torch.maximum(st["w_norm2"], st["z_norm2"])
-        )
-        eps_dua = opts.eps_abs * sqn + opts.eps_rel * torch.sqrt(st["u_norm2"])
+        r, sd, eps_pri, eps_dua = self._residuals(self._joint(st), self._sqrt_edges())
         return RouteResult(
             objective=torch.sum(c * psi),
             psi=psi,
@@ -400,14 +488,12 @@ class AdmmSolver:
         if merged:
             raise _not_ported("the merged K-group kernel (merged=True)",
                               "queue 2, item 5")
-        for name, arrs in self.buckets.items():
-            m = arrs["mask"].shape[1]
-            if m % 128 != 0:
-                raise ValueError(
-                    f"bucket {name!r} has {m} pools; the fused kernel needs "
-                    "a multiple of 128 (1024 for big buckets) — "
-                    "compile_spec/compile_table with pad_pools_to=128"
-                )
+        if not _fused_ok(self):
+            raise ValueError(
+                "every bucket's pool count (per scenario point) must be a "
+                "multiple of 128 for the fused kernel — "
+                "compile_spec/compile_table with pad_pools_to=128"
+            )
         c, lo, hi = self._objective_arrays(objective)
         rho_v = self._t(rho if rho is not None else self.options.rho)
         return self._solve_fused_impl(c, lo, hi, rho_v, int(iters))
@@ -445,12 +531,7 @@ class AdmmSolver:
                                                with_stats=False, buckets=buckets)
             z, nu, psi, w, st = self._iterate(z, nu, rho, c, lo, hi,
                                               buckets=buckets)
-            r = torch.sqrt(st["r2"])
-            sd = torch.sqrt(st["s2"])
-            eps_pri = opts.eps_abs * sqn + opts.eps_rel * torch.sqrt(
-                torch.maximum(st["w_norm2"], st["z_norm2"])
-            )
-            eps_dua = opts.eps_abs * sqn + opts.eps_rel * torch.sqrt(st["u_norm2"])
+            r, sd, eps_pri, eps_dua = self._residuals(self._joint(st), sqn)
             k += check_every
             if (opts.adapt_rho and (k % opts.adapt_every) < check_every
                     and k < budget // 2):
@@ -520,12 +601,163 @@ class AdmmSolver:
             z0, nu0 = self.warm_state(warm, rho_v)
         return self._solve_impl(c, lo, hi, rho_v, z0, nu0, max_iters=max_iters)
 
-    def solve_batch(self, *args, **kwargs):
-        raise _not_ported("batched solves (solve_batch)", "queue 1, item 13")
+    # ---- batched solves: one fold, a stopping test per point ----------------
 
-    def solve_batch_reserves(self, *args, **kwargs):
-        raise _not_ported("reserve-scenario batches (solve_batch_reserves)",
-                          "queue 1, item 13")
+    def _solve_batch_impl(self, c, lo, hi, rho0, z0=None, nu0=None,
+                          max_iters=None, buckets=None):
+        """:meth:`_solve_impl` on a fold with every point on its own: its
+        own penalty (``rho0`` a scalar or (T,)), residuals, stopping test,
+        rho adaptation and iteration count.  Each check runs the iterations
+        for all points and keeps the new state only for the points still
+        running, so a converged point stays frozen — point t ends as a
+        solve of point t alone would.  Returns a folded RouteResult whose
+        per-point fields (objective, iters, norms, converged, rho_final)
+        are (T,) vectors."""
+        opts = self.options
+        buckets = self.buckets if buckets is None else buckets
+        T = self._fold[0]
+        budget = int(opts.max_iters if max_iters is None else max_iters)
+        sqn = self._sqrt_edges(per_point=True)
+        if z0 is None:
+            z0 = {
+                name: (self._zeros(*arrs["mask"].shape),
+                       self._zeros(*arrs["mask"].shape))
+                for name, arrs in buckets.items()
+            }
+        z = dict(z0)
+        nu = self._zeros(self.n) if nu0 is None else nu0
+        rho = self._t(rho0).expand(T).clone()
+        check_every = max(1, int(opts.check_every))
+        r = sd = torch.full((T,), math.inf, dtype=self.dtype, device=self.device)
+        eps_pri = eps_dua = self._zeros(T)
+        iters = torch.zeros(T, dtype=torch.int64, device=self.device)
+        psi = self._zeros(self.n)
+        w = {name: (torch.zeros_like(zD), torch.zeros_like(zL))
+             for name, (zD, zL) in z.items()}
+        k = 0  # the iteration count of every point still running
+        while True:
+            live = (iters < budget) & ((r > eps_pri) | (sd > eps_dua))
+            if not bool(live.any()):
+                break
+            z_n, nu_n = z, nu
+            for _ in range(check_every - 1):
+                z_n, nu_n, _, _, _ = self._iterate(z_n, nu_n, rho, c, lo, hi,
+                                                   with_stats=False,
+                                                   buckets=buckets)
+            z_n, nu_n, psi_n, w_n, st = self._iterate(z_n, nu_n, rho, c, lo, hi,
+                                                      buckets=buckets)
+            r_n, sd_n, ep_n, ed_n = self._residuals(st, sqn)
+            k += check_every
+            rho_n = rho
+            if (opts.adapt_rho and (k % opts.adapt_every) < check_every
+                    and k < budget // 2):
+                one = torch.ones_like(rho)
+                fac = torch.where(
+                    r_n > opts.adapt_ratio * sd_n, one * opts.adapt_factor,
+                    torch.where(sd_n > opts.adapt_ratio * r_n,
+                                one / opts.adapt_factor, one),
+                )
+                rho_n = rho * fac
+                nu_n = nu_n / self._per_asset(fac)
+            live_a = self._per_asset(live)
+            nu = torch.where(live_a, nu_n, nu)
+            psi = torch.where(live_a, psi_n, psi)
+            rho, r, sd, eps_pri, eps_dua = (
+                torch.where(live, new, old) for new, old in
+                ((rho_n, rho), (r_n, r), (sd_n, sd), (ep_n, eps_pri),
+                 (ed_n, eps_dua)))
+            iters = torch.where(live, iters + check_every, iters)
+            for name, (zD, zL) in z.items():
+                live_p = live.repeat_interleave(zD.shape[1] // T)
+                z[name] = (torch.where(live_p, z_n[name][0], zD),
+                           torch.where(live_p, z_n[name][1], zL))
+                w[name] = (torch.where(live_p, w_n[name][0], w[name][0]),
+                           torch.where(live_p, w_n[name][1], w[name][1]))
+
+        return RouteResult(
+            objective=self._asset_sum(c * psi),
+            psi=psi,
+            prices=self._per_asset(rho) * nu,
+            deltas={name: w[name][0] for name in self.buckets},
+            lambdas={name: w[name][1] for name in self.buckets},
+            iters=iters,
+            r_norm=r,
+            s_norm=sd,
+            converged=(r <= eps_pri) & (sd <= eps_dua),
+            rho_final=rho,
+        )
+
+    def _unfold_batch(self, res: RouteResult) -> RouteResult:
+        """A folded result -> leading-axis-T tensors: psi/prices (T, n_pt),
+        deltas/lambdas (T, K, m_pt)."""
+        T = self._fold[0]
+
+        def planes(d):
+            return {k: v.reshape(v.shape[0], T, -1).permute(1, 0, 2).contiguous()
+                    for k, v in d.items()}
+
+        return res._replace(psi=res.psi.reshape(T, -1),
+                            prices=res.prices.reshape(T, -1),
+                            deltas=planes(res.deltas), lambdas=planes(res.lambdas))
+
+    def _batch_solver(self, T: int) -> "AdmmSolver":
+        """This solver's problem folded T times (cached: ``solver/fold.py``)."""
+        if self._fold is not None:
+            raise ValueError("batched solves run on an unfolded solver")
+        from .fold import folded_solver
+
+        return folded_solver(self.compiled, T, self.options, self.dtype,
+                             cls=type(self), device=self.device)[0]
+
+    def solve_batch(self, c, lo, hi, rho: Optional[float] = None) -> RouteResult:
+        """T linear objectives, (T, n) rows of ``c``/``lo``/``hi``, solved as
+        T independent solves (per-point penalty, stopping test and
+        iteration count; point t equals ``solve`` of point t alone).  They
+        run as one fold on the pool axis (:meth:`_solve_batch_impl`), the
+        kernels' explicit batch.  Returns a RouteResult with leading axis T."""
+        c = np.asarray(c, np.float64)
+        T = c.shape[0]
+        fs = self._batch_solver(T)
+        res = fs._solve_batch_impl(
+            fs._t(c.reshape(-1)), fs._t(np.asarray(lo, np.float64).reshape(-1)),
+            fs._t(np.asarray(hi, np.float64).reshape(-1)),
+            rho if rho is not None else self.options.rho,
+        )
+        return fs._unfold_batch(res)
+
+    def batch_reserve_arrays(self, reserve_scale):
+        """Bucket arrays for B per-pool reserve scenarios on this problem
+        folded B times: ``reserve_scale`` (B, n_pools) multiplies each
+        pool's reserves per scenario (padding pools by 1); R, k0 and logk0
+        are each point's own, the rest is the fold's topology."""
+        from .fold import fold_compiled
+
+        scale = np.asarray(reserve_scale, np.float64)
+        if scale.ndim != 2 or scale.shape[1] != self.compiled.n_pools:
+            raise ValueError(
+                f"reserve_scale must be (B, n_pools={self.compiled.n_pools}); "
+                f"got {scale.shape}"
+            )
+        fs = self._batch_solver(scale.shape[0])
+        return _reserve_buckets(fs, fold_compiled(self.compiled, scale.shape[0],
+                                                  scale))
+
+    def solve_batch_reserves(self, objective, reserve_scale,
+                             rho: Optional[float] = None) -> RouteResult:
+        """One linear objective over B per-pool reserve scenarios (post-shock
+        reserve states), each solved on its own as in :meth:`solve_batch`.
+        Returns a RouteResult with leading axis B."""
+        B = np.asarray(reserve_scale).shape[0]
+        bdict = self.batch_reserve_arrays(reserve_scale)
+        fs = self._batch_solver(B)
+        c, lo, hi = (fs._t(np.tile(x, B)) for x in
+                     (objective.c, np.maximum(objective.lo, -_F32_BIG),
+                      np.minimum(objective.hi, _F32_BIG)))
+        res = fs._solve_batch_impl(
+            c, lo, hi, rho if rho is not None else self.options.rho,
+            buckets=bdict,
+        )
+        return fs._unfold_batch(res)
 
     # ---- host-side unbucketing ---------------------------------------------
 

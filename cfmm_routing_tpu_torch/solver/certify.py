@@ -47,7 +47,8 @@ from .._device import host, resolve_device
 from ..models.utility import Objective
 from .compiler import CompiledProblem
 
-__all__ = ["Certificate", "certify", "dual_bound", "polish_prices"]
+__all__ = ["Certificate", "InfeasibilityCertificate", "certify",
+           "certify_batch", "certify_infeasible", "dual_bound", "polish_prices"]
 
 _TINY = 1e-300
 # eta search inside the gm support bound: log-space bisection to isolate a
@@ -137,7 +138,9 @@ def _gm_bound(nu_s, R, w, s, gamma, logk0, mask, evals=None, device=None,
               want_grad=False):
     """Per-pool arbitrage support bound for geo-mean pools.
 
-    nu_s, R, w, s, mask: (m, K);  gamma, logk0: (m,).  Returns (m,) numpy,
+    nu_s, R, w, s, mask: (m, K);  gamma, logk0: (m,).  ``nu_s`` may carry
+    leading batch axes (T, m, K), the pool data shared across them: one
+    batched evaluation then bounds every point.  Returns (m,) numpy,
     or ((m,), (m, K) d(bound)/d(nu_s)) when ``want_grad`` (Danskin
     envelope: the pool's net-trade response at the evaluated multiplier and
     regime, or R where the drain cap binds).
@@ -161,27 +164,27 @@ def _gm_bound(nu_s, R, w, s, gamma, logk0, mask, evals=None, device=None,
     floor_y = s  # x >= 0  <=>  y >= s  (s == 0 for pure gm pools)
 
     def eval_bound(eta):
-        e = eta[:, None]
+        e = eta[..., None]
         y_w = e * w / nu_safe  # withdrawing-regime stationary point
         y_d = g * y_w  # deposit-regime stationary point
         y = torch.where(
             y_w < yR, torch.maximum(y_w, floor_y), torch.where(y_d > yR, y_d, yR)
         )
         y = torch.where(valid, torch.clamp(y, _TINY, 1e300), 1.0)
-        h = torch.sum(w * torch.log(y), dim=1)
+        h = torch.sum(w * torch.log(y), dim=-1)
         dy = yR - y
         # response = d(profit)/d(nu): dy when withdrawing, dy/g depositing
         resp = torch.where(valid, torch.where(dy > 0, dy, dy / g), 0.0)
         profit = torch.where(dy > 0, nu_safe * dy, (nu_safe / g) * dy)
-        profit = torch.sum(torch.where(valid, profit, 0.0), dim=1)
+        profit = torch.sum(torch.where(valid, profit, 0.0), dim=-1)
         # h is piecewise linear in log(eta): coords on either eta-scaling
         # branch contribute w, clamped (yR / floor) coords contribute 0
         on_eta = ((y_w < yR) & (y_w > floor_y)) | ((y_w >= yR) & (y_d > yR))
-        slope = torch.sum(torch.where(on_eta & valid, w, 0.0), dim=1)
+        slope = torch.sum(torch.where(on_eta & valid, w, 0.0), dim=-1)
         return profit + eta * (h - logk0), h, slope, resp
 
     hi = torch.amax(
-        torch.where(valid, nu_safe * yR / torch.clamp_min(w, 1e-12), 0.0), dim=1
+        torch.where(valid, nu_safe * yR / torch.clamp_min(w, 1e-12), 0.0), dim=-1
     ) / torch.clamp_max(gamma, 1.0) + 1.0
     lo = hi * 1e-30  # 30-decade bracket for the log-space search
 
@@ -205,15 +208,15 @@ def _gm_bound(nu_s, R, w, s, gamma, logk0, mask, evals=None, device=None,
 
     b_lo, _, _, r_lo = eval_bound(torch.clamp_min(lo, 1e-12))
     b_hi, _, _, r_hi = eval_bound(hi)
-    drain = torch.sum(torch.where(valid, nu_safe * R, 0.0), dim=1)
+    drain = torch.sum(torch.where(valid, nu_safe * R, 0.0), dim=-1)
     cand = torch.minimum(torch.minimum(b_lo, b_hi), drain)
     cand = torch.where(torch.isfinite(cand), cand, drain)
     if not want_grad:
         return host(cand)
-    r_best = torch.where((b_lo <= b_hi)[:, None], r_lo, r_hi)
+    r_best = torch.where((b_lo <= b_hi)[..., None], r_lo, r_hi)
     R_v = torch.where(valid, R, 0.0)
     grad = torch.where(
-        (cand >= drain - 1e-300)[:, None], R_v,
+        (cand >= drain - 1e-300)[..., None], R_v,
         torch.where(torch.isfinite(r_best), r_best, R_v),
     )
     return host(cand), host(grad)
@@ -469,3 +472,191 @@ def polish_prices(
         if g1 < g0:
             return xr
     return x0
+
+
+@dataclasses.dataclass
+class InfeasibilityCertificate:
+    """Rigorous primal-infeasibility certificate (separating prices).
+
+    The primal is feasible iff the Minkowski sum of the pools' net-trade
+    sets meets the psi box.  For ANY price direction u >= 0 (zero where
+    lo = -inf),
+
+        margin(u) = sum_i sigma_i(u) - sum_j u_j lo_j
+                  = [most value the pools can emit at prices u]
+                    - [value the box demands at prices u]
+
+    and ``margin < 0`` PROVES that no feasible point exists; the separating
+    direction itself is returned as evidence."""
+
+    margin: float  # < 0 proves infeasibility
+    infeasible: bool
+    prices: np.ndarray  # the separating direction u (||u||_inf = 1)
+
+    def summary(self) -> str:
+        verdict = "INFEASIBLE" if self.infeasible else "inconclusive"
+        return f"{verdict}: margin={self.margin:.6g} at ||u||_inf=1"
+
+
+def certify_infeasible(
+    compiled: CompiledProblem,
+    objective,
+    prices: np.ndarray,
+    device=None,
+) -> InfeasibilityCertificate:
+    """Attempt an infeasibility certificate from a candidate direction.
+
+    ``prices`` is typically the (diverging) ADMM dual iterate: for an
+    infeasible program the scaled dual grows along a separating direction.
+    The candidate is sanitized so both sides of the margin are finite:
+    clipped to u >= 0 (a pool's support is +inf at a negative price) and
+    zeroed where lo_j = -inf.  The margin is rigorous for the sanitized u;
+    ``infeasible=False`` only ever means "inconclusive".  ``device``: where
+    the geo-mean support search runs (the card unless ``"cpu"``)."""
+    lo = np.asarray(objective.lo, np.float64)
+    u = np.maximum(np.asarray(host(prices), np.float64), 0.0)
+    u = np.where(np.isfinite(lo), u, 0.0)
+    scale = float(np.max(u, initial=0.0))
+    if not np.isfinite(scale) or scale <= 0.0:
+        return InfeasibilityCertificate(margin=np.inf, infeasible=False, prices=u)
+    u = u / scale
+    support = _pool_supports(compiled, u, device=device)
+    demand = float(np.sum(np.where(u > 0, u * lo, 0.0)))
+    margin = support - demand
+    return InfeasibilityCertificate(margin=margin, infeasible=bool(margin < 0.0),
+                                    prices=u)
+
+
+def certify_batch(
+    compiled: CompiledProblem,
+    c,
+    lo,
+    hi,
+    deltas: Dict[str, np.ndarray],
+    lambdas: Dict[str, np.ndarray],
+    prices: np.ndarray,
+    psi_claimed: Optional[np.ndarray] = None,
+    device=None,
+):
+    """Certify T candidate routings at once (linear objectives).
+
+    ``c``/``lo``/``hi``/``prices``: (T, n); ``deltas``/``lambdas``: bucket
+    name -> (T, K, m); ``psi_claimed``: optional (T, n).  Returns a list of
+    T :class:`Certificate`, each as rigorous as :func:`certify`'s: the same
+    math, float64 numpy feasibility broadcast over T, and the geo-mean dual
+    bound as one batched float64 torch evaluation on ``device`` (the card
+    unless ``"cpu"``)."""
+    n = compiled.n_assets
+    c = np.asarray(c, np.float64)
+    lo = np.asarray(lo, np.float64)
+    hi = np.asarray(hi, np.float64)
+    T = c.shape[0]
+
+    nu = np.array(host(prices), dtype=np.float64, copy=True)  # (T, n)
+    free = ~np.isfinite(lo) & ~np.isfinite(hi)
+    nu[free] = c[free]
+    up = ~np.isfinite(hi) & ~free
+    nu[up] = np.maximum(nu[up], c[up])
+    dn = ~np.isfinite(lo) & ~free
+    nu[dn] = np.minimum(nu[dn], c[dn])
+    nu = np.maximum(nu, 0.0)
+    nu_ext = np.concatenate([nu, np.zeros((T, 1))], axis=1)
+
+    psi_hat = np.zeros((T, n + 1))
+    gross = np.zeros((T, n + 1))
+    nneg_a = np.zeros((T, n + 1))
+    floor_a = np.zeros((T, n + 1))
+    phi_viol = np.zeros(T)
+    nneg_viol = np.zeros(T)
+    floor_viol = np.zeros(T)
+    dual_pools = np.zeros(T)
+    for name, b in compiled.buckets.items():
+        D = np.swapaxes(np.asarray(host(deltas[name]), np.float64), 1, 2)  # (T,m,K)
+        L = np.swapaxes(np.asarray(host(lambdas[name]), np.float64), 1, 2)
+        mask = b.mask[None]
+        g = b.gamma[:, 0][None, :, None]
+        x = b.reserves[None] + g * D - L
+        nneg_slot = (np.maximum(-D, -L).clip(min=0.0) * mask).reshape(T, -1)
+        nneg_viol = np.maximum(nneg_viol, np.max(nneg_slot, axis=1, initial=0.0))
+        if b.kind == "gm":
+            y = np.where(mask > 0, np.maximum(x + b.shift[None], _TINY), 1.0)
+            h = np.sum(b.weights[None] * np.log(y), axis=2)  # (T, m)
+            phi_viol = np.maximum(
+                phi_viol, np.max(b.logk0[None] - h, axis=1, initial=0.0))
+        else:
+            tot = np.sum(b.weights[None] * np.maximum(x, 0.0), axis=2)
+            phi_viol = np.maximum(phi_viol, np.max(
+                (b.k0[None] - tot) / np.maximum(b.k0[None], 1.0),
+                axis=1, initial=0.0))
+        flat_ids = b.asset.reshape(-1)
+        idx = (flat_ids[None, :] + (n + 1) * np.arange(T)[:, None]).reshape(-1)
+        np.maximum.at(nneg_a.reshape(-1), idx, nneg_slot.reshape(-1))
+        if b.needs_floor:
+            floor_slot = ((-x).clip(min=0.0) * mask).reshape(T, -1)
+            floor_viol = np.maximum(floor_viol,
+                                    np.max(floor_slot, axis=1, initial=0.0))
+            np.maximum.at(floor_a.reshape(-1), idx, floor_slot.reshape(-1))
+        vals = ((L - D) * mask).reshape(-1)
+        psi_hat += np.bincount(idx, weights=vals,
+                               minlength=T * (n + 1)).reshape(T, n + 1)
+        gross += np.bincount(
+            idx, weights=((np.abs(D) + np.abs(L)) * mask).reshape(-1),
+            minlength=T * (n + 1),
+        ).reshape(T, n + 1)
+
+        nu_s = nu_ext[:, b.asset]  # (T, m, K)
+        gam = b.gamma[:, 0]
+        if b.kind == "gm":
+            dual_pools += np.sum(_gm_bound(
+                nu_s, b.reserves, b.weights, b.shift, gam, b.logk0, b.mask,
+                device=device), axis=1)
+        else:
+            q_safe = np.where(b.mask[None] > 0, b.weights[None], 1.0)
+            ratio = np.where(b.mask[None] > 0, nu_s / q_safe, np.inf)
+            cstar = np.min(ratio, axis=2) / gam[None]
+            gain = np.maximum(nu_s - q_safe * cstar[..., None], 0.0)
+            dual_pools += np.sum(
+                np.where(b.mask[None] > 0, b.reserves[None] * gain, 0.0),
+                axis=(1, 2),
+            )
+
+    psi_hat = psi_hat[:, :n]
+    box_a = np.maximum(lo - psi_hat, psi_hat - hi).clip(min=0.0)
+    box_viol = np.max(box_a, axis=1, initial=0.0)
+    row_scale = np.maximum(1.0, np.maximum(np.abs(psi_hat), gross[:, :n]))
+    feas_rel = np.maximum(phi_viol, np.max(
+        np.maximum(nneg_a[:, :n], np.maximum(floor_a[:, :n], box_a)) / row_scale,
+        axis=1, initial=0.0))
+    cons = (np.max(np.abs(np.asarray(host(psi_claimed), np.float64) - psi_hat),
+                   axis=1)
+            if psi_claimed is not None else np.zeros(T))
+
+    d = c - nu
+    lo_f = np.where(np.isfinite(lo), lo, 0.0)
+    hi_f = np.where(np.isfinite(hi), hi, 0.0)
+    val = np.maximum(
+        np.where(np.isfinite(lo), d * lo_f, -np.inf),
+        np.where(np.isfinite(hi), d * hi_f, -np.inf),
+    )
+    box_support = np.sum(np.where(np.isfinite(val), val, 0.0), axis=1)
+
+    primal = np.sum(c * psi_hat, axis=1)
+    dual = box_support + dual_pools
+    gap = dual - primal
+    return [
+        Certificate(
+            objective=float(primal[t]),
+            dual_bound=float(dual[t]),
+            gap_abs=float(gap[t]),
+            gap_rel=float(gap[t] / max(1.0, abs(primal[t]), abs(dual[t]))),
+            phi_violation=float(phi_viol[t]),
+            nonneg_violation=float(nneg_viol[t]),
+            floor_violation=float(floor_viol[t]),
+            box_violation=float(box_viol[t]),
+            psi_consistency=float(cons[t]),
+            prices=nu[t],
+            psi_scale=float(np.max(np.abs(psi_hat[t]), initial=0.0)),
+            feasibility_rel_value=float(feas_rel[t]),
+        )
+        for t in range(T)
+    ]

@@ -18,8 +18,14 @@ certified gap by f32 correction solves on the card, certified in f64.
 4.  Compose D = D0 + eps*a in f64 on the host and certify rigorously
     (``solver/certify.py``).  Passes re-centre at the refined point.
 
+:func:`refine_sweep` refines every point of a batched sweep at once: one
+correction solve per pass over all T points, folded on the pool axis
+(``solver/fold.py``; on the card the ``fused_step_delta(fold=)`` kernel)
+or batched point by point, and one :func:`~.certify.certify_batch` per
+pass.
+
 Linear :class:`Objective`s are covered; utilities raise (queue 1, item 12
-in ROADMAP.md), as do the batched and folded sweep entry points (item 13).
+in ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -34,8 +40,9 @@ from .._device import host, resolve_device
 from ..models.utility import Objective
 from ..ops.iteration_cuda import fused_step_delta
 from ..ops.projection_cuda import project_cs_delta_cuda, project_gm_delta_cuda
-from .admm import AdmmOptions, AdmmSolver, RouteResult, _F32_BIG, _not_ported
-from .certify import certify, dual_bound, polish_prices
+from .admm import (AdmmOptions, AdmmSolver, RouteResult, _F32_BIG, _fused_ok,
+                   _not_ported)
+from .certify import certify, certify_batch, dual_bound, polish_prices
 from .compiler import CompiledProblem
 from .refine import RefineResult, to_host
 
@@ -97,7 +104,7 @@ class DeltaAdmmSolver(AdmmSolver):
             zD, zL = z[name]
             D, L = self._project(name, arrs, zD - off, zL + off)
             if with_stats:
-                w_norm2 = w_norm2 + (torch.sum(D * D) + torch.sum(L * L))
+                w_norm2 = w_norm2 + (self._plane_sum(D * D) + self._plane_sum(L * L))
             hD = alpha * D + (1.0 - alpha) * zD
             hL = alpha * L + (1.0 - alpha) * zL
             w_hat[name] = (D, L, hD, hL)
@@ -117,15 +124,17 @@ class DeltaAdmmSolver(AdmmSolver):
             znL = hL - dmu_e
             if with_stats:
                 zD, zL = z[name]
-                s2 = s2 + (torch.sum((znD - zD) ** 2) + torch.sum((znL - zL) ** 2))
+                s2 = s2 + (self._plane_sum((znD - zD) ** 2)
+                           + self._plane_sum((znL - zL) ** 2))
                 rD = D - znD
                 rL = L - znL
-                r2 = r2 + (torch.sum(rD * rD) + torch.sum(rL * rL))
-                z_norm2 = z_norm2 + (torch.sum(znD * znD) + torch.sum(znL * znL))
+                r2 = r2 + (self._plane_sum(rD * rD) + self._plane_sum(rL * rL))
+                z_norm2 = z_norm2 + (self._plane_sum(znD * znD)
+                                     + self._plane_sum(znL * znL))
             z_new[name] = (znD, znL)
             w_out[name] = (D, L)
 
-        u_norm2 = torch.sum(2.0 * self.degree * dmu * dmu)
+        u_norm2 = self._asset_sum(2.0 * self.degree * dmu * dmu)
         stats = dict(
             r2=r2, s2=s2 * rho * rho, w_norm2=w_norm2, z_norm2=z_norm2,
             u_norm2=u_norm2 * rho * rho,
@@ -148,6 +157,7 @@ class DeltaAdmmSolver(AdmmSolver):
             sD, sL = s[name]
             sDn, sLn, A, B, yp = fused_step_delta(
                 sD, sL, v, arrs, kind, floor, alpha, cfg=self.options.projection,
+                fold=self._fold,
             )
             s_new[name] = (sDn, sLn)
             w_out[name] = (A, B)
@@ -246,7 +256,7 @@ class DeltaAdmmSolver(AdmmSolver):
             z0, nu_start = None, self._t(start_nu)
         rho_t = self._t(rho)
         if fused:
-            if not _fused_delta_ok(self):
+            if not _fused_ok(self):
                 raise ValueError(
                     "fused=True needs every bucket's pool count to be a "
                     "multiple of 128: compile with pad_pools_to=128"
@@ -256,13 +266,46 @@ class DeltaAdmmSolver(AdmmSolver):
         return self._solve_impl(c, lo, hi, rho_t, z0, nu_start,
                                 max_iters=int(max_iters), buckets=bdict)
 
-    def delta_buckets_batch(self, *args, **kwargs):
-        raise _not_ported("batched delta arrays (delta_buckets_batch)",
-                          "queue 1, item 13")
+    # ---- batched correction solves: a fold with a stopping test per point --
 
-    def solve_delta_batch(self, *args, **kwargs):
-        raise _not_ported("batched correction solves (solve_delta_batch)",
-                          "queue 1, item 13")
+    def delta_buckets_batch(self, deltas, lambdas, eps, nu0):
+        """Delta arrays for T grid points in one shot, on this problem
+        folded T times (:meth:`solve_delta_batch` runs on them).
+
+        ``deltas``/``lambdas``: bucket name -> (T, K, m) base trades;
+        ``eps``: (T,) per-point correction scales; ``nu0``: (T, n)
+        float32-exact base scaled duals.  Returns (buckets, min_x0 (T,))."""
+        fs = self._batch_solver(len(np.asarray(eps)))
+        return _delta_buckets_folded(fs, deltas, lambdas, eps, nu0)
+
+    def solve_delta_batch(self, c, lo, hi, nu0, rho, bdict, max_iters,
+                          warm=None):
+        """T correction solves (linear objectives, delta-dual iteration),
+        each with its own penalty ``rho`` (T,) and its own stopping test:
+        ``c`` (T, n) carries e0 = c_true/rho - nu0 per point, ``nu0`` the
+        delta dual to start from, ``bdict`` the arrays of
+        :meth:`delta_buckets_batch`.  ``warm``: a previous batched delta
+        result (same centre) to chain chunks from: z0 = its trades, dnu0 =
+        its prices / rho.  Returns a RouteResult with leading axis T."""
+        rho = np.asarray(rho, np.float64)
+        T = rho.shape[0]
+        fs = self._batch_solver(T)
+        rho_t = fs._t(rho)
+        if warm is None:
+            z0, dnu0 = None, fs._t(np.asarray(nu0, np.float64).reshape(-1))
+        else:
+            z0 = {name: tuple(fs._t(x[name]).permute(1, 0, 2).reshape(
+                      x[name].shape[1], -1).contiguous()
+                      for x in (warm.deltas, warm.lambdas))
+                  for name in fs.buckets}
+            dnu0 = (fs._t(warm.prices) / rho_t[:, None]).reshape(-1)
+        res = fs._solve_batch_impl(
+            fs._t(np.asarray(c, np.float64).reshape(-1)),
+            fs._t(np.maximum(np.asarray(lo, np.float64), -_F32_BIG).reshape(-1)),
+            fs._t(np.minimum(np.asarray(hi, np.float64), _F32_BIG).reshape(-1)),
+            rho_t, z0=z0, nu0=dnu0, max_iters=int(max_iters), buckets=bdict,
+        )
+        return fs._unfold_batch(res)
 
 
 def _np_dtype(dtype: torch.dtype):
@@ -352,32 +395,298 @@ def _psi_from_trades(compiled, point: RouteResult) -> np.ndarray:
     return psi[: compiled.n_assets]
 
 
-def _fused_delta_ok(solver) -> bool:
-    """Whether the fused delta path can run: every bucket's pool count is a
-    multiple of 128."""
-    return all(int(a["mask"].shape[1]) % 128 == 0 for a in solver.buckets.values())
-
-
 def _on_accelerator(solver) -> bool:
     """Whether the solver runs on the card (the fused kernel's device)."""
     return solver.device.type == "cuda"
 
 
 class SweepRefineResult:
-    """Batched refinement output; not ported yet (queue 1, item 13)."""
+    """Batched refinement output (see :func:`refine_sweep`)."""
 
-    def __init__(self, *args, **kwargs):
-        raise _not_ported("SweepRefineResult", "queue 1, item 13")
+    def __init__(self, deltas, lambdas, prices, objectives, certificates,
+                 achieved, iters):
+        self.deltas = deltas  # bucket -> (T, K, m)
+        self.lambdas = lambdas
+        self.prices = prices  # (T, n)
+        self.objectives = objectives  # (T,) float64 certificate objectives
+        self.certificates = certificates  # list of T Certificate
+        self.achieved = achieved  # (T,) bool
+        self.iters = iters  # correction iterations dispatched for the grid
 
 
-def _delta_buckets_folded(*args, **kwargs):
-    raise _not_ported("folded delta arrays (_delta_buckets_folded)",
-                      "queue 1, item 13")
+def _psi_batch(compiled, deltas, lambdas):
+    """(T, n) exact float64 net trades of T candidate points."""
+    n = compiled.n_assets
+    T = next(iter(deltas.values())).shape[0]
+    psi = np.zeros((T, n + 1))
+    for name, b in compiled.buckets.items():
+        D = np.asarray(deltas[name], np.float64)
+        L = np.asarray(lambdas[name], np.float64)
+        vals = ((L - D) * b.mask.T[None]).reshape(T, -1)
+        idx = b.asset.T.reshape(-1)[None, :] + (n + 1) * np.arange(T)[:, None]
+        psi += np.bincount(idx.reshape(-1), weights=vals.reshape(-1),
+                           minlength=T * (n + 1)).reshape(T, n + 1)
+    return psi[:, :n]
 
 
-def refine_sweep(*args, **kwargs):
-    raise _not_ported("refine_sweep (batched sweep refinement)",
-                      "queue 1, item 13")
+def _delta_buckets_folded(fsolver, deltas, lambdas, eps, nu0f):
+    """Folded delta bucket arrays: per-point (T, K, m) trades -> (K, T*m)
+    planes on a FOLDED solver (``solver/fold.py``).
+
+    ``eps``: (T,) per-point correction scales, broadcast to each point's
+    pool block; ``nu0f``: (T, n) float32-exact scaled base duals (their
+    fold feeds the pre-broadcast nu0e plane through the folded asset ids).
+    Returns (buckets, min_x0 (T,)): min_x0 is per POINT, so one degenerate
+    re-centre only sidelines its own grid point."""
+    from .fold import fold_planes, fold_vec
+
+    np_dt = _np_dtype(fsolver.dtype)
+    eps = np.asarray(eps, np.float64)
+    T = eps.shape[0]
+    D0f = fold_planes(deltas)
+    L0f = fold_planes(lambdas)
+    nu0_ext = np.concatenate([fold_vec(nu0f), [0.0]])
+    out = {}
+    min_x0 = np.full(T, np.inf)
+    for name, b in fsolver.compiled.buckets.items():
+        kind, _ = fsolver._meta[name]
+        D0 = D0f[name]  # (K, m_f)
+        L0 = L0f[name]
+        maskT = b.mask.T
+        gamma = b.gamma[:, 0][None, :]
+        m_f = maskT.shape[1]
+        eps_col = np.repeat(eps, m_f // T)[None, :]  # (1, m_f)
+        if kind == "gm":
+            x0 = (b.reserves + b.shift).T + gamma * D0 - L0
+            x0 = np.where(maskT > 0, x0, 1.0)
+            logx0 = np.log(np.maximum(x0, 1e-300))
+            nsig = -(np.sum(b.weights.T * logx0, axis=0) - b.logk0)
+            real = np.where(maskT > 0, x0, np.inf)
+            min_x0 = np.minimum(
+                min_x0, np.min(real.reshape(-1, T, m_f // T), axis=(0, 2)))
+        else:
+            x0 = b.reserves.T + gamma * D0 - L0
+            x0 = np.where(maskT > 0, x0, 1.0)
+            s0 = np.sum(b.weights.T * np.where(maskT > 0, x0, 0.0), axis=0)
+            nsig = -(s0 - b.k0) / eps_col[0]
+        planes = dict(
+            w=b.weights.T,
+            X0=np.where(maskT > 0, np.maximum(x0 / eps_col, 1e-30), 1.0),
+            aD=-D0 / eps_col,
+            aL=-L0 / eps_col,
+            sS=b.shift.T / eps_col,
+            nsig=nsig,
+            nu0e=nu0_ext[b.asset].T * maskT,
+        )
+        arrs = dict(fsolver.buckets[name])
+        for key, val in planes.items():
+            arrs[key] = torch.as_tensor(
+                np.ascontiguousarray(val).astype(np_dt), device=fsolver.device)
+        out[name] = arrs
+    return out, min_x0
+
+
+def refine_sweep(
+    compiled: CompiledProblem,
+    c,
+    lo,
+    hi,
+    result: RouteResult,
+    target_gap: float = 1e-6,
+    options: Optional[AdmmOptions] = None,
+    solver: Optional[DeltaAdmmSolver] = None,
+    max_passes: int = 4,
+    iters_per_pass: int = 1000,
+    eps_factor: float = 10.0,
+    fold: Optional[bool] = None,
+    device=None,
+) -> SweepRefineResult:
+    """Refine EVERY point of a batched sweep to a certified gap with ONE
+    correction solve per pass (linear objectives).
+
+    ``c``/``lo``/``hi``: (T, n) per-point objectives; ``result``: a batched
+    RouteResult (``AdmmSolver.solve_batch``, ``fold.solve_batch_folded``).
+    Each pass re-centres all T points, runs one batched delta-dual solve,
+    composes in float64 and certifies the whole grid with one
+    :func:`~.certify.certify_batch` call.  A point takes a candidate only
+    when it improves that point's certificate score, so a degenerate
+    re-centre never regresses; points that miss the target are reported
+    ``achieved=False`` (callers may fall back to :func:`refine_device`).
+    Near-miss points whose blocker is dual looseness get the L-BFGS price
+    polish at the end.
+
+    ``fold`` (default: True unless a ``solver`` is passed) runs the grid's
+    correction solves folded on the pool axis — one joint solve at rho=1
+    with e0 built per point (the delta-dual iteration is rho-free for
+    linear objectives) — on the ``fused_step_delta(fold=)`` kernel when the
+    folded solver runs on the card and every point's bucket pool counts are
+    multiples of 128, else classic.  ``fold=False`` runs each point with
+    its own penalty and stopping test (:meth:`DeltaAdmmSolver.solve_delta_batch`).
+    The delta dual starts at 0: the base dual enters only through e0 and
+    the nu0e planes.  ``device``: where the solves and the certificates'
+    eta search run (the card unless ``"cpu"``; a passed solver brings its
+    own)."""
+    c = np.asarray(c, np.float64)
+    lo = np.asarray(lo, np.float64)
+    hi = np.asarray(hi, np.float64)
+    T = c.shape[0]
+    res = to_host(result)
+    deltas = {k: np.array(v, np.float64) for k, v in res.deltas.items()}
+    lambdas = {k: np.array(v, np.float64) for k, v in res.lambdas.items()}
+    prices = np.array(res.prices, np.float64)
+    rho_f = np.broadcast_to(np.asarray(res.rho_final, np.float64), (T,))
+    dev = solver.device if solver is not None else resolve_device(device)
+
+    if fold is None:
+        fold = solver is None  # a caller-built solver keeps the batched path
+    fsolver = None
+    fused_fold = False
+    if solver is None:
+        base = options if options is not None else AdmmOptions()
+        opts = dataclasses.replace(
+            base, max_iters=int(iters_per_pass), eps_abs=1e-8, eps_rel=1e-8,
+            adapt_rho=False,
+        )
+        if fold:
+            from .fold import folded_solver
+
+            fsolver, _ = folded_solver(compiled, T, opts, torch.float32,
+                                       cls=DeltaAdmmSolver, device=dev)
+            fused_fold = _fused_ok(fsolver) and _on_accelerator(fsolver)
+        else:
+            solver = DeltaAdmmSolver(compiled, dtype=torch.float32, options=opts,
+                                     device=dev)
+    elif fold:
+        raise ValueError(
+            "refine_sweep(fold=True) builds its own folded solver — drop the "
+            "solver argument or pass fold=False"
+        )
+
+    def _score(cert):
+        return max(abs(cert.gap_rel), cert.feasibility_rel)
+
+    psi0 = _psi_batch(compiled, deltas, lambdas)
+    certs = certify_batch(compiled, c, lo, hi, deltas, lambdas, prices,
+                          psi_claimed=psi0, device=dev)
+    total = 0
+    # per-point penalty regime (refine_device's two-mode ladder): points
+    # start on the base penalty; a live point whose score fails to halve in
+    # a pass switches to the eps-scaled regime (and back)
+    use_eps = np.zeros(T, bool)
+    prev_scores = np.full(T, np.inf)
+    pass_fails = 0
+    for _ in range(int(max_passes)):
+        scores = np.array([_score(ct) for ct in certs])
+        live = scores > target_gap
+        if not live.any():
+            break
+        flip = live & (scores > 0.5 * prev_scores)
+        use_eps[flip] = ~use_eps[flip]
+        prev_scores = scores.copy()
+        # per-point correction scale from that point's trades and score
+        scale = np.ones(T)
+        for k in deltas:
+            scale = np.maximum(scale, np.maximum(
+                np.abs(deltas[k]).reshape(T, -1).max(axis=1),
+                np.abs(lambdas[k]).reshape(T, -1).max(axis=1)))
+        eps = np.clip(eps_factor * np.maximum(scores, 1e-12) * scale,
+                      1e-10 * scale, np.inf)
+        rho = np.where(use_eps, np.clip(eps, 1e-6, 4.0), np.clip(rho_f, 0.25, 4.0))
+        nu0f = (prices / rho[:, None]).astype(np.float32).astype(np.float64)
+        lo_d = np.clip((lo - psi0) / eps[:, None], -_F32_BIG, _F32_BIG)
+        hi_d = np.clip((hi - psi0) / eps[:, None], -_F32_BIG, _F32_BIG)
+        # warm-chained chunks against THIS pass's centre until the grid's
+        # delta duals converge (composing a half-converged delta dual leaves
+        # the certified gap at the entry level)
+        if fold:
+            from .fold import fold_vec, unfold_planes, unfold_vec
+
+            bdict_f, min_x0 = _delta_buckets_folded(fsolver, deltas, lambdas,
+                                                    eps, nu0f)
+            dobj_f = Objective(fold_vec(c / rho[:, None]), lo=fold_vec(lo_d),
+                               hi=fold_vec(hi_d))
+            nu0_fold = fold_vec(nu0f)
+            dres = None
+            for _ck in range(4):
+                dres = fsolver.solve_delta(dobj_f, bdict_f, nu0_fold, 1.0,
+                                           iters_per_pass, warm=dres,
+                                           fused=fused_fold)
+                it_ck = int(host(dres.iters))
+                total += it_ck
+                if it_ck < int(iters_per_pass) or bool(host(dres.converged)):
+                    break
+            dresh = to_host(dres)
+            d_deltas = unfold_planes(dresh.deltas, T)
+            d_lambdas = unfold_planes(dresh.lambdas, T)
+            # the folded solve ran at rho=1: prices == dnu per point
+            d_prices = rho[:, None] * unfold_vec(dresh.prices, T)
+        else:
+            bdict, min_x0 = solver.delta_buckets_batch(deltas, lambdas, eps, nu0f)
+            e0 = c / rho[:, None] - nu0f
+            dnu_start = np.zeros_like(nu0f)
+            dres = None
+            for _ck in range(4):
+                dres = solver.solve_delta_batch(e0, lo_d, hi_d, dnu_start, rho,
+                                                bdict, iters_per_pass, warm=dres)
+                it_ck = int(host(dres.iters).max())
+                total += it_ck
+                if it_ck < int(iters_per_pass) or bool(host(dres.converged).all()):
+                    break
+            dresh = to_host(dres)
+            d_deltas, d_lambdas = dresh.deltas, dresh.lambdas
+            d_prices = np.asarray(dresh.prices, np.float64)
+        # float64 composition of all T candidates
+        e = eps[:, None, None]
+        cand_D = {k: np.maximum(deltas[k] + e * d_deltas[k], 0.0) for k in deltas}
+        cand_L = {k: np.maximum(lambdas[k] + e * d_lambdas[k], 0.0) for k in deltas}
+        cand_prices = rho[:, None] * nu0f + d_prices
+        cand_psi = _psi_batch(compiled, cand_D, cand_L)
+        cand_certs = certify_batch(compiled, c, lo, hi, cand_D, cand_L,
+                                   cand_prices, psi_claimed=cand_psi, device=dev)
+        improved = False
+        for t in np.flatnonzero(live):
+            if min_x0[t] <= 0 or not np.isfinite(min_x0[t]):
+                continue  # degenerate re-centre; keep the entry point
+            if _score(cand_certs[t]) < scores[t]:
+                improved = True
+                certs[t] = cand_certs[t]
+                prices[t] = cand_prices[t]
+                psi0[t] = cand_psi[t]
+                for k in deltas:
+                    deltas[k][t] = cand_D[k][t]
+                    lambdas[k][t] = cand_L[k][t]
+        if not improved:
+            # a failed pass flips every live point's regime; two failed
+            # passes in a row end the loop
+            if pass_fails:
+                break
+            pass_fails = 1
+            use_eps[live] = ~use_eps[live]
+            prev_scores = np.full(T, np.inf)  # don't double-flip next pass
+        else:
+            pass_fails = 0
+    # near-miss stragglers whose blocker is pure dual looseness get the
+    # per-point L-BFGS price polish
+    for t in range(T):
+        ct = certs[t]
+        if _score(ct) <= target_gap or not (
+                0.0 < ct.gap_rel <= max(20.0 * target_gap, 1e-5)
+                and ct.feasibility_rel <= target_gap):
+            continue
+        obj_t = Objective(c[t], lo=lo[t], hi=hi[t])
+        nu_p = polish_prices(compiled, obj_t, prices[t], max_evals=60, device=dev)
+        cert_p = certify(compiled, obj_t, {k: v[t] for k, v in deltas.items()},
+                         {k: v[t] for k, v in lambdas.items()}, nu_p,
+                         psi_claimed=psi0[t], device=dev)
+        if cert_p.gap_abs < ct.gap_abs:
+            certs[t] = cert_p
+            prices[t] = cert_p.prices
+    achieved = np.array([_score(ct) <= target_gap for ct in certs])
+    return SweepRefineResult(
+        deltas=deltas, lambdas=lambdas, prices=prices,
+        objectives=np.array([ct.objective for ct in certs]),
+        certificates=certs, achieved=achieved, iters=total,
+    )
 
 
 def refine_device(
@@ -486,8 +795,8 @@ def refine_device(
             "eps_rel=1e-8))"
         )
     if fused is None:
-        fused = _fused_delta_ok(solver) and _on_accelerator(solver)
-    elif fused and not _fused_delta_ok(solver):
+        fused = _fused_ok(solver) and _on_accelerator(solver)
+    elif fused and not _fused_ok(solver):
         raise ValueError(
             "fused=True needs every bucket's pool count to be a multiple of "
             "128: compile with pad_pools_to=128"

@@ -47,13 +47,38 @@ Phases (any failure raises and the script exits nonzero):
    kernel must run 5 launches per fused delta iteration, no host fallback
    may be taken, and the certificate must be finite and no worse than at
    entry.  Whether 1e-6 was reached is printed, not asserted.
+6. Sweeps and batches (each main-path run with the counts reset just
+   before it and read just after, and every call a kernel wrapper makes to
+   a plain version counted: there must be none).
+   a. The fold kernels ``fused_step(fold=)`` and ``fused_step_delta(fold=)``
+      against their plain versions at the folded shapes of 6b (float32 at
+      (24, 4) and (48, 6), float64 at (48, 6)) and at 1,000 pools / 64
+      assets x T = 1,024 in float32, whose 65,536 prices exceed one block's
+      shared memory: bitwise equal, planes and y.
+   b. BASELINE config 5: the 100k network of phase 4 under 8 reserve
+      scenarios (``uniform(0.7, 1.3, (8, n_pools))``, ``bench_grid.py:529``)
+      -> ``solve_batch_reserves_folded(n_iters=749)`` in float32: 749 fused
+      iterations (exactly 5 x 749 fold launches) + 1 classic, 750 in all.
+      Per-point objectives match the batched classic
+      ``solve_batch_reserves`` at 750 iterations to 5e-4 relative; a second
+      run is bitwise equal.
+   c. A certified objective sweep: ``random_arbitrage_table(64, 10_000,
+      seed=7)``, equilibrated, ``pad_pools_to=1024``, 50 objective points
+      (``bench_grid.py:443-481``) -> ``solve_batch_folded`` (fused
+      ``ChunkedDriver``, eps 1e-6) -> ``refine_sweep(target_gap=1e-6)`` on
+      ``fused_step_delta(fold=)``.  Every certificate finite and no worse
+      than at entry; how many points reach 1e-6 is printed.
+   d. The reference's 51-point frontier: ``api.sweep(two-asset, 0, 2,
+      linspace(0, 50, 51), refine_to=1e-6)`` in float32: every point
+      certified at 1e-6, u(25) = 31.005495 to 2e-6.
 
 It prints one JSON line describing every kernel of the path (device times
 from CUDA events around CUDA-graph replays of back-to-back calls, summed
 over the buckets one iteration runs; the plain fused steps and the plain
 segment sum, which read a size back to the host, from eager calls; the
-fused steps' times include their segment-sum launch; bounds from this run's shapes; launches summed over the
-runs of phases 4 and 5), the card's name and power limit as ``nvidia-smi``
+fused steps' times include their segment-sum launch; the fold kernels'
+times are summed over the 6b buckets; bounds from this run's shapes;
+launches summed over the main-path runs of phases 4, 5 and 6b-6d), the card's name and power limit as ``nvidia-smi``
 reports them, and last ``{"ok": true, "device": {"platform": "gpu",
 "kind": ..., "count": ...}}``.
 """
@@ -95,7 +120,13 @@ SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
     # the consensus reduction of both fused kernels (one-hot products)
     "segment_sum": ("cfmm_routing_tpu_torch/csrc/segment_sum.cu",
                     "cfmm_routing_tpu/ops/iteration_pallas.py:252"),
+    # the scenario-fold variants of the two fused steps (phase 6)
+    "fused_step_fold": ("cfmm_routing_tpu_torch/csrc/fused_step.cu",
+                        "cfmm_routing_tpu/ops/iteration_pallas.py:260 (fold=)"),
+    "fused_step_delta_fold": ("cfmm_routing_tpu_torch/csrc/fused_step_delta.cu",
+                              "cfmm_routing_tpu/ops/iteration_pallas.py:602 (fold=)"),
 }
+F32_BIG = float(np.finfo(np.float32).max) / 4
 
 
 def log(msg):
@@ -201,6 +232,336 @@ def delta_projection_calls(kind, floor, p, q, a, cfg, kernels, plains):
 def segment_bytes(n_real, n, n_out, es):
     # each real slot's value and its index read once, the offsets, y out
     return es * n_real + 4 * n_real + 4 * (n + 1) + es * n_out
+
+
+def bitwise(label, got, want):
+    """Raise unless every output equals its plain version bit for bit."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if not torch.equal(a, b):
+            raise AssertionError(
+                f"{label}: output {i} is not bitwise equal to the plain version "
+                f"(max diff {float((a - b).abs().max()):.3e})")
+
+
+def fused_fold_bytes(K, m, n_pad, es, delta):
+    """Bytes a fused step must move on one bucket: each input read once
+    (slot planes, int32 ids, per-pool vectors, the price vector), each
+    output written once (new state, trades, consensus-term plane)."""
+    planes_in = 9 if delta else 6  # sD sL (X0 w sS aD aL mask nu0e | R w s mask)
+    vectors = 2 if delta else 3  # gamma nsig | gamma logk0 k0
+    return es * ((planes_in + 5) * K * m + vectors * m + n_pad) + 4 * K * m
+
+
+@contextlib.contextmanager
+def count_plain_calls(counter):
+    """Count every call a kernel wrapper makes to its plain version (the
+    wrappers fall back to them only on CPU tensors)."""
+    from cfmm_routing_tpu_torch.ops import iteration_cuda, projection_cuda, segment
+
+    targets = [(iteration_cuda, "fused_step_plain"),
+               (iteration_cuda, "fused_step_delta_plain"),
+               (projection_cuda, "project_gm"), (projection_cuda, "project_cs"),
+               (projection_cuda, "project_gm_delta"),
+               (projection_cuda, "project_cs_delta"),
+               (segment, "segment_sum_plain")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
+
+    def counted(name, fn):
+        def call(*a, **k):
+            counter[name] = counter.get(name, 0) + 1
+            return fn(*a, **k)
+        return call
+
+    for mod, name, fn in saved:
+        setattr(mod, name, counted(name, fn))
+    try:
+        yield counter
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def sweep_phase(report, rows, card, cfg_main, cfg64):
+    """Phase 6, sweeps and batches (module docstring).  Appends the fold
+    kernels' rows to ``rows`` and returns the launch counts of its three
+    main-path runs (6b, 6c, 6d)."""
+    from cfmm_routing_tpu_torch import api
+    from cfmm_routing_tpu_torch.models.reference_instances import two_asset_instance
+    from cfmm_routing_tpu_torch.ops import _build
+    from cfmm_routing_tpu_torch.ops.iteration_cuda import (
+        fused_step, fused_step_delta, fused_step_delta_plain, fused_step_plain,
+    )
+    from cfmm_routing_tpu_torch.solver.admm import AdmmOptions, AdmmSolver, _reserve_buckets
+    from cfmm_routing_tpu_torch.solver.certify import certify_batch
+    from cfmm_routing_tpu_torch.solver.compiler import compile_table
+    from cfmm_routing_tpu_torch.solver.fold import (
+        fold_compiled, folded_solver, solve_batch_folded, solve_batch_reserves_folded,
+    )
+    from cfmm_routing_tpu_torch.solver.precondition import equilibrate
+    from cfmm_routing_tpu_torch.solver.refine_device import (
+        _delta_buckets_folded, _psi_batch, refine_sweep,
+    )
+    from cfmm_routing_tpu_torch.utils.synth import random_arbitrage_table
+
+    out = {}
+    score = lambda ct: max(abs(ct.gap_rel), ct.feasibility_rel)  # noqa: E731
+
+    def as64(arrs):
+        return {k: (v.double() if v.is_floating_point() else v) for k, v in arrs.items()}
+
+    def delta_state(arrs, rng):
+        K, m = arrs["mask"].shape
+        return tuple(torch.as_tensor(rng.uniform(-1, 1, (K, m)), dtype=arrs["mask"].dtype,
+                                     device="cuda") * arrs["mask"] for _ in range(2))
+
+    # ---- the 6b network: 100k pools x 8 reserve scenarios, folded ----------
+    t_phase = time.perf_counter()
+    table, obj = random_arbitrage_table(256, 100_000, seed=7)
+    eq = equilibrate(table, obj)
+    compiled = compile_table(eq.table, pad_pools_to=1024)
+    B = 8
+    scale_r = np.random.default_rng(3).uniform(0.7, 1.3, size=(B, compiled.n_pools))
+    opts6 = AdmmOptions(max_iters=750, eps_abs=0.0, eps_rel=0.0, adapt_rho=False,
+                        projection=cfg_main)
+    t0 = time.perf_counter()
+    fs, _ = folded_solver(compiled, B, opts6, torch.float32)
+    bdict = _reserve_buckets(fs, fold_compiled(compiled, B, scale_r))
+    setup_s = time.perf_counter() - t0
+    fshapes = {k: tuple(a["mask"].shape) for k, a in bdict.items()}
+    n_slots = sum(int(a["mask"].sum()) for a in bdict.values())
+    log(f"# 6: 100k pools x {B} reserve scenarios folded: buckets (K, T*m) {fshapes}, "
+        f"{n_slots} real slots; folded solver and reserve planes built in {setup_s:.1f} s")
+
+    # ---- 6a. fold kernels vs their plain versions at the 6b shapes ---------
+    c_f, lo_f, hi_f = (fs._t(np.tile(x, B)) for x in (
+        eq.objective.c, np.maximum(eq.objective.lo, -F32_BIG),
+        np.minimum(eq.objective.hi, F32_BIG)))
+    rho = fs._t(1.0)
+    s, wdef, nu = fs.fused_init(bdict)
+    for _ in range(20):  # a mid-solve state, on the kernels
+        s, wdef, nu, _, _ = fs._iterate_fused(s, wdef, nu, rho, c_f, lo_f, hi_f, buckets=bdict)
+    v, _ = fs._fold_pack(wdef - nu)
+    n_pad = v.shape[0]
+    fold = fs._fold
+    for name, arrs in bdict.items():
+        kind, floor = fs._meta[name]
+        K, m = arrs["mask"].shape
+        sD, sL = s[name]
+        kfn = lambda: fused_step(sD, sL, v, arrs, kind, floor, 1.0, cfg=cfg_main, fold=fold)  # noqa: E731
+        pfn = lambda: fused_step_plain(sD, sL, v, arrs, kind, floor, 1.0, cfg=cfg_main, fold=fold)  # noqa: E731
+        got, want = kfn(), pfn()
+        torch.cuda.synchronize()
+        bitwise(f"fused_step fold[{name}, float32]", got, want)
+        row = dict(bucket=name, dtype="float32", K=K, m=m, fold=list(fold), cfg=list(cfg_main),
+                   max_abs_err=max_err(got, want), ms=graph_ms(kfn), plain_ms=eager_ms(pfn, n=1))
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            fused_fold_bytes(K, m, n_pad, 4, False), projection_flops(cfg_main, K, m),
+            torch.float32)
+        rows["fused_step_fold"].append(row)
+        a64 = as64(arrs)
+        got = fused_step(sD.double(), sL.double(), v.double(), a64, kind, floor, 1.0,
+                         cfg=cfg64, fold=fold)
+        want = fused_step_plain(sD.double(), sL.double(), v.double(), a64, kind, floor, 1.0,
+                                cfg=cfg64, fold=fold)
+        torch.cuda.synchronize()
+        bitwise(f"fused_step fold[{name}, float64]", got, want)
+        log(f"# 6a fused_step fold {name:5s} K={K} T*m={m}: bitwise equal to plain in "
+            f"float32 and float64; kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.2f} ms  "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        del a64, got, want
+    del s, wdef, nu
+
+    # ---- 6b. BASELINE config 5: 8 reserve scenarios at 100k pools ----------
+    _build.reset_launch_counts()
+    plain6 = {}
+    t0 = time.perf_counter()
+    with count_plain_calls(plain6):
+        res_b = solve_batch_reserves_folded(compiled, eq.objective, scale_r, options=opts6,
+                                            n_iters=749)
+    fold_s = time.perf_counter() - t0
+    launches6b = dict(_build.LAUNCHES)
+    expect = 749 * len(compiled.buckets)
+    log(f"# 6b folded reserve batch: 749 fused + 1 classic iterations in {fold_s:.3f} s "
+        f"(host clock, reserve planes included) -> {750 / fold_s:.1f} it/s, "
+        f"{B * 750 / fold_s:.1f} scenario-it/s; launches {launches6b}")
+    if launches6b["fused_step_fold"] != expect:
+        raise AssertionError(f"fused_step_fold launches {launches6b['fused_step_fold']} != {expect}")
+    if plain6:
+        raise AssertionError(f"plain versions ran on the folded reserve batch: {plain6}")
+    objs = np.asarray(res_b.objective, np.float64)
+    if not (objs.shape == (B,) and np.isfinite(objs).all() and np.isfinite(res_b.psi).all()):
+        raise AssertionError("folded reserve batch: non-finite or misshapen result")
+    t0 = time.perf_counter()
+    res_b2 = solve_batch_reserves_folded(compiled, eq.objective, scale_r, options=opts6,
+                                         n_iters=749)
+    fold2_s = time.perf_counter() - t0
+    leaves = [(res_b.objective, res_b2.objective), (res_b.psi, res_b2.psi),
+              (res_b.prices, res_b2.prices)]
+    leaves += [(res_b.deltas[k], res_b2.deltas[k]) for k in res_b.deltas]
+    leaves += [(res_b.lambdas[k], res_b2.lambdas[k]) for k in res_b.lambdas]
+    if not all(np.array_equal(a, b) for a, b in leaves):
+        raise AssertionError("a second folded reserve batch is not bitwise equal to the first")
+    st = fs.fused_init(bdict)
+    iter_dev_ms = graph_ms(lambda: fs._iterate_fused(*st, rho, c_f, lo_f, hi_f, buckets=bdict),
+                           n=5, reps=3)
+    log(f"# 6b second run bitwise equal ({fold2_s:.3f} s, {750 / fold2_s:.1f} it/s); one folded "
+        f"fused iteration {iter_dev_ms:.4f} ms on the device (CUDA graph) vs "
+        f"{1e3 * fold2_s / 750:.4f} ms per iteration on the host clock")
+    t0 = time.perf_counter()
+    solver_b = AdmmSolver(compiled, dtype=torch.float32, options=opts6)
+    res_c = solver_b.solve_batch_reserves(eq.objective, scale_r)
+    obj_c = np.asarray(res_c.objective.cpu(), np.float64)
+    classic_s = time.perf_counter() - t0
+    rel = np.abs(objs - obj_c) / np.maximum(1.0, np.abs(obj_c))
+    log(f"# 6b batched classic solve_batch_reserves: iters {res_c.iters.tolist()} in "
+        f"{classic_s:.3f} s; per-point objectives {objs.tolist()}; max rel diff vs the "
+        f"folded fused batch {rel.max():.3e}")
+    if not (res_c.iters == 750).all() or not rel.max() <= 5e-4:
+        raise AssertionError(f"folded vs batched classic objectives differ: {rel.tolist()}")
+    out["reserve_batch"] = dict(
+        B=B, folded_buckets=fshapes, real_slots=n_slots, setup_s=setup_s, fold_s=fold_s,
+        fold2_s=fold2_s, iters_per_s=750 / fold2_s, iteration_device_ms=iter_dev_ms,
+        classic_s=classic_s, objectives=objs.tolist(), max_rel_vs_classic=float(rel.max()),
+        launches=launches6b, repeat_bitwise_equal=True)
+    del solver_b, res_c
+
+    # ---- 6a (cont.). fused_step_delta(fold=) at the 6b shapes --------------
+    nu0f = np.asarray(res_b.prices, np.float64).astype(np.float32).astype(np.float64)
+    half = lambda d: {k: 0.5 * np.asarray(x, np.float64) for k, x in d.items()}  # noqa: E731
+    bd, min_x0 = _delta_buckets_folded(fs, half(res_b.deltas), half(res_b.lambdas),
+                                       np.full(B, 1e-3), nu0f)
+    if not (min_x0 > 0).all():
+        raise AssertionError(f"delta arrays at the 6b shapes: min x0 {min_x0}")
+    rng = np.random.default_rng(5)
+    vd = torch.as_tensor(0.3 * rng.normal(size=n_pad), dtype=torch.float32, device="cuda")
+    for name, arrs in bd.items():
+        kind, floor = fs._meta[name]
+        K, m = arrs["mask"].shape
+        sD, sL = delta_state(arrs, rng)
+        kfn = lambda: fused_step_delta(sD, sL, vd, arrs, kind, floor, 1.0, cfg=cfg64, fold=fold)  # noqa: E731
+        pfn = lambda: fused_step_delta_plain(sD, sL, vd, arrs, kind, floor, 1.0, cfg=cfg64, fold=fold)  # noqa: E731
+        got, want = kfn(), pfn()
+        torch.cuda.synchronize()
+        bitwise(f"fused_step_delta fold[{name}, float32]", got, want)
+        row = dict(bucket=name, dtype="float32", K=K, m=m, fold=list(fold), cfg=list(cfg64),
+                   max_abs_err=max_err(got, want), ms=graph_ms(kfn), plain_ms=eager_ms(pfn, n=1))
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            fused_fold_bytes(K, m, n_pad, 4, True), projection_flops(cfg64, K, m, per_step=80),
+            torch.float32)
+        rows["fused_step_delta_fold"].append(row)
+        a64 = as64(arrs)
+        got = fused_step_delta(sD.double(), sL.double(), vd.double(), a64, kind, floor, 1.0,
+                               cfg=cfg64, fold=fold)
+        want = fused_step_delta_plain(sD.double(), sL.double(), vd.double(), a64, kind, floor,
+                                      1.0, cfg=cfg64, fold=fold)
+        torch.cuda.synchronize()
+        bitwise(f"fused_step_delta fold[{name}, float64]", got, want)
+        log(f"# 6a fused_step_delta fold {name:5s} K={K} T*m={m}: bitwise equal to plain in "
+            f"float32 and float64; kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.2f} ms  "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        del a64, got, want
+    del bd, bdict, st, fs, res_b, res_b2
+    torch.cuda.empty_cache()
+
+    # ---- 6a (cont.). 1,000 pools / 64 assets x T = 1,024, float32 ---------
+    t_1k, _ = random_arbitrage_table(64, 1000, seed=7)
+    c_1k = compile_table(t_1k, pad_pools_to=128)
+    T1 = 1024
+    s1k = AdmmSolver(fold_compiled(c_1k, T1), dtype=torch.float32, fold=(T1, c_1k.n_assets),
+                     options=AdmmOptions(projection=cfg_main))
+    zeros = {k: np.zeros((T1, b.width, b.m)) for k, b in c_1k.buckets.items()}
+    bd1, _ = _delta_buckets_folded(s1k, zeros, zeros, np.full(T1, 1e-3),
+                                   np.ones((T1, c_1k.n_assets)))
+    v1 = torch.as_tensor(0.3 * rng.normal(size=T1 * c_1k.n_assets), dtype=torch.float32,
+                         device="cuda")
+    big = []
+    for name, arrs in s1k.buckets.items():
+        kind, floor = s1k._meta[name]
+        K, m = arrs["mask"].shape
+        sD, sL = delta_state(arrs, rng)
+        for label, kfn, pfn, a, cfg in (
+                ("fused_step", fused_step, fused_step_plain, arrs, cfg_main),
+                ("fused_step_delta", fused_step_delta, fused_step_delta_plain, bd1[name], cfg64)):
+            got = kfn(sD, sL, v1, a, kind, floor, 1.0, cfg=cfg, fold=s1k._fold)
+            want = pfn(sD, sL, v1, a, kind, floor, 1.0, cfg=cfg, fold=s1k._fold)
+            torch.cuda.synchronize()
+            bitwise(f"{label} fold[{name}, 1k x {T1}]", got, want)
+        big.append(dict(bucket=name, K=K, m=m))
+    log(f"# 6a 1,000 pools / 64 assets x T={T1} ({sum(b['m'] for b in big)} folded pools; "
+        f"{T1 * c_1k.n_assets} prices, {T1 * c_1k.n_assets * 4 // 1024} KB, more than one "
+        f"block's 227 KB of shared memory): both fold kernels bitwise equal to plain on "
+        f"{[b['bucket'] for b in big]}")
+    out["fold_1k_x_1024"] = big
+    del s1k, bd1
+
+    # ---- 6c. a certified objective sweep: 10k pools x 50 points -------------
+    table, obj = random_arbitrage_table(64, 10_000, seed=7)
+    eq = equilibrate(table, obj)
+    compiled = compile_table(eq.table, pad_pools_to=1024)
+    Tc = 50
+    n = compiled.n_assets
+    c_s = np.asarray(eq.objective.c)[None, :] * np.random.default_rng(11).uniform(
+        0.8, 1.25, size=(Tc, 1))
+    lo_s = np.tile(np.asarray(eq.objective.lo)[None, :], (Tc, 1))
+    hi_s = np.full((Tc, n), np.inf)
+    opts_s = AdmmOptions(max_iters=4000, eps_abs=1e-6, eps_rel=1e-6, projection=cfg_main)
+    _build.reset_launch_counts()
+    plain6 = {}
+    t0 = time.perf_counter()
+    with count_plain_calls(plain6):
+        out_s = solve_batch_folded(compiled, c_s, np.maximum(lo_s, -3e38),
+                                   np.full((Tc, n), 3e38), options=opts_s, chunk=250)
+        solve_s = time.perf_counter() - t0
+        entry = certify_batch(compiled, c_s, lo_s, hi_s, out_s.deltas, out_s.lambdas,
+                              out_s.prices, psi_claimed=_psi_batch(
+                                  compiled, out_s.deltas, out_s.lambdas))
+        t1 = time.perf_counter()
+        ref_s = refine_sweep(compiled, c_s, lo_s, hi_s, out_s, target_gap=1e-6)
+        refine_s = time.perf_counter() - t1
+    launches6c = dict(_build.LAUNCHES)
+    n_ok = int(np.sum(ref_s.achieved))
+    log(f"# 6c certified sweep, 10k pools x {Tc} objectives: folded fused solve "
+        f"{int(out_s.iters[0])} iterations in {solve_s:.3f} s (converged "
+        f"{bool(out_s.converged[0])}); refine_sweep {ref_s.iters} correction iterations "
+        f"in {refine_s:.3f} s; {n_ok}/{Tc} points certified at 1e-6; launches {launches6c}")
+    if launches6c["fused_step_fold"] == 0 or launches6c["fused_step_delta_fold"] == 0:
+        raise AssertionError(f"6c: a fold kernel never launched: {launches6c}")
+    if plain6:
+        raise AssertionError(f"6c: plain versions ran: {plain6}")
+    for t, (ct, ce) in enumerate(zip(ref_s.certificates, entry)):
+        vals = (ct.objective, ct.dual_bound, ct.gap_rel, ct.feasibility_rel)
+        if not all(math.isfinite(x) for x in vals) or not score(ct) <= score(ce):
+            raise AssertionError(f"6c point {t}: {ct.summary()} (entry {score(ce):.3e})")
+    out["certified_sweep"] = dict(
+        T=Tc, solve_iters=int(out_s.iters[0]), solve_s=solve_s, refine_iters=int(ref_s.iters),
+        refine_s=refine_s, certified=n_ok, launches=launches6c,
+        entry_worst=max(score(ce) for ce in entry),
+        final_worst=max(score(ct) for ct in ref_s.certificates))
+
+    # ---- 6d. the reference's 51-point frontier (two-asset.py) ---------------
+    spec, _ = two_asset_instance()
+    _build.reset_launch_counts()
+    plain6 = {}
+    t0 = time.perf_counter()
+    with count_plain_calls(plain6):
+        sw = api.sweep(spec, 0, 2, np.linspace(0, 50, 51), refine_to=1e-6)
+    sweep_s = time.perf_counter() - t0
+    launches6d = dict(_build.LAUNCHES)
+    u25 = float(sw.utilities[25])
+    rel25 = abs(u25 - 31.005495) / 31.005495
+    worst = max(score(ct) for ct in sw.certificates)
+    log(f"# 6d 51-point frontier: {sweep_s:.3f} s (host clock, base solve + refinement); "
+        f"{int(np.sum(sw.converged))}/51 certified at 1e-6 (worst score {worst:.3e}); "
+        f"u(25) {u25:.7f} (rel {rel25:.2e} vs 31.005495); launches {launches6d}")
+    if plain6:
+        raise AssertionError(f"6d: plain versions ran: {plain6}")
+    if not (bool(np.all(sw.converged)) and worst <= 1e-6 and rel25 <= 2e-6):
+        raise AssertionError(f"6d: frontier not certified: worst {worst:.3e}, u(25) {u25}")
+    out["frontier"] = dict(seconds=sweep_s, certified=int(np.sum(sw.converged)),
+                           worst_score=worst, u25=u25, rel25=rel25, launches=launches6d)
+    report["sweeps"] = out
+    log(f"# phase 6 (sweeps and batches) done in {time.perf_counter() - t_phase:.1f} s on {card}")
+    return [launches6b, launches6c, launches6d]
 
 
 def main(argv=None):
@@ -379,15 +740,22 @@ def main(argv=None):
         if not torch.equal(got_y, want_y):
             raise AssertionError(f"segment_sum[{name}] is not bitwise equal to "
                                  f"its plain version ({max_err([got_y], [want_y]):.3e})")
+        # the library call for the same sum: index_add_ over every slot's
+        # asset id (padding slots add their zero), in no fixed order
+        ids, flat, y0 = arrs["asset"].reshape(-1).long(), val.reshape(-1), torch.zeros_like(v)
+        lfn = lambda: torch.index_add(y0, 0, ids, flat)  # noqa: E731
+        check_close(f"index_add_[{name}]", [lfn()], [want_y], 1e-4 * float(want_y.abs().max()),
+                    rtol=1e-4)
         n_real = int(order.numel())
         row = dict(bucket=name, dtype="float32", K=K, m=m, n_real=n_real,
-                   max_abs_err=0.0, ms=graph_ms(sfn), plain_ms=eager_ms(spl))
+                   max_abs_err=0.0, ms=graph_ms(sfn), plain_ms=eager_ms(spl),
+                   library_ms=graph_ms(lfn))
         row["bound_ms"], row["bound_by"] = bound_ms(
             segment_bytes(n_real, solver.n, n_pad, 4), n_real, torch.float32)
         rows["segment_sum"].append(row)
         log(f"# segment_sum {name:5s} ({n_real} real slots): bitwise equal; kernel "
-            f"{row['ms']:.4f} ms  plain {row['plain_ms']:.2f} ms  bound "
-            f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+            f"{row['ms']:.4f} ms  plain {row['plain_ms']:.2f} ms  index_add_ "
+            f"{row['library_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     del solver64
     log(f"# phase 2a (base kernels vs plain) done in {time.perf_counter() - t_phase:.1f} s")
 
@@ -815,6 +1183,11 @@ def main(argv=None):
                    gap_rel=fc.gap_rel, feasibility_rel=fc.feasibility_rel),
     )
     log(f"# phase 5 (certified route) done in {time.perf_counter() - t_phase:.1f} s")
+    del base_solver, dsolver, res, out
+
+    # ---- 6. sweeps and batches ------------------------------------------------
+    phase6 = sweep_phase(report, rows, card=smi, cfg_main=cfg_main, cfg64=cfg64)
+    main_launches = [launches4, launches5] + phase6
 
     # ---- report -------------------------------------------------------------
     kernels = []
@@ -825,12 +1198,15 @@ def main(argv=None):
         tot = {k: sum(r[k] for r in f32) for k in ("ms", "plain_ms", "bound_ms")}
         kernels.append(dict(
             name=kname, route="cuda", source=src, replaces=replaces,
-            launches=launches4[kname] + launches5[kname],
+            launches=sum(counts[kname] for counts in main_launches),
             max_abs_err=max(r["max_abs_err"] for r in f32),
             ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
             bound_by=("operations" if all(r["bound_by"] == "operations" for r in f32)
                       else "bytes"),
-            library_ms=None,
+            # no PyTorch call projects onto a trading set; index_add_ sums
+            # the consensus terms as the segment sum does
+            library_ms=(sum(r["library_ms"] for r in f32) if "library_ms" in f32[0]
+                        else None),
         ))
     report["kernels"] = kernels
     report["script_s"] = time.perf_counter() - t_script

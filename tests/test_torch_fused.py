@@ -28,10 +28,12 @@ from cfmm_routing_tpu.ops.projection import ProjectionConfig as RefConfig
 from cfmm_routing_tpu.solver import admm as ref_admm
 from cfmm_routing_tpu.solver.compiler import compile_table as ref_compile_table
 from cfmm_routing_tpu.utils.synth import random_arbitrage_table as ref_table
+from cfmm_routing_tpu_torch.models.utility import Objective
 from cfmm_routing_tpu_torch.ops.iteration_cuda import fused_step_plain
 from cfmm_routing_tpu_torch.ops.projection import ProjectionConfig
 from cfmm_routing_tpu_torch.solver.admm import AdmmOptions, AdmmSolver
 from cfmm_routing_tpu_torch.solver.compiler import compile_table
+from cfmm_routing_tpu_torch.solver.fold import fold_compiled
 from cfmm_routing_tpu_torch.utils.synth import random_arbitrage_table
 
 torch.set_num_threads(1)
@@ -155,5 +157,9 @@ def test_solve_fused_rejects_unaligned_and_unported_options():
         solver.solve_fused(obj, iters=3)
     with pytest.raises(NotImplementedError, match="queue 2, item 5"):
         solver.solve_fused(obj, iters=3, merged=True)
-    with pytest.raises(NotImplementedError, match="queue 1, item 13"):
-        solver.solve_batch(obj.c, obj.lo, obj.hi)
+    folded = AdmmSolver(fold_compiled(compile_table(table, pad_pools_to=64), 2),
+                        options=AdmmOptions(max_iters=5), device="cpu",
+                        fold=(2, table.n_assets))
+    with pytest.raises(ValueError, match="pad_pools_to=128"):
+        folded.solve_fused(Objective(np.tile(obj.c, 2), lo=np.tile(obj.lo, 2),
+                                     hi=np.tile(obj.hi, 2)), iters=3)

@@ -10,7 +10,9 @@ Tolerances are the port's parity bars: atol 5e-5 (float32) and 1e-10
 (float64) for a projection, 2e-5 (1e-10) for one fused step (plain or
 delta), 2e-4 for a 20-step fused trajectory; y also gets rtol 1e-5.  The
 fused steps' y is the same fixed-order segment sum in the kernel path and
-the plain version, so with equal planes it is equal too.
+the plain version, so with equal planes it is equal too.  The scenario-fold
+variants (``fold=``) must equal their plain versions bit for bit, and a
+folded solve run twice must give bitwise-equal results.
 """
 import numpy as np
 import pytest
@@ -30,8 +32,13 @@ from cfmm_routing_tpu_torch.ops.projection_delta import (
 )
 from cfmm_routing_tpu_torch.solver.admm import AdmmOptions, AdmmSolver
 from cfmm_routing_tpu_torch.solver.compiler import compile_spec, compile_table
+from cfmm_routing_tpu_torch.solver.fold import (
+    fold_compiled, solve_batch_folded, solve_batch_reserves_folded,
+)
 from cfmm_routing_tpu_torch.solver.refine import to_host
-from cfmm_routing_tpu_torch.solver.refine_device import DeltaAdmmSolver, refine_device
+from cfmm_routing_tpu_torch.solver.refine_device import (
+    DeltaAdmmSolver, _delta_buckets_folded, refine_device,
+)
 from cfmm_routing_tpu_torch.utils.synth import (
     mixed_width_arbitrage, random_arbitrage_table,
 )
@@ -262,3 +269,84 @@ def test_refine_device_fused_certifies_arbitrage(cuda_device, monkeypatch):
     assert out.achieved, out.certificate.summary()
     assert abs(out.certificate.objective - 21.499805) / 21.499805 < 2e-6
     assert _build.LAUNCHES["fused_step_delta"] == len(compiled.buckets) * sum(calls) > 0
+
+
+def _fold_case(dtype, device, T=3, seed=6):
+    """A T-point fold of a 128-padded network (padding slots in every
+    point), its delta arrays, a random state and a price vector."""
+    table, _ = random_arbitrage_table(16, 300, seed=4, reserve_scale=1.0)
+    compiled = compile_table(table, pad_pools_to=128)
+    n = compiled.n_assets
+    solver = AdmmSolver(fold_compiled(compiled, T), dtype=dtype, device=device,
+                        fold=(T, n), options=AdmmOptions(projection=CFG))
+    rng = np.random.default_rng(seed)
+    trades = {k: 0.01 * rng.uniform(0, 1, (T, b.width, b.m)) * b.mask.T[None]
+              for k, b in compiled.buckets.items()}
+    dbk, min_x0 = _delta_buckets_folded(solver, trades, trades,
+                                        rng.uniform(1e-3, 1e-2, T),
+                                        rng.uniform(0.5, 2.0, (T, n)))
+    assert (min_x0 > 0).all()
+    s = {}
+    for name, arrs in solver.buckets.items():
+        mask = arrs["mask"].cpu().numpy()
+        s[name] = tuple(torch.as_tensor(x * mask, dtype=dtype, device=device)
+                        for x in rng.uniform(-2.0, 2.0, size=(2,) + mask.shape))
+    v = torch.as_tensor(rng.normal(size=128), dtype=dtype, device=device)
+    return solver, dbk, s, v
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fold_kernels_match_plain_bitwise(cuda_device, dtype):
+    solver, dbk, s, v = _fold_case(dtype, cuda_device)
+    _build.reset_launch_counts()
+    for name, arrs in solver.buckets.items():
+        kind, floor = solver._meta[name]
+        for kfn, pfn, a in ((fused_step, fused_step_plain, arrs),
+                            (fused_step_delta, fused_step_delta_plain, dbk[name])):
+            got = kfn(*s[name], v, a, kind, floor, 1.5, cfg=CFG, fold=solver._fold)
+            want = pfn(*s[name], v, a, kind, floor, 1.5, cfg=CFG, fold=solver._fold)
+            for x, y in zip(got, want):
+                assert torch.equal(x, y), (kfn.__name__, name)
+    n_buckets = len(solver.buckets)
+    assert _build.LAUNCHES["fused_step_fold"] == n_buckets
+    assert _build.LAUNCHES["fused_step_delta_fold"] == n_buckets
+
+
+def test_misaligned_fold_raises(cuda_device):
+    """Points of 64 pools cannot be tiled by 128-pool blocks: the wrappers
+    raise instead of falling back to a plain version."""
+    table, _ = random_arbitrage_table(16, 300, seed=4, reserve_scale=1.0)
+    compiled = compile_table(table, pad_pools_to=64)
+    solver = AdmmSolver(fold_compiled(compiled, 2), device=cuda_device,
+                        fold=(2, compiled.n_assets))
+    arrs = solver.buckets["gm4"]
+    assert arrs["mask"].shape[1] == 128
+    sD = torch.zeros_like(arrs["mask"])
+    v = torch.zeros(128, device=cuda_device)
+    for fn in (fused_step, fused_step_delta):
+        with pytest.raises(ValueError, match="multiple of 128"):
+            fn(sD, sD, v, arrs, "gm", False, 1.0, fold=solver._fold)
+
+
+def test_folded_solves_twice_are_bitwise_equal(cuda_device):
+    table, obj = random_arbitrage_table(64, 3000, seed=8)
+    compiled = compile_table(table, pad_pools_to=128)
+    opts = AdmmOptions(max_iters=60, eps_abs=0.0, eps_rel=0.0, adapt_rho=False)
+    c = np.asarray(obj.c)[None, :] * np.array([[0.9], [1.0], [1.1]])
+    lo = np.tile(np.maximum(obj.lo, -3e38), (3, 1))
+    hi = np.full_like(c, 3e38)
+    scale = np.random.default_rng(2).uniform(0.7, 1.3, (3, compiled.n_pools))
+    # two driver chunks of 29 fused + 1 classic; 59 fused + 1 classic
+    for fused_iters, run in (
+            (58, lambda: solve_batch_folded(compiled, c, lo, hi, options=opts, chunk=30)),
+            (59, lambda: solve_batch_reserves_folded(compiled, obj, scale, options=opts,
+                                                     n_iters=59))):
+        _build.reset_launch_counts()
+        a = run()
+        assert _build.LAUNCHES["fused_step_fold"] == fused_iters * len(compiled.buckets)
+        b = run()
+        for x, y in zip((a.objective, a.psi, a.prices), (b.objective, b.psi, b.prices)):
+            assert np.array_equal(x, y)
+        for name in compiled.buckets:
+            assert np.array_equal(a.deltas[name], b.deltas[name])
+            assert np.array_equal(a.lambdas[name], b.lambdas[name])

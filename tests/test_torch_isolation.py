@@ -13,6 +13,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -20,6 +21,7 @@ from cfmm_routing_tpu_torch import api
 from cfmm_routing_tpu_torch.models.reference_instances import arbitrage_instance
 from cfmm_routing_tpu_torch.solver.admm import AdmmOptions, AdmmSolver
 from cfmm_routing_tpu_torch.solver.compiler import compile_spec
+from cfmm_routing_tpu_torch.solver.fold import solve_batch_folded
 from cfmm_routing_tpu_torch.solver.refine_device import refine_device
 
 REPO = Path(__file__).resolve().parent.parent
@@ -62,6 +64,7 @@ def test_package_imports_with_jax_blocked():
         "import cfmm_routing_tpu_torch.utils.synth\n"
         "import cfmm_routing_tpu_torch.models.reference_instances\n"
         "import cfmm_routing_tpu_torch.solver.refine_device\n"
+        "import cfmm_routing_tpu_torch.solver.fold, cfmm_routing_tpu_torch.solver.driver\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m]]\n"
         "print('ok')\n"
     )
@@ -81,6 +84,11 @@ def test_entry_points_without_a_card_raise(monkeypatch):
         api.arbitrage(spec, obj.c)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         api.arbitrage(spec, obj.c, refine_to=1e-6)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.sweep(spec, 0, 2, [1.0, 2.0])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        solve_batch_folded(compile_spec(spec), np.tile(obj.c, (2, 1)),
+                           np.tile(obj.lo, (2, 1)), np.tile(obj.hi, (2, 1)))
     # asked for explicitly, the CPU works
     on_cpu = AdmmSolver(compile_spec(spec), device="cpu",
                         options=AdmmOptions(max_iters=1))

@@ -105,6 +105,7 @@ def test_wrappers_run_plain_version_on_cpu_tensors():
         assert torch.equal(a, b)
     assert set(_build.LAUNCHES) == {
         "project_gm", "project_cs", "project_gm_delta", "project_cs_delta",
-        "fused_step", "fused_step_delta", "segment_sum"}
+        "fused_step", "fused_step_delta", "fused_step_fold",
+        "fused_step_delta_fold", "segment_sum"}
     assert all(n == 0 for n in _build.LAUNCHES.values())
 

@@ -9,8 +9,8 @@
 * ``polish_prices`` from the same perturbed prices: the two packages' dual
   bounds agree to 1e-9 relative.
 * ``refine`` (the float64 fallback) certifies the arbitrage instance at 1e-6.
-* The entry points left out of this slice raise ``NotImplementedError``
-  naming their ROADMAP.md queue item.
+* The entry points left out of the port so far raise
+  ``NotImplementedError`` naming their ROADMAP.md queue item.
 """
 import numpy as np
 import pytest
@@ -28,12 +28,12 @@ from cfmm_routing_tpu_torch import api, convert
 from cfmm_routing_tpu_torch.models.reference_instances import (
     arbitrage_instance, liquidation_instance, two_asset_instance,
 )
-from cfmm_routing_tpu_torch.ops.iteration_cuda import fused_step_delta
 from cfmm_routing_tpu_torch.solver import refine_device as rd
-from cfmm_routing_tpu_torch.solver.admm import AdmmOptions
+from cfmm_routing_tpu_torch.solver.admm import AdmmOptions, AdmmSolver
 from cfmm_routing_tpu_torch.solver.certify import certify, dual_bound, polish_prices
-from cfmm_routing_tpu_torch.solver.compiler import compile_spec
+from cfmm_routing_tpu_torch.solver.compiler import compile_spec, compile_table
 from cfmm_routing_tpu_torch.solver.refine import refine
+from cfmm_routing_tpu_torch.utils.synth import random_arbitrage_table
 
 torch.set_num_threads(1)
 
@@ -130,22 +130,6 @@ def test_refine_float64_fallback_certifies_arbitrage(arb):
 
 def test_left_out_entry_points_name_their_queue_item(arb):
     compiled, obj, base = arb["compiled"], arb["obj"], arb["port_base"]
-    solver = rd.DeltaAdmmSolver(compiled, device="cpu",
-                                options=AdmmOptions(adapt_rho=False))
-    batched = [
-        lambda: rd.refine_sweep(compiled, obj),
-        lambda: rd.SweepRefineResult(),
-        lambda: rd._delta_buckets_folded(),
-        lambda: solver.delta_buckets_batch({}, {}, [1.0], None),
-        lambda: solver.solve_delta_batch(),
-    ]
-    for call in batched:
-        with pytest.raises(NotImplementedError, match="item 13"):
-            call()
-    arrs = next(iter(solver.buckets.values()))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        fused_step_delta(arrs["mask"], arrs["mask"], torch.zeros(128), arrs,
-                         "gm", False, 1.0, fold=(2, 4))
 
     class Utility:  # any objective that is not a linear Objective
         c, lo, hi = obj.c, obj.lo, obj.hi
@@ -154,3 +138,10 @@ def test_left_out_entry_points_name_their_queue_item(arb):
         rd.refine_device(compiled, Utility(), base, device="cpu")
     with pytest.raises(NotImplementedError, match="item 14"):
         refine(compiled, obj, base, cpu_shards=4, device="cpu")
+    solver = AdmmSolver(compile_spec(arbitrage_instance()[0], pad_pools_to=128),
+                        device="cpu", options=AdmmOptions(max_iters=5))
+    with pytest.raises(NotImplementedError, match="queue 2, item 5"):
+        solver.solve_fused(obj, iters=3, merged=True)
+    table, _ = random_arbitrage_table(8, 20, seed=1)
+    with pytest.raises(NotImplementedError, match="native packer"):
+        compile_table(table, backend="native")
