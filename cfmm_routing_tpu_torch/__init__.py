@@ -19,7 +19,7 @@ from .models.pools import (  # noqa: F401
     Pool,
     ProductPool,
 )
-from .models.utility import Objective  # noqa: F401
+from .models.utility import ConcaveUtility, Objective  # noqa: F401
 from .solver.admm import AdmmOptions, AdmmSolver, RouteResult  # noqa: F401
 from .solver.certify import Certificate, certify, dual_bound  # noqa: F401
 from .solver.compiler import (  # noqa: F401

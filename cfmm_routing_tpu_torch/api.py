@@ -3,7 +3,8 @@
     arbitrage(spec, market_values)        ~ arbitrage.py
     liquidate(spec, holdings, numeraire)  ~ liquidation.py
     sweep(spec, give, receive, amounts)   ~ two-asset.py
-    route(spec, objective)                ~ any linear objective + box
+    route(spec, objective)                ~ any linear objective + box, or a
+                                            separable concave utility
 
 Each call returns a :class:`Route` with per-pool trades in spec order, the
 net trade vector, dual prices, and solver diagnostics; ``certify=True``
@@ -25,9 +26,9 @@ import numpy as np
 import torch
 
 from ._device import host
-from .models.utility import Objective
+from .models.utility import ConcaveUtility, Objective
 from .solver.admm import AdmmOptions, AdmmSolver, RouteResult
-from .solver.compiler import PoolTable, ProblemSpec, compile_spec, compile_table
+from .solver.compiler import PoolTable, ProblemSpec, compile_table
 
 __all__ = [
     "Route", "Sweep", "arbitrage", "liquidate", "sweep", "route", "make_solver",
@@ -66,13 +67,22 @@ class Sweep:
     certificates: Optional[List[object]] = None  # per-point Certificate
 
 
+def _table_and_spec(spec_or_table):
+    """(PoolTable, the ProblemSpec or None) of a spec or a flat table."""
+    if isinstance(spec_or_table, PoolTable):
+        return spec_or_table, None
+    return PoolTable.from_spec(spec_or_table), spec_or_table
+
+
 def make_solver(
     spec: ProblemSpec,
     dtype: torch.dtype = torch.float32,
     options: Optional[AdmmOptions] = None,
     device=None,
 ) -> AdmmSolver:
-    return make_solver_compiled(compile_spec(spec), dtype=dtype,
+    """A solver for a :class:`ProblemSpec` or a flat :class:`PoolTable`."""
+    table, spec = _table_and_spec(spec)
+    return make_solver_compiled(compile_table(table, spec=spec), dtype=dtype,
                                 options=options, device=device)
 
 
@@ -83,7 +93,7 @@ def make_solver_compiled(compiled, dtype: torch.dtype = torch.float32,
                       device=device)
 
 
-def _route_from(solver: AdmmSolver, res, obj: Objective, do_certify: bool,
+def _route_from(solver: AdmmSolver, res, obj, do_certify: bool,
                 cert_compiled=None) -> Route:
     deltas, lambdas = solver.unbucket(res)
     cert = None
@@ -170,7 +180,7 @@ def _solve_preconditioned(spec, objective, certify, solver_kwargs,
     original problem."""
     from .solver.precondition import equilibrate, unscale_result
 
-    table = PoolTable.from_spec(spec)
+    table, spec = _table_and_spec(spec)
     eq = equilibrate(table, objective)
     compiled_eq = compile_table(eq.table, spec=spec)
     solver = make_solver_compiled(compiled_eq, **solver_kwargs)
@@ -188,7 +198,12 @@ def _solve_preconditioned(spec, objective, certify, solver_kwargs,
         ]
     )
     res0 = unscale_result(res_host, eq.d, compiled_eq)
-    obj_val = float(np.asarray(objective.c) @ np.asarray(res0.psi))
+    # the objective in original units (a log atom's scaled value differs by
+    # an additive constant)
+    if isinstance(objective, ConcaveUtility):
+        obj_val = objective.value(res0.psi)
+    else:
+        obj_val = float(np.asarray(objective.c) @ np.asarray(res0.psi))
     res0 = res0._replace(objective=np.float64(obj_val))
     cert_compiled = compile_table(table, spec=spec) if certify else None
     return _route_from(solver, res0, objective, certify, cert_compiled)
@@ -196,24 +211,23 @@ def _solve_preconditioned(spec, objective, certify, solver_kwargs,
 
 def route(
     spec: ProblemSpec,
-    objective: Objective,
+    objective,
     solver: Optional[AdmmSolver] = None,
     certify: bool = False,
     precondition: bool = False,
     refine_to: Optional[float] = None,
     **solver_kwargs,
 ) -> Route:
-    """Generic routing: maximize an :class:`Objective` (linear + box) over
-    the network.  ``precondition=True`` solves in equilibrated per-asset
-    units (``solver/precondition.py``) and returns results (and the
-    optional certificate) in the original units.  ``refine_to``: refine on
-    the device to that certified relative gap (``solver/refine_device.py``);
+    """Generic routing: maximize an :class:`Objective` (linear + box) or a
+    :class:`ConcaveUtility` (separable concave atoms) over the network, a
+    :class:`ProblemSpec` or a flat :class:`PoolTable`.
+    ``precondition=True`` solves in equilibrated per-asset units
+    (``solver/precondition.py``) and returns results (and the optional
+    certificate) in the original units.  ``refine_to``: refine on the
+    device to that certified relative gap (``solver/refine_device.py``);
     the returned Route carries the certificate."""
-    if not isinstance(objective, Objective):
-        raise NotImplementedError(
-            f"{type(objective).__name__} objectives are not ported yet "
-            "(queue 1, item 12 in ROADMAP.md)"
-        )
+    if not isinstance(objective, (Objective, ConcaveUtility)):
+        raise TypeError("objective must be an Objective or ConcaveUtility")
     _reject(solver, precondition, refine_to)
     if solver is None:
         solver_kwargs = _floor_options(solver_kwargs, refine_to)

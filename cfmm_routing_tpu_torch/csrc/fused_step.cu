@@ -25,6 +25,15 @@
 // slot) reads 0 before the mask; the folded ids and the segment sum keep
 // the points apart.
 //
+// Merged (cfmm_fused_step_merged, replaces fused_step_merged /
+// _merged_kernel of iteration_pallas.py): one launch covers every bucket of
+// one channel count K, concatenated on the pool axis.  An int32 class per
+// 128-pool block (0 gm, 1 floored gm, 2 cs), built on the host from the
+// bucket boundaries, selects the block's projection; the branch is uniform
+// across the block, so no warp diverges.  The rest is the unfolded step
+// above.  The TPU kernel's scalar-prefetched tile table, 8-row tile rule and
+// one-hot exchange have no counterpart here.
+//
 // Bound: compute — the projection's root-find (projection.cuh) dominates;
 // the pass reads 7 slot planes and writes 5.
 #include "projection.cuh"
@@ -33,26 +42,18 @@ namespace {
 
 constexpr int kThreads = 128;
 
+// The step for pool i, whose block has staged prices v_sh[0, n_sh) that
+// stand for asset ids base .. base + n_sh - 1.
 template <typename T, int KC, int KIND>
-__global__ void __launch_bounds__(kThreads)
-fused_kernel(const T* __restrict__ sD, const T* __restrict__ sL,
-             const int* __restrict__ asset, const T* __restrict__ R,
-             const T* __restrict__ w, const T* __restrict__ s,
-             const T* __restrict__ mask, const T* __restrict__ gamma,
-             const T* __restrict__ logk0, const T* __restrict__ k0,
-             const T* __restrict__ v, int n_pad, T alpha, T beta,
-             T* __restrict__ sDn, T* __restrict__ sLn, T* __restrict__ Dout,
-             T* __restrict__ Lout, T* __restrict__ val, int K, int m,
-             int n_bisect, int n_total, int fold_m, int fold_n) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* v_sh = reinterpret_cast<T*>(smem_raw);
-  const int base = fold_m > 0 ? (int)(blockIdx.x * kThreads / fold_m) * fold_n : 0;
-  const int n_sh = fold_m > 0 ? fold_n : n_pad;
-  for (int j = threadIdx.x; j < n_sh; j += blockDim.x) v_sh[j] = v[base + j];
-  __syncthreads();
-
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= m) return;
+__device__ __forceinline__ void fused_pool(
+    int i, const T* __restrict__ sD, const T* __restrict__ sL,
+    const int* __restrict__ asset, const T* __restrict__ R,
+    const T* __restrict__ w, const T* __restrict__ s,
+    const T* __restrict__ mask, const T* __restrict__ gamma,
+    const T* __restrict__ logk0, const T* __restrict__ k0, const T* v_sh,
+    int base, int n_sh, T alpha, T beta, T* __restrict__ sDn,
+    T* __restrict__ sLn, T* __restrict__ Dout, T* __restrict__ Lout,
+    T* __restrict__ val, int K, int m, int n_bisect, int n_total) {
   auto load = [&](int c) {
     const size_t e = (size_t)c * m + i;
     cfmm::SlotIn<T> in;
@@ -78,6 +79,63 @@ fused_kernel(const T* __restrict__ sD, const T* __restrict__ sL,
   };
   cfmm::project_pool<T, KC, KIND>(load, K, gamma[i], logk0[i], k0[i],
                                   n_bisect, n_total, store);
+}
+
+template <typename T, int KC, int KIND>
+__global__ void __launch_bounds__(kThreads)
+fused_kernel(const T* __restrict__ sD, const T* __restrict__ sL,
+             const int* __restrict__ asset, const T* __restrict__ R,
+             const T* __restrict__ w, const T* __restrict__ s,
+             const T* __restrict__ mask, const T* __restrict__ gamma,
+             const T* __restrict__ logk0, const T* __restrict__ k0,
+             const T* __restrict__ v, int n_pad, T alpha, T beta,
+             T* __restrict__ sDn, T* __restrict__ sLn, T* __restrict__ Dout,
+             T* __restrict__ Lout, T* __restrict__ val, int K, int m,
+             int n_bisect, int n_total, int fold_m, int fold_n) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* v_sh = reinterpret_cast<T*>(smem_raw);
+  const int base = fold_m > 0 ? (int)(blockIdx.x * kThreads / fold_m) * fold_n : 0;
+  const int n_sh = fold_m > 0 ? fold_n : n_pad;
+  for (int j = threadIdx.x; j < n_sh; j += blockDim.x) v_sh[j] = v[base + j];
+  __syncthreads();
+
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= m) return;
+  fused_pool<T, KC, KIND>(i, sD, sL, asset, R, w, s, mask, gamma, logk0, k0,
+                          v_sh, base, n_sh, alpha, beta, sDn, sLn, Dout, Lout,
+                          val, K, m, n_bisect, n_total);
+}
+
+// The merged step: block b projects with the kind cls[b] (2 and any other
+// value: constant sum; the solver builds the table from the bucket kinds).
+template <typename T, int KC>
+__global__ void __launch_bounds__(kThreads)
+merged_kernel(const int* __restrict__ cls, const T* __restrict__ sD,
+              const T* __restrict__ sL, const int* __restrict__ asset,
+              const T* __restrict__ R, const T* __restrict__ w,
+              const T* __restrict__ s, const T* __restrict__ mask,
+              const T* __restrict__ gamma, const T* __restrict__ logk0,
+              const T* __restrict__ k0, const T* __restrict__ v, int n_pad,
+              T alpha, T beta, T* __restrict__ sDn, T* __restrict__ sLn,
+              T* __restrict__ Dout, T* __restrict__ Lout, T* __restrict__ val,
+              int K, int m, int n_bisect, int n_total) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* v_sh = reinterpret_cast<T*>(smem_raw);
+  for (int j = threadIdx.x; j < n_pad; j += blockDim.x) v_sh[j] = v[j];
+  __syncthreads();
+
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= m) return;
+#define CFMM_MERGED_POOL(KD)                                                   \
+  fused_pool<T, KC, KD>(i, sD, sL, asset, R, w, s, mask, gamma, logk0, k0,     \
+                        v_sh, 0, n_pad, alpha, beta, sDn, sLn, Dout, Lout, val, \
+                        K, m, n_bisect, n_total)
+  switch (cls[blockIdx.x]) {
+    case cfmm::KIND_GM: CFMM_MERGED_POOL(cfmm::KIND_GM); break;
+    case cfmm::KIND_GM_FLOOR: CFMM_MERGED_POOL(cfmm::KIND_GM_FLOOR); break;
+    default: CFMM_MERGED_POOL(cfmm::KIND_CS); break;
+  }
+#undef CFMM_MERGED_POOL
 }
 
 }  // namespace
@@ -126,5 +184,59 @@ extern "C" int cfmm_fused_step(int dtype, int kind, int K, int m, int n_pad,
   }
   CFMM_DISPATCH(dtype, K, kind, CFMM_LAUNCH_FUSED)
 #undef CFMM_LAUNCH_FUSED
+  return (int)cudaGetLastError();
+}
+
+// One merged fused half-iteration over a K-group of m pools (m a multiple
+// of 128): cls holds one int32 class per 128-pool block (0 gm, 1 floored gm,
+// 2 cs); the other arguments as in cfmm_fused_step, unfolded.  Returns the
+// launch's cudaError_t.
+extern "C" int cfmm_fused_step_merged(int dtype, int K, int m, int n_pad,
+                                      double alpha, double beta,
+                                      const void* cls, const void* sD,
+                                      const void* sL, const void* asset,
+                                      const void* R, const void* w,
+                                      const void* s, const void* mask,
+                                      const void* gamma, const void* logk0,
+                                      const void* k0, const void* v,
+                                      void* sDn, void* sLn, void* D, void* L,
+                                      void* val, int n_bisect, int n_polish,
+                                      void* stream) {
+  if (m <= 0) return 0;
+  if (m % kThreads != 0 || K < 1) return (int)cudaErrorInvalidValue;
+  const dim3 grid(m / kThreads);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaSuccess;
+#define CFMM_LAUNCH_MERGED(TT, KK)                                             \
+  {                                                                            \
+    const size_t smem = (size_t)n_pad * sizeof(TT);                            \
+    if (smem > 48 * 1024) {                                                    \
+      err = cudaFuncSetAttribute(merged_kernel<TT, KK>,                        \
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,  \
+                                 (int)smem);                                   \
+      if (err != cudaSuccess) return (int)err;                                 \
+    }                                                                          \
+    merged_kernel<TT, KK><<<grid, kThreads, smem, st>>>(                       \
+        (const int*)cls, (const TT*)sD, (const TT*)sL, (const int*)asset,      \
+        (const TT*)R, (const TT*)w, (const TT*)s, (const TT*)mask,             \
+        (const TT*)gamma, (const TT*)logk0, (const TT*)k0, (const TT*)v,       \
+        n_pad, (TT)alpha, (TT)beta, (TT*)sDn, (TT*)sLn, (TT*)D, (TT*)L,        \
+        (TT*)val, K, m, n_bisect, n_bisect + n_polish);                        \
+  }
+#define CFMM_MERGED_K(TT)                                                      \
+  switch (K) {                                                                 \
+    case 2: CFMM_LAUNCH_MERGED(TT, 2); break;                                  \
+    case 4: CFMM_LAUNCH_MERGED(TT, 4); break;                                  \
+    case 8: CFMM_LAUNCH_MERGED(TT, 8); break;                                  \
+    case 16: CFMM_LAUNCH_MERGED(TT, 16); break;                                \
+    default: CFMM_LAUNCH_MERGED(TT, 0); break;                                 \
+  }
+  switch (dtype) {
+    case 0: CFMM_MERGED_K(float); break;
+    case 1: CFMM_MERGED_K(double); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef CFMM_MERGED_K
+#undef CFMM_LAUNCH_MERGED
   return (int)cudaGetLastError();
 }

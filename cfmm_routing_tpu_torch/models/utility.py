@@ -14,7 +14,13 @@ All three are instances of
 with +/-inf entries allowed in the box (an equality is ``lo == hi``).
 :class:`Objective` captures exactly this; the ADMM psi-prox
 (``ops/prox.py``) solves its diagonally-weighted prox in closed form.
-Separable concave and custom utilities are not part of this package yet.
+
+Beyond the linear case, :class:`ConcaveUtility` expresses any separable
+concave utility over psi from an atom library (linear / quadratic / log /
+power).  The ADMM consensus prox stays closed-form per asset
+(``ops/prox.py::utility_prox``), so nonlinear utilities cost the same per
+iteration as linear ones.  Non-separable utilities (``CustomUtility``) are
+not part of this package yet.
 """
 from __future__ import annotations
 
@@ -22,7 +28,7 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["Objective"]
+__all__ = ["Objective", "ConcaveUtility", "CustomUtility"]
 
 _INF = np.inf
 
@@ -76,3 +82,175 @@ class Objective:
         c = np.zeros(n)
         c[receive] = 1.0
         return Objective(c, lo=-holdings)
+
+
+# atom kind codes (must match ops/prox.py)
+_LINEAR, _QUAD, _LOG, _POWER = 0, 1, 2, 3
+_DOMAIN_EPS = 1e-9  # keep log/power strictly inside their domain
+
+
+@dataclasses.dataclass(frozen=True)
+class ConcaveUtility:
+    """Separable concave utility  U(psi) = sum_j U_j(psi_j)  with a box.
+
+    Per-asset atoms (see ``ops/prox.py`` for the prox math):
+
+        linear      U = c * psi
+        quadratic   U = c * psi - (a/2) psi^2          (a >= 0)
+        log         U = c * log(b + psi)               (c >= 0, psi > -b)
+        power       U = (c/p) * (b + psi)^p            (c >= 0, 0 < p < 1)
+
+    Construct with :meth:`linear` / :meth:`from_objective`, then refine
+    individual assets with the ``with_*`` methods (each returns a new
+    instance).  ``value``/``grad`` give float64 host evaluations (the
+    certificate uses them); ``pack`` produces the tensor encoding.
+    """
+
+    kind: np.ndarray  # (n,) int32 atom codes
+    c: np.ndarray
+    a: np.ndarray
+    b: np.ndarray
+    p: np.ndarray
+    lo: np.ndarray
+    hi: np.ndarray
+
+    @property
+    def n_assets(self) -> int:
+        return self.kind.shape[0]
+
+    @staticmethod
+    def linear(c, lo=None, hi=None) -> "ConcaveUtility":
+        obj = Objective(c, lo, hi)
+        n = obj.n_assets
+        z = np.zeros(n)
+        return ConcaveUtility(
+            kind=np.zeros(n, np.int32), c=obj.c.copy(), a=z.copy(),
+            b=z.copy(), p=z.copy(), lo=obj.lo.copy(), hi=obj.hi.copy(),
+        )
+
+    @staticmethod
+    def from_objective(obj: Objective) -> "ConcaveUtility":
+        return ConcaveUtility.linear(obj.c, obj.lo, obj.hi)
+
+    # ---- per-asset refinement (functional setters) --------------------------
+
+    def _replace_at(self, j: int, **fields) -> "ConcaveUtility":
+        arrays = {
+            name: getattr(self, name).copy()
+            for name in ("kind", "c", "a", "b", "p", "lo", "hi")
+        }
+        for name, v in fields.items():
+            arrays[name][j] = v
+        out = ConcaveUtility(**arrays)
+        out._validate_at(j)
+        return out
+
+    def _validate_at(self, j: int):
+        k = int(self.kind[j])
+        if k in (_LOG, _POWER):
+            if self.c[j] < 0:
+                raise ValueError("log/power atoms need c >= 0 for concavity")
+            # clamp the box into the domain psi >= -b
+            dom = -self.b[j] + _DOMAIN_EPS * max(1.0, abs(self.b[j]))
+            if self.hi[j] <= dom:
+                raise ValueError("box lies outside the log/power domain")
+            self.lo[j] = max(self.lo[j], dom)
+        if k == _QUAD and self.a[j] < 0:
+            raise ValueError("quadratic atom needs a >= 0 for concavity")
+        if k == _POWER and not (0.0 < self.p[j] < 1.0):
+            raise ValueError("power atom needs 0 < p < 1")
+
+    def with_linear(self, j: int, c: float) -> "ConcaveUtility":
+        return self._replace_at(j, kind=_LINEAR, c=c, a=0.0, b=0.0, p=0.0)
+
+    def with_quadratic(self, j: int, c: float, a: float) -> "ConcaveUtility":
+        """U_j = c*psi - (a/2)*psi^2 (risk-penalized value)."""
+        return self._replace_at(j, kind=_QUAD, c=c, a=a, b=0.0, p=0.0)
+
+    def with_log(self, j: int, c: float, b: float) -> "ConcaveUtility":
+        """U_j = c*log(b + psi) (Cobb-Douglas term around holdings b)."""
+        return self._replace_at(j, kind=_LOG, c=c, a=0.0, b=b, p=0.0)
+
+    def with_power(self, j: int, c: float, p: float, b: float = 0.0):
+        """U_j = (c/p)*(b + psi)^p (CRRA/CES term)."""
+        return self._replace_at(j, kind=_POWER, c=c, a=0.0, b=b, p=p)
+
+    def with_box(self, j: int, lo: float, hi: float) -> "ConcaveUtility":
+        if lo > hi:
+            raise ValueError("empty box")
+        return self._replace_at(j, lo=lo, hi=hi)
+
+    # ---- host evaluation (float64; certification) ---------------------------
+
+    def value_vec(self, psi: np.ndarray) -> np.ndarray:
+        """Per-asset utility terms U_j(psi_j) (float64)."""
+        psi = np.asarray(psi, np.float64)
+        y = np.maximum(self.b + psi, 1e-300)
+        p_safe = np.where(self.kind == _POWER, np.clip(self.p, 0.01, 0.99), 1.0)
+        return np.where(
+            self.kind == _LINEAR, self.c * psi,
+            np.where(
+                self.kind == _QUAD, self.c * psi - 0.5 * self.a * psi * psi,
+                np.where(
+                    self.kind == _LOG, self.c * np.log(y),
+                    (self.c / p_safe) * y**p_safe,
+                ),
+            ),
+        )
+
+    def value(self, psi: np.ndarray) -> float:
+        return float(np.sum(self.value_vec(psi)))
+
+    def grad(self, psi: np.ndarray) -> np.ndarray:
+        psi = np.asarray(psi, np.float64)
+        y = np.maximum(self.b + psi, 1e-300)
+        p_safe = np.where(self.kind == _POWER, np.clip(self.p, 0.01, 0.99), 1.0)
+        return np.where(
+            self.kind == _LINEAR, self.c,
+            np.where(
+                self.kind == _QUAD, self.c - self.a * psi,
+                np.where(
+                    self.kind == _LOG, self.c / y,
+                    self.c * y ** (p_safe - 1.0),
+                ),
+            ),
+        )
+
+    # ---- tensor packing ------------------------------------------------------
+
+    def pack(self, dtype, device):
+        """Encode as a :class:`~cfmm_routing_tpu_torch.ops.prox.PackedUtility`
+        of tensors on ``device`` (box clamped to float32-safe finite values
+        and to the atom domains)."""
+        import torch
+
+        from ..ops.prox import PackedUtility
+
+        big = np.finfo(np.float32).max / 4
+        dom = np.where(
+            (self.kind == _LOG) | (self.kind == _POWER),
+            -self.b + _DOMAIN_EPS * np.maximum(1.0, np.abs(self.b)),
+            -big,
+        )
+        lo = np.maximum(np.maximum(self.lo, dom), -big)
+        hi = np.minimum(self.hi, big)
+
+        def t(x, dt=dtype):
+            return torch.as_tensor(np.asarray(x), dtype=dt, device=device)
+
+        return PackedUtility(
+            kind=t(self.kind, torch.int32), c=t(self.c), a=t(self.a),
+            b=t(self.b), p=t(self.p), lo=t(lo), hi=t(np.maximum(hi, lo)),
+            has_power=bool(np.any(self.kind == _POWER)),
+        )
+
+
+class CustomUtility:
+    """Non-separable concave utility U(psi) given as a callable: not ported
+    yet.  Constructing one raises."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "CustomUtility (non-separable utilities, custom_prox and their "
+            "refinement) is not ported yet (queue 1, item 12b in ROADMAP.md)"
+        )

@@ -9,7 +9,8 @@ A failed build raises: there is no fallback.
 
 Every kernel wrapper adds one to its entry in :data:`LAUNCHES` where it
 launches its kernel, so a run can show which kernels it went through (the
-folded launches of the fused steps count under ``*_fold``).
+folded launches of the fused steps count under ``*_fold``, the merged
+K-group launches under ``fused_step_merged``).
 """
 from __future__ import annotations
 
@@ -54,7 +55,9 @@ _LIBS = {
     ),
     "fused_step": (
         "fused_step.cu",
-        {"cfmm_fused_step": [_C] * 7 + [_D, _D] + [_P] * 16 + [_C, _C, _P]},
+        {"cfmm_fused_step": [_C] * 7 + [_D, _D] + [_P] * 16 + [_C, _C, _P],
+         "cfmm_fused_step_merged": [_C] * 4 + [_D, _D] + [_P] * 17
+                                   + [_C, _C, _P]},
     ),
     "fused_step_delta": (
         "fused_step_delta.cu",
@@ -72,7 +75,7 @@ LAUNCHES: Dict[str, int] = {"project_gm": 0, "project_cs": 0,
                             "project_gm_delta": 0, "project_cs_delta": 0,
                             "fused_step": 0, "fused_step_delta": 0,
                             "fused_step_fold": 0, "fused_step_delta_fold": 0,
-                            "segment_sum": 0}
+                            "fused_step_merged": 0, "segment_sum": 0}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

@@ -29,7 +29,15 @@ of ``ops/projection_delta.py`` (:func:`fused_step_delta`): the projection
 input is further offset by the pre-broadcast base dual ``nu0e``, and the
 projection is the delta one; the deferred-broadcast algebra is unchanged.
 
-The CUDA kernels are ``csrc/fused_step.cu`` and ``csrc/fused_step_delta.cu``.
+:func:`fused_step_merged` runs the base step on one merged K-group
+(``AdmmSolver._merged_groups``): every bucket with the same channel count
+K on one concatenated pool axis, with an int32 class per 128-pool block
+(0 gm, 1 floored gm, 2 cs) that selects the block's projection.  One launch
+per K-group instead of one per bucket; the group carries its own fixed slot
+order for the segment sum.
+
+The CUDA kernels are ``csrc/fused_step.cu`` (``fused_step`` and
+``fused_step_merged``) and ``csrc/fused_step_delta.cu``.
 Each writes its slots' consensus terms to a (K, m) plane that the
 segment-sum kernel (``ops/segment.py``) reduces per asset in a fixed order,
 so y is bitwise repeatable on the card.  On a CPU tensor the wrappers run
@@ -59,7 +67,10 @@ from .projection_delta import project_cs_delta, project_gm_delta
 from .segment import segment_sum, segment_sum_plain
 
 __all__ = ["fused_step", "fused_step_plain", "fused_step_delta",
-           "fused_step_delta_plain"]
+           "fused_step_delta_plain", "fused_step_merged",
+           "fused_step_merged_plain"]
+
+_CLASS_KIND = {code: kind for kind, code in _KIND.items()}  # 2 -> ("cs", False)
 
 
 def _gather(v, arrs, K, m, fold=None):
@@ -184,6 +195,97 @@ def fused_step(sD, sL, v, arrs, kind, needs_floor, alpha: float,
     _build.check_launch(rc, "fused_step")
     _build.LAUNCHES["fused_step" if fold is None else "fused_step_fold"] += 1
     y = segment_sum(val, arrs["order"], arrs["seg"], n_pad)
+    return sDn, sLn, D, L, y
+
+
+def _class_spans(cls):
+    """[(start_pool, stop_pool, kind, needs_floor)] of the runs of equal
+    class in a merged group's per-128-pool-block class table."""
+    codes = cls.cpu().tolist()
+    spans = []
+    start = 0
+    for i in range(1, len(codes) + 1):
+        if i == len(codes) or codes[i] != codes[start]:
+            spans.append((128 * start, 128 * i) + _CLASS_KIND[codes[start]])
+            start = i
+    return spans
+
+
+def _check_classes(cls, m, what):
+    if (cls.dtype != torch.int32 or cls.dim() != 1 or 128 * cls.numel() != m
+            or not cls.is_contiguous()):
+        raise ValueError(f"{what}: the class table must be a contiguous int32 "
+                         f"vector of one entry per 128 pools ({m} pools)")
+
+
+def fused_step_merged_plain(sD, sL, v, g, alpha: float,
+                            cfg: ProjectionConfig = ProjectionConfig()):
+    """The merged fused half-iteration in plain PyTorch, on any device: the
+    gather, the plain projection of each run of equal class, and the update
+    with the group's fixed-order segment sum.  Returns (sD', sL', D, L,
+    y(n_pad,))."""
+    K, m = sD.shape
+    _check_classes(g["cls"], m, "fused_step_merged")
+    ve = _gather(v, g, K, m)
+    p = sD + ve
+    q = sL - ve
+    Ds, Ls = [], []
+    for a, b, kind, floor in _class_spans(g["cls"]):
+        sl = {k: g[k][..., a:b] for k in ("R", "w", "s", "mask", "gamma",
+                                           "logk0", "k0")}
+        if kind == "gm":
+            D, L = project_gm(
+                p[:, a:b], q[:, a:b], sl["R"], sl["w"], sl["s"], sl["gamma"],
+                sl["logk0"], sl["k0"], sl["mask"], needs_floor=floor, cfg=cfg,
+            )
+        else:
+            D, L = project_cs(p[:, a:b], q[:, a:b], sl["R"], sl["gamma"],
+                              sl["w"], sl["k0"], sl["mask"], cfg=cfg)
+        Ds.append(D)
+        Ls.append(L)
+    return _update(sD, sL, torch.cat(Ds, dim=1), torch.cat(Ls, dim=1), v, g, alpha)
+
+
+def fused_step_merged(sD, sL, v, g, alpha: float,
+                      cfg: ProjectionConfig = ProjectionConfig()):
+    """One fused half-iteration for one merged K-group, one launch.
+
+    sD/sL: (K, M) merged state planes;  v: (n_pad,) combined broadcast
+    vector;  g: the group's arrays from ``AdmmSolver._merged_groups``
+    (concatenated planes, the class table ``cls``, the group's slot order).
+    Returns (sD', sL', D, L, y(n_pad,))."""
+    if sD.device.type == "cpu":
+        return fused_step_merged_plain(sD, sL, v, g, alpha, cfg)
+    planes = (sD, sL, g["R"], g["w"], g["s"], g["mask"])
+    K, m = check_cuda_args(planes, (g["gamma"], g["logk0"], g["k0"]),
+                           "fused_step_merged")
+    _check_ids_and_v(sD, v, g, "fused_step_merged")
+    cls = g["cls"]
+    _check_classes(cls, m, "fused_step_merged")
+    if cls.device != sD.device:
+        raise ValueError(f"fused_step_merged: the class table is on {cls.device}")
+    n_pad = v.shape[0]
+    sDn = torch.empty_like(sD)
+    sLn = torch.empty_like(sD)
+    D = torch.empty_like(sD)
+    L = torch.empty_like(sD)
+    val = torch.empty_like(sD)
+    a = float(alpha)
+    lib = _build.library("fused_step")
+    with torch.cuda.device(sD.device):
+        stream = torch.cuda.current_stream(sD.device).cuda_stream
+        rc = lib.cfmm_fused_step_merged(
+            dtype_code(sD.dtype), K, m, n_pad, a, 1.0 - a, cls.data_ptr(),
+            sD.data_ptr(), sL.data_ptr(), g["asset"].data_ptr(),
+            g["R"].data_ptr(), g["w"].data_ptr(), g["s"].data_ptr(),
+            g["mask"].data_ptr(), g["gamma"].data_ptr(), g["logk0"].data_ptr(),
+            g["k0"].data_ptr(), v.data_ptr(), sDn.data_ptr(), sLn.data_ptr(),
+            D.data_ptr(), L.data_ptr(), val.data_ptr(), int(cfg.n_bisect),
+            int(cfg.n_polish), stream,
+        )
+    _build.check_launch(rc, "fused_step_merged")
+    _build.LAUNCHES["fused_step_merged"] += 1
+    y = segment_sum(val, g["order"], g["seg"], n_pad)
     return sDn, sLn, D, L, y
 
 

@@ -36,6 +36,15 @@ The methods that touch bucket arrays take an optional ``buckets=`` override
 (the refinement stage's delta arrays ride it; see
 ``solver/refine_device.py``).
 
+The objective is a linear :class:`Objective` or a separable
+:class:`ConcaveUtility`; a utility changes only the consensus prox
+(``ops/prox.py``), the bucket-side work is the same.
+
+``solve_fused(merged=True)`` runs one ``fused_step_merged`` launch per
+channel count K instead of one ``fused_step`` per bucket: same-K buckets
+share a concatenated pool axis with a per-128-pool-block class table
+(:meth:`AdmmSolver._merged_groups`).
+
 A solver built with ``fold=(T, n_pt)`` runs a scenario fold
 (``solver/fold.py``): T copies of a problem one after another on the pool
 axis, point t's assets at t*n_pt..(t+1)*n_pt-1.  Its residual sums come out
@@ -55,11 +64,11 @@ import numpy as np
 import torch
 
 from .._device import host, resolve_device
-from ..models.utility import Objective
-from ..ops.iteration_cuda import fused_step
+from ..models.utility import ConcaveUtility, Objective
+from ..ops.iteration_cuda import fused_step, fused_step_merged
 from ..ops.projection import ProjectionConfig
-from ..ops.projection_cuda import project_cs_cuda, project_gm_cuda
-from ..ops.prox import psi_prox
+from ..ops.projection_cuda import _KIND, project_cs_cuda, project_gm_cuda
+from ..ops.prox import psi_prox, utility_prox, utility_value
 from ..ops.segment import segment_sum, slot_order
 from .compiler import CompiledProblem
 
@@ -219,6 +228,7 @@ class AdmmSolver:
             mode = "onehot" if self.n <= 512 else "radix"
         self.consensus = mode
         self._alpha = self._t(options.alpha)
+        self._merged = None  # the merged K-groups, built at first use
 
     def _t(self, x) -> torch.Tensor:
         """A tensor of the solve dtype on the solver's device."""
@@ -304,12 +314,25 @@ class AdmmSolver:
             arrs["mask"], cfg=cfg,
         )
 
-    def _iterate(self, z, nu, rho, c, lo, hi, with_stats=True, buckets=None):
+    def _prox(self, s, c, lo, hi, rho, util=None):
+        """The consensus prox: linear (``util=None``) or separable concave."""
+        rho = self._per_asset(rho)
+        if util is None:
+            return psi_prox(s, self.degree, c, lo, hi, rho)
+        return utility_prox(s, self.degree, util, rho)
+
+    @staticmethod
+    def _objective_value(c, psi, util=None):
+        return torch.sum(c * psi) if util is None else utility_value(util, psi)
+
+    def _iterate(self, z, nu, rho, c, lo, hi, with_stats=True, buckets=None,
+                 util=None):
         """One ADMM iteration. Returns (z_new, nu_new, psi, w, stats).
 
         ``with_stats=False`` skips the residual accumulations (the
         ``check_every`` fast path).  z / w are dicts name -> (D, L) pairs of
-        (K, m) planes."""
+        (K, m) planes.  ``util``: a PackedUtility switches the consensus
+        prox from the linear closed form to the separable-concave one."""
         buckets = self.buckets if buckets is None else buckets
         alpha = self._alpha
         w_hat = {}
@@ -327,7 +350,7 @@ class AdmmSolver:
             yhat = yhat + self._reduce_edges(hL - hD, name, buckets)
 
         s = yhat - 2.0 * self.degree * nu
-        psi, mu = psi_prox(s, self.degree, c, lo, hi, self._per_asset(rho))
+        psi, mu = self._prox(s, c, lo, hi, rho, util)
 
         z_new = {}
         w_out = {}
@@ -387,7 +410,8 @@ class AdmmSolver:
         v = torch.cat([w, self._zeros(n_pad - n)])
         return v, lambda y: y[:n]
 
-    def _iterate_fused(self, s, wdef, nu, rho, c, lo, hi, buckets=None):
+    def _iterate_fused(self, s, wdef, nu, rho, c, lo, hi, buckets=None,
+                       util=None):
         buckets = self.buckets if buckets is None else buckets
         alpha = float(self.options.alpha)
         v, unpack = self._fold_pack(wdef - nu)
@@ -406,9 +430,85 @@ class AdmmSolver:
             y = y + yp
         yhat = unpack(y) - 2.0 * (1.0 - alpha) * self.degree * wdef
         svec = yhat - 2.0 * self.degree * nu
-        psi, mu = psi_prox(svec, self.degree, c, lo, hi, self._per_asset(rho))
+        psi, mu = self._prox(svec, c, lo, hi, rho, util)
         wdef_new = (1.0 - alpha) * wdef + nu - mu
         return s_new, wdef_new, mu, psi, w_out
+
+    # ---- merged K-group fused path (one launch per channel count) ----------
+
+    def _merged_groups(self):
+        """The solver's buckets grouped by channel count K, each group on
+        one concatenated pool axis: K-groups in ascending K, buckets in
+        sorted-name order inside a group (the JAX package's order, so the
+        merged state is the same concatenation).  A group holds its
+        concatenated planes (R w s mask asset gamma logk0 k0), ``cls``: the
+        int32 class of every 128-pool block (0 gm, 1 floored gm, 2 cs) that
+        ``fused_step_merged`` dispatches on, and its own fixed slot order
+        (``order``/``seg``) over the concatenated planes.  Built once and
+        cached; every bucket's pool count must be a multiple of 128."""
+        if self._merged is not None:
+            return self._merged
+        by_k = {}
+        for name in sorted(self.buckets):
+            by_k.setdefault(self.buckets[name]["mask"].shape[0], []).append(name)
+        groups = []
+        for K, names in sorted(by_k.items()):
+            parts = [self.buckets[nm] for nm in names]
+            arrs = {key: torch.cat([a[key] for a in parts], dim=-1)
+                    for key in ("R", "w", "s", "mask", "asset", "gamma",
+                                "logk0", "k0")}
+            cls = np.concatenate([
+                np.full(a["mask"].shape[1] // 128, _KIND[self._meta[nm]], np.int32)
+                for nm, a in zip(names, parts)
+            ])
+            order, seg = slot_order(host(arrs["asset"]), host(arrs["mask"]), self.n)
+            arrs.update(
+                cls=torch.as_tensor(cls, device=self.device),
+                order=torch.as_tensor(order, device=self.device),
+                seg=torch.as_tensor(seg, device=self.device),
+            )
+            groups.append(dict(K=K, names=names,
+                               ms=[a["mask"].shape[1] for a in parts], arrs=arrs))
+        self._merged = groups
+        return groups
+
+    @staticmethod
+    def _merge_state(s, groups):
+        return [tuple(torch.cat([s[nm][i] for nm in g["names"]], dim=1)
+                      for i in (0, 1)) for g in groups]
+
+    @staticmethod
+    def _split_state(sm, groups):
+        out = {}
+        for g, (sDm, sLm) in zip(groups, sm):
+            off = 0
+            for nm, m_b in zip(g["names"], g["ms"]):
+                out[nm] = (sDm[:, off:off + m_b].contiguous(),
+                           sLm[:, off:off + m_b].contiguous())
+                off += m_b
+        return out
+
+    def _iterate_fused_merged(self, sm, wdef, nu, rho, c, lo, hi, groups,
+                              util=None):
+        """:meth:`_iterate_fused` on merged K-group state: one
+        ``fused_step_merged`` launch (and one segment sum) per channel count
+        instead of one ``fused_step`` per bucket."""
+        alpha = float(self.options.alpha)
+        v, unpack = self._fold_pack(wdef - nu)
+        y = torch.zeros_like(v)
+        sm_new = []
+        w_out = []
+        for g, (sDm, sLm) in zip(groups, sm):
+            sDn, sLn, D, L, yp = fused_step_merged(
+                sDm, sLm, v, g["arrs"], alpha, cfg=self.options.projection)
+            sm_new.append((sDn, sLn))
+            w_out.append((D, L))
+            y = y + yp
+        yhat = unpack(y) - 2.0 * (1.0 - alpha) * self.degree * wdef
+        svec = yhat - 2.0 * self.degree * nu
+        psi, mu = self._prox(svec, c, lo, hi, rho, util)
+        wdef_new = (1.0 - alpha) * wdef + nu - mu
+        return sm_new, wdef_new, mu, psi, w_out
 
     def fused_to_z(self, s, wdef, buckets=None):
         """Materialize the classic edge state z from the fused state."""
@@ -427,7 +527,7 @@ class AdmmSolver:
         return math.sqrt(edges / (self._fold[0] if per_point else 1))
 
     def _solve_fused_impl(self, c, lo, hi, rho, n_iters, buckets=None,
-                          z0=None, nu0=None):
+                          z0=None, nu0=None, util=None, merged=False):
         """Fixed-iteration solve on the fused-kernel path.
 
         Runs ``n_iters`` fused iterations (one kernel launch per bucket per
@@ -438,20 +538,34 @@ class AdmmSolver:
         ``z0``/``nu0`` warm-start the fused state: z = s + wdef_e with
         wdef = 0 reproduces any classic edge state exactly, so chunked
         callers (the refinement stage) chain fused chunks through
-        :meth:`warm_state` with no conversion."""
+        :meth:`warm_state` with no conversion.
+
+        ``merged=True`` (the solver's own buckets only) runs the iterations
+        on the merged K-groups (:meth:`_iterate_fused_merged`)."""
         s, wdef, nu = self.fused_init(buckets)
         if z0 is not None:
             s = dict(z0)
         if nu0 is not None:
             nu = nu0
-        for _ in range(n_iters):
-            s, wdef, nu, _, _ = self._iterate_fused(s, wdef, nu, rho, c, lo, hi,
-                                                    buckets=buckets)
+        if merged:
+            if buckets is not None:
+                raise ValueError("the merged path runs the solver's own buckets")
+            groups = self._merged_groups()
+            sm = self._merge_state(s, groups)
+            for _ in range(n_iters):
+                sm, wdef, nu, _, _ = self._iterate_fused_merged(
+                    sm, wdef, nu, rho, c, lo, hi, groups, util=util)
+            s = self._split_state(sm, groups)
+        else:
+            for _ in range(n_iters):
+                s, wdef, nu, _, _ = self._iterate_fused(
+                    s, wdef, nu, rho, c, lo, hi, buckets=buckets, util=util)
         z = self.fused_to_z(s, wdef, buckets)
-        z, nu, psi, w, st = self._iterate(z, nu, rho, c, lo, hi, buckets=buckets)
+        z, nu, psi, w, st = self._iterate(z, nu, rho, c, lo, hi, buckets=buckets,
+                                          util=util)
         r, sd, eps_pri, eps_dua = self._residuals(self._joint(st), self._sqrt_edges())
         return RouteResult(
-            objective=torch.sum(c * psi),
+            objective=self._objective_value(c, psi, util),
             psi=psi,
             prices=rho * nu,
             deltas={name: w[name][0] for name in w},
@@ -464,15 +578,28 @@ class AdmmSolver:
         )
 
     def _objective_arrays(self, objective):
+        """(c, lo, hi) tensors of a linear :class:`Objective`, the box
+        clipped to the float32 range."""
         if not isinstance(objective, Objective):
-            raise _not_ported(
-                f"objective type {type(objective).__name__} (nonlinear "
-                "utilities)", "queue 1, item 12",
-            )
+            raise TypeError(f"expected an Objective, got {type(objective).__name__}")
         c = self._t(objective.c)
         lo = self._t(np.maximum(objective.lo, -_F32_BIG))
         hi = self._t(np.minimum(objective.hi, _F32_BIG))
         return c, lo, hi
+
+    def _pack(self, objective):
+        """(c, lo, hi, util) for an :class:`Objective` (util None) or a
+        :class:`ConcaveUtility` (util its PackedUtility, c/lo/hi its
+        packed fields)."""
+        if isinstance(objective, ConcaveUtility):
+            util = objective.pack(self.dtype, self.device)
+            return util.c, util.lo, util.hi, util
+        if isinstance(objective, Objective):
+            return (*self._objective_arrays(objective), None)
+        raise TypeError(
+            "the objective must be an Objective or a ConcaveUtility, not "
+            f"{type(objective).__name__}"
+        )
 
     def solve_fused(
         self,
@@ -481,27 +608,37 @@ class AdmmSolver:
         rho: Optional[float] = None,
         merged: bool = False,
     ) -> RouteResult:
-        """Fixed-iteration solve on the fused-kernel path.
+        """Fixed-iteration solve on the fused-kernel path, for an
+        :class:`Objective` or a :class:`ConcaveUtility`.
 
         Requires every bucket's pool count to be a multiple of 128 (compile
-        with ``pad_pools_to=128``), as the JAX package's fused path does."""
-        if merged:
-            raise _not_ported("the merged K-group kernel (merged=True)",
-                              "queue 2, item 5")
+        with ``pad_pools_to=128``), as the JAX package's fused path does.
+        ``merged=True``: one ``fused_step_merged`` launch per channel count
+        per iteration instead of one ``fused_step`` per bucket; not on a
+        scenario fold, whose kernels stage one point's prices per block where
+        the merged kernel would stage all T points'."""
+        if merged and self._fold is not None:
+            raise ValueError(
+                "merged=True does not run on a scenario fold: the merged "
+                "kernel stages the whole price vector (all T points) in each "
+                "block's shared memory; the fold kernels (merged=False) stage "
+                "one point's"
+            )
         if not _fused_ok(self):
             raise ValueError(
                 "every bucket's pool count (per scenario point) must be a "
                 "multiple of 128 for the fused kernel — "
                 "compile_spec/compile_table with pad_pools_to=128"
             )
-        c, lo, hi = self._objective_arrays(objective)
+        c, lo, hi, util = self._pack(objective)
         rho_v = self._t(rho if rho is not None else self.options.rho)
-        return self._solve_fused_impl(c, lo, hi, rho_v, int(iters))
+        return self._solve_fused_impl(c, lo, hi, rho_v, int(iters), util=util,
+                                      merged=bool(merged))
 
     # ---- full solve ---------------------------------------------------------
 
     def _solve_impl(self, c, lo, hi, rho0, z0=None, nu0=None, max_iters=None,
-                    buckets=None):
+                    buckets=None, util=None):
         """Residual-checked solve.  The loop reads one boolean back from the
         device per check (every ``check_every`` iterations)."""
         opts = self.options
@@ -528,9 +665,10 @@ class AdmmSolver:
         while k < budget:
             for _ in range(check_every - 1):
                 z, nu, _, _, _ = self._iterate(z, nu, rho, c, lo, hi,
-                                               with_stats=False, buckets=buckets)
+                                               with_stats=False, buckets=buckets,
+                                               util=util)
             z, nu, psi, w, st = self._iterate(z, nu, rho, c, lo, hi,
-                                              buckets=buckets)
+                                              buckets=buckets, util=util)
             r, sd, eps_pri, eps_dua = self._residuals(self._joint(st), sqn)
             k += check_every
             if (opts.adapt_rho and (k % opts.adapt_every) < check_every
@@ -550,7 +688,7 @@ class AdmmSolver:
                 break
 
         return RouteResult(
-            objective=torch.sum(c * psi),
+            objective=self._objective_value(c, psi, util),
             psi=psi,
             prices=rho * nu,
             deltas={name: w[name][0] for name in self.buckets},
@@ -586,10 +724,11 @@ class AdmmSolver:
         warm: Optional[RouteResult] = None,
         max_iters: Optional[int] = None,
     ) -> RouteResult:
-        """Solve for an :class:`Objective`.  ``warm`` continues from a prior
-        result at the penalty it adapted to; ``max_iters`` overrides
+        """Solve for an :class:`Objective` (linear) or a separable
+        :class:`ConcaveUtility`.  ``warm`` continues from a prior result at
+        the penalty it adapted to; ``max_iters`` overrides
         ``options.max_iters`` for this call."""
-        c, lo, hi = self._objective_arrays(objective)
+        c, lo, hi, util = self._pack(objective)
         if rho is not None:
             rho_v = rho
         elif warm is not None:
@@ -599,7 +738,8 @@ class AdmmSolver:
         z0 = nu0 = None
         if warm is not None:
             z0, nu0 = self.warm_state(warm, rho_v)
-        return self._solve_impl(c, lo, hi, rho_v, z0, nu0, max_iters=max_iters)
+        return self._solve_impl(c, lo, hi, rho_v, z0, nu0, max_iters=max_iters,
+                                util=util)
 
     # ---- batched solves: one fold, a stopping test per point ----------------
 

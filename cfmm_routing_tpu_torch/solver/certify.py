@@ -31,6 +31,11 @@ where hi_j = +inf, nu_j := c_j where the asset is unconstrained, nu_j >= 0
 everywhere.  The reported gap is therefore a TRUE bound on suboptimality
 regardless of how converged the ADMM iterate is.
 
+A separable :class:`ConcaveUtility` replaces the box support by the sum of
+its per-asset concave conjugates  sup_{lo<=psi<=hi} U_j(psi) - nu_j psi
+(closed form per atom, :func:`_util_support_grad`), with its own repair of
+nu; the pool side is unchanged.
+
 :func:`polish_prices` tightens the bound by minimizing it over nu (L-BFGS-B
 with the bound's Danskin subgradient); any nu it returns still gives a
 valid bound.
@@ -44,7 +49,7 @@ import numpy as np
 import torch
 
 from .._device import host, resolve_device
-from ..models.utility import Objective
+from ..models.utility import ConcaveUtility, Objective
 from .compiler import CompiledProblem
 
 __all__ = ["Certificate", "InfeasibilityCertificate", "certify",
@@ -119,6 +124,73 @@ def _box_support(c: np.ndarray, nu: np.ndarray, lo: np.ndarray, hi: np.ndarray):
     # unconstrained assets have d == 0 exactly after repair
     val = np.where(np.isfinite(val), val, 0.0)
     return float(np.sum(val))
+
+
+def _util_repair_prices(util: ConcaveUtility, nu: np.ndarray) -> np.ndarray:
+    """Repair nu so the per-asset concave conjugate is finite.
+
+    Where hi = +inf the sup of U_j(psi) - nu*psi diverges unless
+    nu >= lim U'_j: c for linear atoms, 0+ for log/power (U' -> 0), any
+    value for strictly quadratic atoms (U' -> -inf).  Mirrors
+    :func:`_repair_prices` for the linear case."""
+    nu = np.array(nu, dtype=np.float64, copy=True)
+    is_lin = (util.kind == 0) | ((util.kind == 1) & (util.a <= 0))
+    lo, hi, c = util.lo, util.hi, util.c
+    free = is_lin & ~np.isfinite(lo) & ~np.isfinite(hi)
+    nu[free] = c[free]
+    up = is_lin & ~np.isfinite(hi) & ~free
+    nu[up] = np.maximum(nu[up], c[up])
+    dn = is_lin & ~np.isfinite(lo) & ~free
+    nu[dn] = np.minimum(nu[dn], c[dn])
+    curved_up = ((util.kind == 2) | (util.kind == 3)) & ~np.isfinite(hi)
+    nu[curved_up] = np.maximum(nu[curved_up], 1e-12)
+    return np.maximum(nu, 0.0)
+
+
+def _util_support_grad(util: ConcaveUtility, nu: np.ndarray):
+    """(sup_{lo<=psi<=hi} U(psi) - nu^T psi,  its maximizer psi*) with nu
+    pre-repaired.  1-D concavity per asset: the constrained maximizer is
+    the clipped stationary point (closed form for every atom); by
+    Danskin, d(sup)/d(nu_j) = -psi*_j, the gradient the price polish uses."""
+    kind, c, a, b, p = util.kind, util.c, util.a, util.b, util.p
+    lo, hi = util.lo, util.hi
+    is_lin = (kind == 0) | ((kind == 1) & (a <= 0))
+
+    # linear atoms: endpoint selection (as _box_support)
+    d = c - nu
+    lo_f = np.where(np.isfinite(lo), lo, 0.0)
+    hi_f = np.where(np.isfinite(hi), hi, 0.0)
+    take_lo = np.where(np.isfinite(lo), d * lo_f, -np.inf)
+    take_hi = np.where(np.isfinite(hi), d * hi_f, -np.inf)
+    lin_val = np.maximum(take_lo, take_hi)
+    lin_psi = np.where(take_lo >= take_hi, lo_f, hi_f)
+    lin_psi = np.where(np.isfinite(lin_val), lin_psi, 0.0)
+    lin_val = np.where(np.isfinite(lin_val), lin_val, 0.0)
+
+    # curved atoms: stationary point, then clip into the box
+    a_safe = np.maximum(a, 1e-300)
+    nu_safe = np.maximum(nu, 1e-300)
+    c_safe = np.maximum(c, 1e-300)
+    p_safe = np.where(kind == 3, np.clip(p, 0.01, 0.99), 0.5)
+    with np.errstate(over="ignore", divide="ignore", invalid="ignore"):
+        psi_star = np.where(
+            kind == 1, (c - nu) / a_safe,
+            np.where(
+                kind == 2, c_safe / nu_safe - b,
+                (nu_safe / c_safe) ** (1.0 / (p_safe - 1.0)) - b,
+            ),
+        )
+    psi_star = np.clip(psi_star, lo, np.where(np.isfinite(hi), hi, np.inf))
+    psi_eval = np.where(is_lin, 0.0, psi_star)  # keep linear assets off the eval
+    curved_val = util.value_vec(psi_eval) - nu * psi_eval
+
+    val = float(np.sum(np.where(is_lin, lin_val, curved_val)))
+    psi_at = np.where(is_lin, lin_psi, psi_eval)
+    return val, psi_at
+
+
+def _util_support(util: ConcaveUtility, nu: np.ndarray) -> float:
+    return _util_support_grad(util, nu)[0]
 
 
 def _repair_prices(
@@ -250,14 +322,24 @@ def _cs_bound(nu_s, R, gamma, q, mask, want_grad=False):
 
 def _linear(objective):
     if not isinstance(objective, Objective):
-        raise NotImplementedError(
-            f"certifying {type(objective).__name__} objectives is not ported "
-            "yet (queue 1, item 12 in ROADMAP.md)"
-        )
+        raise TypeError("expected an Objective or a ConcaveUtility, got "
+                        f"{type(objective).__name__}")
     c = np.asarray(objective.c, np.float64)
     lo = np.asarray(objective.lo, np.float64)
     hi = np.asarray(objective.hi, np.float64)
     return c, lo, hi
+
+
+def _repaired_support(objective, prices):
+    """(repaired nu, the objective's support at nu): the box support of a
+    linear Objective, the conjugate sum of a ConcaveUtility."""
+    p = np.asarray(host(prices), np.float64)
+    if isinstance(objective, ConcaveUtility):
+        nu = _util_repair_prices(objective, p)
+        return nu, _util_support(objective, nu)
+    c, lo, hi = _linear(objective)
+    nu = _repair_prices(p, c, lo, hi)
+    return nu, _box_support(c, nu, lo, hi)
 
 
 def _pool_supports(compiled, nu, evals=None, device=None) -> float:
@@ -277,25 +359,23 @@ def _pool_supports(compiled, nu, evals=None, device=None) -> float:
 
 def dual_bound(
     compiled: CompiledProblem,
-    objective: Objective,
+    objective,
     prices: np.ndarray,
     evals=None,
     device=None,
 ) -> float:
     """Rigorous f64 dual upper bound on the optimum from a price vector
-    alone (no trades needed): repaired-nu box support + per-pool arbitrage
-    supports.  ``evals``: optional (n_bisect, n_newton) override for the gm
-    eta-search — fewer evaluations only loosen the (always valid) bound."""
-    c, lo, hi = _linear(objective)
-    nu = _repair_prices(np.asarray(host(prices), np.float64), c, lo, hi)
-    return _box_support(c, nu, lo, hi) + _pool_supports(
-        compiled, nu, evals=evals, device=device
-    )
+    alone (no trades needed): repaired-nu box (or utility) support +
+    per-pool arbitrage supports.  ``evals``: optional (n_bisect, n_newton)
+    override for the gm eta-search — fewer evaluations only loosen the
+    (always valid) bound."""
+    nu, support = _repaired_support(objective, prices)
+    return support + _pool_supports(compiled, nu, evals=evals, device=device)
 
 
 def certify(
     compiled: CompiledProblem,
-    objective: Objective,
+    objective,
     deltas: Dict[str, np.ndarray],
     lambdas: Dict[str, np.ndarray],
     prices: np.ndarray,
@@ -304,13 +384,16 @@ def certify(
 ) -> Certificate:
     """Certify a candidate routing.
 
+    ``objective``: an :class:`Objective` or a :class:`ConcaveUtility`.
     deltas/lambdas: bucket name -> slot-major (K, m) arrays or tensors
     (RouteResult layout).  prices: (n,) dual prices (RouteResult.prices).
     ``device``: where the geo-mean support search runs (the card unless
     ``"cpu"`` is given); everything else is float64 numpy on the host.
     """
     n = compiled.n_assets
-    c, lo, hi = _linear(objective)
+    nu, support = _repaired_support(objective, prices)
+    lo = np.asarray(objective.lo, np.float64)
+    hi = np.asarray(objective.hi, np.float64)
 
     psi_hat = np.zeros(n + 1)
     gross = np.zeros(n + 1)  # per-asset |D|+|L| volume (row scales)
@@ -319,7 +402,6 @@ def certify(
     phi_viol = 0.0
     nneg_viol = 0.0
     floor_viol = 0.0
-    nu = _repair_prices(np.asarray(host(prices), np.float64), c, lo, hi)
 
     for name, b in compiled.buckets.items():
         D = np.asarray(host(deltas[name]), np.float64).T  # (m, K)
@@ -378,8 +460,11 @@ def certify(
         else 0.0
     )
 
-    primal = float(c @ psi_hat)
-    dual = _box_support(c, nu, lo, hi) + dual_pools
+    if isinstance(objective, ConcaveUtility):
+        primal = objective.value(psi_hat)
+    else:
+        primal = float(np.asarray(objective.c, np.float64) @ psi_hat)
+    dual = support + dual_pools
     gap = dual - primal
     return Certificate(
         objective=primal,
@@ -397,14 +482,17 @@ def certify(
     )
 
 
-def _dual_value_and_grad(compiled, c, lo, hi, nu, device=None):
-    """g(nu) = box support + sum of pool supports, with its subgradient.
+def _dual_value_and_grad(compiled, c, lo, hi, nu, device=None, util=None):
+    """g(nu) = box (or ``util``'s conjugate) support + sum of pool supports,
+    with its subgradient.
 
     grad g = -psi*(nu) + sum_i (pool i's net-trade response at nu): the
     market's excess supply at prices nu.  g is convex and minimized where
     the market clears; any nu in the repair box gives a VALID bound, so a
     minimizer only ever tightens the certificate."""
-    n = compiled.n_assets
+    if util is not None:
+        g_val, psi_at = _util_support_grad(util, nu)
+        return _add_pool_terms(compiled, nu, g_val, -psi_at, device)
     d = c - nu
     lo_f = np.where(np.isfinite(lo), lo, 0.0)
     hi_f = np.where(np.isfinite(hi), hi, 0.0)
@@ -414,8 +502,14 @@ def _dual_value_and_grad(compiled, c, lo, hi, nu, device=None):
     val = np.maximum(take_lo, take_hi)
     psi_box = np.where(np.isfinite(val), psi_box, 0.0)
     g_val = float(np.sum(np.where(np.isfinite(val), val, 0.0)))
-    grad = -psi_box.copy()
+    return _add_pool_terms(compiled, nu, g_val, -psi_box, device)
 
+
+def _add_pool_terms(compiled, nu, g_val, grad, device):
+    """Add every pool's support bound and its Danskin gradient to
+    (g_val, grad)."""
+    n = compiled.n_assets
+    grad = np.array(grad, np.float64)
     nu_ext = np.concatenate([nu, [0.0]])
     acc = np.zeros(n + 1)
     for _, b in compiled.buckets.items():
@@ -435,7 +529,7 @@ def _dual_value_and_grad(compiled, c, lo, hi, nu, device=None):
 
 def polish_prices(
     compiled: CompiledProblem,
-    objective: Objective,
+    objective,
     nu0: np.ndarray,
     max_evals: int = 200,
     device=None,
@@ -443,22 +537,38 @@ def polish_prices(
     """Tighten the dual bound by minimizing g(nu) from ``nu0`` (L-BFGS-B).
 
     Returns whichever prices give the LOWER bound; rigor is free because
-    every repaired nu >= 0 yields a valid bound.  Linear ``Objective``s
-    only here (queue 1, item 12 in ROADMAP.md covers the utilities).
-    ``device``: where the geo-mean support search runs (the card unless
-    ``"cpu"`` is given)."""
+    every repaired nu >= 0 yields a valid bound.  Linear ``Objective``s and
+    separable ``ConcaveUtility``s (their conjugate and its Danskin gradient
+    are closed-form, :func:`_util_support_grad`).  ``device``: where the
+    geo-mean support search runs (the card unless ``"cpu"`` is given)."""
     from scipy.optimize import minimize
 
-    c, lo, hi = _linear(objective)
-    # the repair box keeps the box support finite: nu >= c where hi=inf,
-    # nu <= c where lo=-inf, nu == c where both, nu >= 0
-    lb = np.maximum(np.where(np.isfinite(hi), 0.0, c), 0.0)
-    ub = np.maximum(np.where(np.isfinite(lo), np.inf, c), lb)
-    x0 = np.clip(_repair_prices(np.asarray(host(nu0), np.float64), c, lo, hi),
-                 lb, ub)
+    util = objective if isinstance(objective, ConcaveUtility) else None
+    if util is not None:
+        # finiteness box of the separable conjugate: linear-behaving atoms
+        # anchor to c (as below); curved atoms with hi=inf need nu > 0 only
+        c = np.asarray(util.c, np.float64)
+        lo = np.asarray(util.lo, np.float64)
+        hi = np.asarray(util.hi, np.float64)
+        is_lin = (util.kind == 0) | ((util.kind == 1) & (util.a <= 0))
+        lb = np.where(is_lin & ~np.isfinite(hi), c, 0.0)
+        ub = np.where(is_lin & ~np.isfinite(lo), c, np.inf)
+        lb = np.where(~is_lin & ~np.isfinite(hi), 1e-12, lb)
+        x0 = _util_repair_prices(util, np.asarray(host(nu0), np.float64))
+    else:
+        c, lo, hi = _linear(objective)
+        # the repair box keeps the box support finite: nu >= c where
+        # hi=inf, nu <= c where lo=-inf, nu == c where both, nu >= 0
+        lb = np.where(np.isfinite(hi), 0.0, c)
+        ub = np.where(np.isfinite(lo), np.inf, c)
+        x0 = _repair_prices(np.asarray(host(nu0), np.float64), c, lo, hi)
+    lb = np.maximum(lb, 0.0)
+    ub = np.maximum(ub, lb)
+    x0 = np.clip(x0, lb, ub)
 
     def fun(x):
-        return _dual_value_and_grad(compiled, c, lo, hi, x, device=device)
+        return _dual_value_and_grad(compiled, c, lo, hi, x, device=device,
+                                    util=util)
 
     g0, _ = fun(x0)
     res = minimize(

@@ -28,8 +28,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from ..models.utility import Objective
-from .admm import RouteResult, _fused_ok, _not_ported
+from .admm import RouteResult, _fused_ok
 
 __all__ = ["ChunkRecord", "ChunkedDriver", "SolveLog"]
 
@@ -115,29 +114,31 @@ class ChunkedDriver:
                 "point) to be a multiple of 128 (pad_pools_to=128/1024)"
             )
 
-    def _run_chunk(self, z, nu, rho, c, lo, hi):
+    def _run_chunk(self, z, nu, rho, c, lo, hi, util=None):
         """``chunk`` classic iterations; residual sums of the last one."""
         sol = self.solver
         for _ in range(self.chunk - 1):
-            z, nu, _, _, _ = sol._iterate(z, nu, rho, c, lo, hi, with_stats=False)
-        z, nu, psi, _, st = sol._iterate(z, nu, rho, c, lo, hi)
+            z, nu, _, _, _ = sol._iterate(z, nu, rho, c, lo, hi, with_stats=False,
+                                          util=util)
+        z, nu, psi, _, st = sol._iterate(z, nu, rho, c, lo, hi, util=util)
         return z, nu, psi, st
 
-    def _run_chunk_fused(self, z, nu, rho, c, lo, hi):
+    def _run_chunk_fused(self, z, nu, rho, c, lo, hi, util=None):
         """``chunk - 1`` fused iterations from the fused state re-seeded at
         the chunk boundary (z = s + 0_e), then one classic iteration."""
         sol = self.solver
         s = dict(z)
         wdef = sol._zeros(sol.n)
         for _ in range(self.chunk - 1):
-            s, wdef, nu, _, _ = sol._iterate_fused(s, wdef, nu, rho, c, lo, hi)
+            s, wdef, nu, _, _ = sol._iterate_fused(s, wdef, nu, rho, c, lo, hi,
+                                                   util=util)
         z = sol.fused_to_z(s, wdef)
-        z, nu, psi, _, st = sol._iterate(z, nu, rho, c, lo, hi)
+        z, nu, psi, _, st = sol._iterate(z, nu, rho, c, lo, hi, util=util)
         return z, nu, psi, st
 
     def solve(
         self,
-        objective: Objective,
+        objective,
         max_iters: int = 20000,
         rho: Optional[float] = None,
         log: Optional[SolveLog] = None,
@@ -148,17 +149,13 @@ class ChunkedDriver:
     ):
         """Run until convergence / budget.  Returns (RouteResult, SolveLog).
 
-        Linear :class:`Objective`s only (utilities are queue 1, item 12 in
-        ROADMAP.md).  ``checkpoint_path``: write the state every
+        ``objective``: a linear :class:`Objective` or a separable
+        :class:`ConcaveUtility`.  ``checkpoint_path``: write the state every
         ``checkpoint_every`` chunks to ``checkpoint_path + ".npz"``;
         ``resume=True`` starts from that file."""
-        if not isinstance(objective, Objective):
-            raise _not_ported(
-                f"ChunkedDriver for {type(objective).__name__} objectives "
-                "(nonlinear utilities)", "queue 1, item 12")
         sol = self.solver
         opts = sol.options
-        c, lo, hi = sol._objective_arrays(objective)
+        c, lo, hi, util = sol._pack(objective)
         z = {name: (sol._zeros(*a["mask"].shape), sol._zeros(*a["mask"].shape))
              for name, a in sol.buckets.items()}
         nu = sol._zeros(sol.n)
@@ -181,13 +178,13 @@ class ChunkedDriver:
         stall_chunks = 12  # no 30% residual progress in this many chunks
         last_good_prices = None  # last finite dual, for the infeasibility cert
         while it < max_iters:
-            z, nu, psi, st = run(z, nu, rho_v, c, lo, hi)
+            z, nu, psi, st = run(z, nu, rho_v, c, lo, hi, util)
             it += self.chunk
             # one read-back per chunk: the four norms and the objective
             r_t, s_t, ep_t, ed_t = sol._residuals(sol._joint(st), sqn)
             r, s, eps_pri, eps_dua, obj = (
                 float(x) for x in torch.stack(
-                    [r_t, s_t, ep_t, ed_t, torch.sum(c * psi)]).cpu())
+                    [r_t, s_t, ep_t, ed_t, sol._objective_value(c, psi, util)]).cpu())
             rec = ChunkRecord(iteration=it, r_norm=r, s_norm=s, eps_pri=eps_pri,
                               eps_dua=eps_dua, rho=float(rho_v), objective=obj)
             log.append(rec)

@@ -38,7 +38,7 @@ from typing import Optional
 import numpy as np
 
 from .._device import host
-from ..models.utility import Objective
+from ..models.utility import ConcaveUtility, Objective
 from .admm import RouteResult
 from .compiler import CompiledProblem, PoolTable
 
@@ -110,14 +110,34 @@ def scale_table(table: PoolTable, d: np.ndarray) -> PoolTable:
 
 
 def scale_objective(objective, d: np.ndarray):
-    """Objective in scaled units: c' = c*d, box /= d."""
+    """Objective in scaled units: c' = c*d, box /= d.
+
+    ConcaveUtility atoms transform exactly (U'(psi') = U(psi) up to an
+    additive constant for log atoms): linear c*d; quadratic (c*d, a*d^2);
+    log (c, b/d); power (c*d^p, b/d).
+    """
     d = np.asarray(d, np.float64)
+    if isinstance(objective, ConcaveUtility):
+        kind = objective.kind
+        c = objective.c.copy()
+        a = objective.a.copy()
+        b = objective.b.copy()
+        p = objective.p
+        lin, quad, log_, pow_ = (kind == k for k in range(4))
+        c[lin] *= d[lin]
+        c[quad] *= d[quad]
+        a[quad] *= d[quad] ** 2
+        b[log_] /= d[log_]
+        c[pow_] *= d[pow_] ** p[pow_]
+        b[pow_] /= d[pow_]
+        return ConcaveUtility(
+            kind=kind.copy(), c=c, a=a, b=b, p=p.copy(),
+            lo=objective.lo / d, hi=objective.hi / d,
+        )
     if isinstance(objective, Objective):
         return Objective(objective.c * d, objective.lo / d, objective.hi / d)
-    raise NotImplementedError(
-        f"precondition supports Objective; {type(objective).__name__} "
-        "objectives are not ported yet (queue 1, item 12 in ROADMAP.md)"
-    )
+    raise TypeError("precondition supports Objective / ConcaveUtility, not "
+                    f"{type(objective).__name__}")
 
 
 def unscale_result(
@@ -126,7 +146,8 @@ def unscale_result(
     """Map a scaled-space RouteResult back to original units (host arrays).
 
     psi *= d; prices /= d; per-slot trades *= d[asset].  The objective
-    value is invariant (exact with power-of-two scales).  Residual norms
+    value is invariant (exact with power-of-two scales, up to the additive
+    constant of log atoms).  Residual norms
     stay in scaled space — the space the solve ran in.
     """
     d = np.asarray(d, np.float64)

@@ -69,7 +69,8 @@ def refine(
 ) -> RefineResult:
     """Polish ``result`` (typically an f32 solve) to a certified gap.
 
-    ``objective`` is the :class:`Objective` the original solve used.
+    ``objective`` is the :class:`Objective` or :class:`ConcaveUtility` the
+    original solve used.
     Returns host-side (numpy) arrays only.  ``device``: where the float64
     ADMM and the certificate's eta search run (the card unless ``"cpu"`` is
     given).  ``cpu_shards`` (sharding the polish over host cores) is not

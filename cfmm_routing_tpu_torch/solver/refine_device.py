@@ -24,8 +24,10 @@ correction solve per pass over all T points, folded on the pool axis
 or batched point by point, and one :func:`~.certify.certify_batch` per
 pass.
 
-Linear :class:`Objective`s are covered; utilities raise (queue 1, item 12
-in ROADMAP.md).
+:func:`refine_device` takes a linear :class:`Objective` or a separable
+:class:`ConcaveUtility`: every atom maps exactly under the shift and scale
+(:func:`_delta_objective`), and the re-centred consensus prox of a utility
+is ``ops/prox.py::delta_utility_prox``.  :func:`refine_sweep` is linear.
 """
 from __future__ import annotations
 
@@ -37,11 +39,11 @@ import numpy as np
 import torch
 
 from .._device import host, resolve_device
-from ..models.utility import Objective
+from ..models.utility import ConcaveUtility, Objective
 from ..ops.iteration_cuda import fused_step_delta
 from ..ops.projection_cuda import project_cs_delta_cuda, project_gm_delta_cuda
-from .admm import (AdmmOptions, AdmmSolver, RouteResult, _F32_BIG, _fused_ok,
-                   _not_ported)
+from ..ops.prox import DeltaUtility, delta_utility_prox
+from .admm import AdmmOptions, AdmmSolver, RouteResult, _F32_BIG, _fused_ok
 from .certify import certify, certify_batch, dual_bound, polish_prices
 from .compiler import CompiledProblem
 from .refine import RefineResult, to_host
@@ -50,10 +52,6 @@ __all__ = ["DeltaAdmmSolver", "refine_device", "refine_sweep",
            "SweepRefineResult"]
 
 _LOG = logging.getLogger("cfmm_routing_tpu_torch.refine_device")
-
-
-def _utilities_not_ported(what):
-    return _not_ported(f"{what} for nonlinear utilities", "queue 1, item 12")
 
 
 class DeltaAdmmSolver(AdmmSolver):
@@ -76,11 +74,15 @@ class DeltaAdmmSolver(AdmmSolver):
             arrs["aD"], arrs["aL"], arrs["mask"], cfg=cfg,
         )
 
-    def _delta_prox(self, yhat, c, nu, lo, hi):
-        """The re-centred linear prox: ``c`` carries e0 = c_true/rho - nu0
+    def _delta_prox(self, yhat, c, nu, lo, hi, rho, util=None):
+        """The re-centred prox.  Linear: ``c`` carries e0 = c_true/rho - nu0
         and ``nu`` the delta dual dnu, both small, so no O(d*|nu0|) product
         is formed:  psi = clip(yhat + 2 d (e0 - dnu)),  dmu = dnu + (psi -
-        yhat) / (2 d)."""
+        yhat) / (2 d).  A :class:`DeltaUtility` ``util`` runs
+        :func:`delta_utility_prox`, in the same small quantities."""
+        if util is not None:
+            return delta_utility_prox(nu, yhat, self.degree, util,
+                                      self._per_asset(rho))
         d_safe = torch.clamp_min(self.degree, 1.0)
         live = self.degree > 0
         psi = torch.clamp(yhat + 2.0 * d_safe * (c - nu), lo, hi)
@@ -88,12 +90,14 @@ class DeltaAdmmSolver(AdmmSolver):
         dmu = nu + (psi - yhat) / (2.0 * d_safe)
         return psi, torch.where(live, dmu, torch.zeros_like(dmu))
 
-    def _iterate(self, z, nu, rho, c, lo, hi, with_stats=True, buckets=None):
-        """Delta-dual iteration (linear objectives): ``nu`` carries the
-        DELTA dual dnu := nu_full - nu0 and ``c`` the folded constant
-        e0 := c_true/rho - nu0 (f64-computed, small).  The base dual enters
-        the projection input only through the pre-broadcast plane ``nu0e``
-        (no degree amplification)."""
+    def _iterate(self, z, nu, rho, c, lo, hi, with_stats=True, buckets=None,
+                 util=None):
+        """Delta-dual iteration: ``nu`` carries the DELTA dual
+        dnu := nu_full - nu0 and, for a linear objective, ``c`` the folded
+        constant e0 := c_true/rho - nu0 (f64-computed, small); a utility
+        carries its fold constant in the :class:`DeltaUtility` ``util``.
+        The base dual enters the projection input only through the
+        pre-broadcast plane ``nu0e`` (no degree amplification)."""
         buckets = self.buckets if buckets is None else buckets
         alpha = self._alpha
         w_hat = {}
@@ -110,7 +114,7 @@ class DeltaAdmmSolver(AdmmSolver):
             w_hat[name] = (D, L, hD, hL)
             yhat = yhat + self._reduce_edges(hL - hD, name, buckets)
 
-        psi, dmu = self._delta_prox(yhat, c, nu, lo, hi)
+        psi, dmu = self._delta_prox(yhat, c, nu, lo, hi, rho, util)
 
         z_new = {}
         w_out = {}
@@ -141,7 +145,8 @@ class DeltaAdmmSolver(AdmmSolver):
         )
         return z_new, dmu, psi, w_out, stats
 
-    def _iterate_fused(self, s, wdef, nu, rho, c, lo, hi, buckets=None):
+    def _iterate_fused(self, s, wdef, nu, rho, c, lo, hi, buckets=None,
+                       util=None):
         """Fused delta iteration: one ``fused_step_delta`` launch per bucket.
         The deferred-broadcast identity z = s +/- wdef_e is untouched by
         the re-centring (nu0e enters only the projection input, inside the
@@ -163,7 +168,7 @@ class DeltaAdmmSolver(AdmmSolver):
             w_out[name] = (A, B)
             y = y + yp
         yhat = unpack(y) - 2.0 * (1.0 - alpha) * self.degree * wdef
-        psi, mu = self._delta_prox(yhat, c, nu, lo, hi)
+        psi, mu = self._delta_prox(yhat, c, nu, lo, hi, rho, util)
         wdef_new = (1.0 - alpha) * wdef + nu - mu
         return s_new, wdef_new, mu, psi, w_out
 
@@ -239,17 +244,18 @@ class DeltaAdmmSolver(AdmmSolver):
     ) -> RouteResult:
         """One correction solve on the delta bucket arrays.
 
-        Linear objectives run the delta-dual iteration: the state dual is
-        dnu = nu - nu0 (starts at 0), ``c`` carries e0 = c/rho - nu0, and
-        the returned ``prices`` are rho*dnu (add rho*nu0 for the true
-        prices; :func:`refine_device` does).  ``warm`` chains chunks within
-        a pass (a same-space RouteResult).
+        The delta-dual iteration: the state dual is dnu = nu - nu0 (starts
+        at 0), ``c`` carries e0 = c/rho - nu0 (a utility: its
+        :class:`DeltaUtility` carries e0u), and the returned ``prices`` are
+        rho*dnu (add rho*nu0 for the true prices; :func:`refine_device`
+        does).  ``warm`` chains chunks within a pass (a same-space
+        RouteResult).
 
         ``fused=True`` runs ``max_iters`` fused delta iterations (the
         ``fused_step_delta`` kernel on the card, its plain version on the
         CPU) plus one classic residual-harvest iteration; every bucket's
         pool count must be a multiple of 128."""
-        c, lo, hi, start_nu = _prep_delta_solve(objective, nu0, rho, self)
+        c, lo, hi, util, start_nu = _prep_delta_solve(objective, nu0, rho, self)
         if warm is not None:
             z0, nu_start = self.warm_state(warm, rho)
         else:
@@ -262,9 +268,11 @@ class DeltaAdmmSolver(AdmmSolver):
                     "multiple of 128: compile with pad_pools_to=128"
                 )
             return self._solve_fused_impl(c, lo, hi, rho_t, int(max_iters),
-                                          buckets=bdict, z0=z0, nu0=nu_start)
+                                          buckets=bdict, z0=z0, nu0=nu_start,
+                                          util=util)
         return self._solve_impl(c, lo, hi, rho_t, z0, nu_start,
-                                max_iters=int(max_iters), buckets=bdict)
+                                max_iters=int(max_iters), buckets=bdict,
+                                util=util)
 
     # ---- batched correction solves: a fold with a stopping test per point --
 
@@ -313,44 +321,107 @@ def _np_dtype(dtype: torch.dtype):
 
 
 def _prep_delta_solve(objective, nu0, rho: float, solver):
-    """(c, lo, hi, start_nu) for one correction solve of a linear objective:
-    c = e0 = c/rho - nu0 (f64, then the working dtype), the box clipped to
-    the f32 range, and the delta dual starting at 0."""
-    if not isinstance(objective, Objective):
-        raise _utilities_not_ported("correction solves")
+    """(c, lo, hi, util, start_nu) for one correction solve; the delta dual
+    starts at 0.
+
+    Linear: c = e0 = c/rho - nu0 (f64, then the working dtype), the box
+    clipped to the f32 range, util None.  A (delta-space) ConcaveUtility:
+    util is its :class:`DeltaUtility`, whose fold constant
+    e0u = U'_delta(0) - rho*nu0 and A = U'_delta(0) are computed in f64
+    (linear/quad c, log c/b, power c*b^{p-1}); c is 0."""
     nu0 = np.asarray(nu0, np.float64)
+    if isinstance(objective, ConcaveUtility):
+        pack = objective.pack(solver.dtype, solver.device)
+        k = np.asarray(objective.kind)
+        c64 = np.asarray(objective.c, np.float64)
+        b64 = np.maximum(np.asarray(objective.b, np.float64), 1e-300)
+        p64 = np.asarray(objective.p, np.float64)
+        up0 = np.where(k == 2, c64 / b64,
+                       np.where(k == 3, c64 * b64 ** (np.clip(p64, 0.01, 0.99) - 1.0),
+                                c64))
+        util = DeltaUtility(*pack[:7], e0u=solver._t(up0 - float(rho) * nu0),
+                            A=solver._t(up0), has_power=pack.has_power)
+        return torch.zeros_like(pack.c), pack.lo, pack.hi, util, np.zeros_like(nu0)
     e0 = np.asarray(objective.c, np.float64) / float(rho) - nu0
     lo = solver._t(np.maximum(objective.lo, -_F32_BIG))
     hi = solver._t(np.minimum(objective.hi, _F32_BIG))
-    return solver._t(e0), lo, hi, np.zeros_like(nu0)
+    return solver._t(e0), lo, hi, None, np.zeros_like(nu0)
+
+
+def _check_objective(objective):
+    if not isinstance(objective, (Objective, ConcaveUtility)):
+        raise TypeError("refine_device supports Objective / ConcaveUtility, not "
+                        f"{type(objective).__name__}")
 
 
 def _curvature_scale(objective, psi0: np.ndarray) -> float:
     """max_j |U''_j(psi0_j)| of the objective: 0 for a linear one.  The
     delta objective's curvature is eps times this, which sets the
     eps-regime penalty of :func:`refine_device`."""
-    if not isinstance(objective, Objective):
-        raise _utilities_not_ported("refinement")
-    return 0.0
+    _check_objective(objective)
+    if not isinstance(objective, ConcaveUtility):
+        return 0.0
+    k = np.asarray(objective.kind)
+    c = np.asarray(objective.c, np.float64)
+    a = np.asarray(objective.a, np.float64)
+    b = np.asarray(objective.b, np.float64)
+    p = np.clip(np.asarray(objective.p, np.float64), 0.01, 0.99)
+    y = np.maximum(b + np.asarray(psi0, np.float64), 1e-12)
+    curv = np.where(
+        k == 1, a,
+        np.where(k == 2, c / (y * y),
+                 np.where(k == 3, np.abs(c * (1.0 - p)) * y ** (p - 2.0), 0.0)),
+    )
+    return float(np.max(curv, initial=0.0))
 
 
 def _delta_precise(objective) -> bool:
     """Whether the re-centred (delta-dual) iteration covers the objective:
-    every linear one does."""
-    if not isinstance(objective, Objective):
-        raise _utilities_not_ported("refinement")
+    every linear one and every separable atom (linear, quad and log in
+    closed form, power through the expm1/log1p stationary solve of
+    ``delta_utility_prox``)."""
+    _check_objective(objective)
     return True
 
 
 def _delta_objective(objective, psi0: np.ndarray, eps: float):
-    """The correction problem's objective U(psi0 + eps d)/eps.  The 1/eps
-    scaling keeps the correction's dual prices on the original price scale,
-    so the base dual warm-starts it and the refined prices feed the
-    certificate unchanged.  Linear: c d on the shifted, scaled box."""
-    if not isinstance(objective, Objective):
-        raise _utilities_not_ported("refinement")
-    return Objective(objective.c, (objective.lo - psi0) / eps,
-                     (objective.hi - psi0) / eps)
+    """The correction problem's objective  U_delta(d) = U(psi0 + eps d)/eps.
+
+    The 1/eps scaling keeps the correction's dual prices on the original
+    price scale (d/dd [U/eps] = U'(psi0 + eps d)), so the base dual
+    warm-starts it and the refined prices feed the certificate unchanged.
+    Every atom maps exactly:
+
+        linear   c psi                 ->  linear   c d            (+const)
+        quad     c psi - a/2 psi^2     ->  quad     (c - a psi0) d - (a eps)/2 d^2
+        log      c log(b + psi)        ->  log      (c/eps) log((b+psi0)/eps + d)
+        power    (c/p)(b + psi)^p      ->  power    (c eps^{p-1}/p)((b+psi0)/eps + d)^p
+    """
+    _check_objective(objective)
+    lo = (objective.lo - psi0) / eps
+    hi = (objective.hi - psi0) / eps
+    if not isinstance(objective, ConcaveUtility):
+        return Objective(objective.c, lo, hi)
+    kind = objective.kind
+    c = objective.c.copy()
+    a = objective.a.copy()
+    b = objective.b.copy()
+    p = objective.p
+    quad, log_, pow_ = (kind == k for k in (1, 2, 3))
+    c[quad] = c[quad] - a[quad] * psi0[quad]
+    a[quad] = a[quad] * eps
+    c[log_] = c[log_] / eps
+    b[log_] = (b[log_] + psi0[log_]) / eps
+    c[pow_] = c[pow_] * eps ** (p[pow_] - 1.0)
+    b[pow_] = (b[pow_] + psi0[pow_]) / eps
+    return ConcaveUtility(kind=kind.copy(), c=c, a=a, b=b, p=p.copy(), lo=lo, hi=hi)
+
+
+def _objective_value(objective, psi: np.ndarray) -> float:
+    """The objective at psi in float64 on the host."""
+    if isinstance(objective, ConcaveUtility):
+        return objective.value(psi)
+    return float(np.asarray(objective.c, np.float64) @ psi)
 
 
 def _compose(compiled, base, delta: RouteResult, eps: float, objective,
@@ -373,7 +444,7 @@ def _compose(compiled, base, delta: RouteResult, eps: float, objective,
     if prices is None:
         prices = np.asarray(delta.prices, np.float64)
     return composed._replace(
-        objective=np.float64(np.asarray(objective.c, np.float64) @ psi),
+        objective=np.float64(_objective_value(objective, psi)),
         psi=psi,
         prices=prices,
         iters=np.asarray(base.iters) + np.asarray(delta.iters),
@@ -709,7 +780,8 @@ def refine_device(
 ) -> RefineResult:
     """Polish an f32 solve to a certified gap with f32 correction solves on
     the device (see the module docstring); the certificate stays a rigorous
-    f64 pass.  Returns host-side numpy arrays only.
+    f64 pass.  ``objective``: an :class:`Objective` or a
+    :class:`ConcaveUtility`.  Returns host-side numpy arrays only.
 
     ``solver``: a pre-built :class:`DeltaAdmmSolver` (with
     ``adapt_rho=False``) to reuse across calls.  ``device``: where the
@@ -727,8 +799,7 @@ def refine_device(
 
     ``entry_cert``: a certificate of ``result`` the caller already has, in
     cert_space units (skips the entry certificate)."""
-    if not isinstance(objective, Objective):
-        raise _utilities_not_ported("refine_device")
+    _check_objective(objective)
     dev = solver.device if solver is not None else resolve_device(device)
     base_opts = options if options is not None else AdmmOptions()
     cur = to_host(result)
@@ -873,7 +944,7 @@ def refine_device(
                 prices_solve = rho * nu0f + prices_solve
             dualb = dual_bound(compiled, objective, prices_solve, evals=(8, 4),
                                device=dev)
-            obj_cand = float(np.asarray(objective.c, np.float64) @ psi_cand)
+            obj_cand = _objective_value(objective, psi_cand)
             gap_est = (dualb - obj_cand) / max(1.0, abs(obj_cand), abs(dualb))
             lo_o = np.asarray(objective.lo, np.float64)
             hi_o = np.asarray(objective.hi, np.float64)

@@ -71,6 +71,29 @@ Phases (any failure raises and the script exits nonzero):
    d. The reference's 51-point frontier: ``api.sweep(two-asset, 0, 2,
       linspace(0, 50, 51), refine_to=1e-6)`` in float32: every point
       certified at 1e-6, u(25) = 31.005495 to 2e-6.
+7. The merged K-group kernel and separable concave utilities (counts reset
+   before each main-path run and read after it; no plain version may run).
+   a. ``fused_step_merged`` against its plain version at the two merged
+      groups of the 100k network (K=2: cs2f + gm2 + gm2f, K=4: cs4f + gm4),
+      from a mid-solve state, in float32 at (24, 4) and float64 at (48, 6):
+      bitwise equal, and two launches bitwise equal.  Device times of the
+      two merged launches (with their segment sums) against the five
+      unmerged ``fused_step`` launches, from CUDA graphs.
+   b. Path 1: ``solve_fused(iters=499, merged=True)`` on the phase-4
+      network, exactly 2 x 499 merged launches, against ``merged=False`` in
+      the same run (objective to 1e-4 relative, psi to 1e-3 of max|psi|;
+      they add the consensus terms in different orders), a second merged
+      run bitwise equal; it/s and the card's idle share of both; then the
+      same with a ConcaveUtility (the phase-4 objective's linear atoms, log
+      atoms on assets 1 and 3), with its certificate in original units.
+   c. Path 2: the 100k utility route, classic float32 base (phase 5's
+      options) -> ``refine_device(target_gap=1e-6, fused=True)`` with the
+      certificate in original units, and ``api.route(table, utility,
+      precondition=True, refine_to=1e-6)``: both certified at 1e-6.
+   d. The three ``tests/test_utilities.py`` flavours (log, power, quad on
+      ``random_arbitrage(5, 8, seed=11)``, boxed) through
+      ``api.route(certify=True)`` in float64, 300 iterations, on the card and
+      on the CPU: equal to 1e-9.
 
 It prints one JSON line describing every kernel of the path (device times
 from CUDA events around CUDA-graph replays of back-to-back calls, summed
@@ -78,7 +101,8 @@ over the buckets one iteration runs; the plain fused steps and the plain
 segment sum, which read a size back to the host, from eager calls; the
 fused steps' times include their segment-sum launch; the fold kernels'
 times are summed over the 6b buckets; bounds from this run's shapes;
-launches summed over the main-path runs of phases 4, 5 and 6b-6d), the card's name and power limit as ``nvidia-smi``
+launches summed over the main-path runs of phases 4, 5, 6b-6d and 7b-7d),
+the card's name and power limit as ``nvidia-smi``
 reports them, and last ``{"ok": true, "device": {"platform": "gpu",
 "kind": ..., "count": ...}}``.
 """
@@ -125,6 +149,9 @@ SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
                         "cfmm_routing_tpu/ops/iteration_pallas.py:260 (fold=)"),
     "fused_step_delta_fold": ("cfmm_routing_tpu_torch/csrc/fused_step_delta.cu",
                               "cfmm_routing_tpu/ops/iteration_pallas.py:602 (fold=)"),
+    # one launch per channel count (phase 7)
+    "fused_step_merged": ("cfmm_routing_tpu_torch/csrc/fused_step.cu",
+                          "cfmm_routing_tpu/ops/iteration_pallas.py:837"),
 }
 F32_BIG = float(np.finfo(np.float32).max) / 4
 
@@ -260,6 +287,7 @@ def count_plain_calls(counter):
 
     targets = [(iteration_cuda, "fused_step_plain"),
                (iteration_cuda, "fused_step_delta_plain"),
+               (iteration_cuda, "fused_step_merged_plain"),
                (projection_cuda, "project_gm"), (projection_cuda, "project_cs"),
                (projection_cuda, "project_gm_delta"),
                (projection_cuda, "project_cs_delta"),
@@ -563,6 +591,286 @@ def sweep_phase(report, rows, card, cfg_main, cfg64):
     log(f"# phase 6 (sweeps and batches) done in {time.perf_counter() - t_phase:.1f} s on {card}")
     return [launches6b, launches6c, launches6d]
 
+def merged_utility_phase(report, rows, card, cfg_main, cfg64, counting_solver, refine_opts):
+    """Phase 7, the merged K-group kernel and separable concave utilities
+    (module docstring).  Appends the ``fused_step_merged`` rows to ``rows``
+    and returns the launch counts of its main-path runs (7b, 7c, 7d)."""
+    from cfmm_routing_tpu_torch import api
+    from cfmm_routing_tpu_torch.models.utility import ConcaveUtility
+    from cfmm_routing_tpu_torch.ops import _build
+    from cfmm_routing_tpu_torch.ops.iteration_cuda import (
+        fused_step, fused_step_merged, fused_step_merged_plain,
+    )
+    from cfmm_routing_tpu_torch.solver.admm import AdmmOptions, AdmmSolver
+    from cfmm_routing_tpu_torch.solver.certify import certify
+    from cfmm_routing_tpu_torch.solver.compiler import compile_spec, compile_table
+    from cfmm_routing_tpu_torch.solver.precondition import equilibrate, unscale_result
+    from cfmm_routing_tpu_torch.solver.refine import to_host
+    from cfmm_routing_tpu_torch.solver.refine_device import refine_device
+    from cfmm_routing_tpu_torch.utils.synth import random_arbitrage, random_arbitrage_table
+
+    out = {}
+    t_phase = time.perf_counter()
+    table, obj = random_arbitrage_table(256, 100_000, seed=7)
+    eq = equilibrate(table, obj)
+    compiled = compile_table(eq.table, pad_pools_to=1024)
+    cert_compiled = compile_table(table, pad_pools_to=1024)
+    opts = AdmmOptions(max_iters=500, eps_abs=0.0, eps_rel=0.0, adapt_rho=False,
+                       projection=cfg_main)
+    solver = AdmmSolver(compiled, dtype=torch.float32, options=opts)
+    groups = solver._merged_groups()
+    gshapes = {g["K"]: (g["names"], int(g["arrs"]["mask"].shape[1]),
+                        int(g["arrs"]["order"].numel())) for g in groups}
+    log(f"# 7: merged K-groups of the 100k network (K: buckets, pools, real slots): {gshapes}")
+    if [(g["K"], g["names"]) for g in groups] != [(2, ["cs2f", "gm2", "gm2f"]),
+                                                  (4, ["cs4f", "gm4"])]:
+        raise AssertionError(f"unexpected merged groups {gshapes}")
+
+    # ---- 7a. fused_step_merged vs its plain version at the two group shapes
+    c, lo, hi, _ = solver._pack(eq.objective)
+    rho = solver._t(1.0)
+    s, wdef, nu = solver.fused_init()
+    sm = solver._merge_state(s, groups)
+    for _ in range(20):  # a mid-solve state, on the kernels
+        sm, wdef, nu, _, _ = solver._iterate_fused_merged(sm, wdef, nu, rho, c, lo, hi, groups)
+    v, _ = solver._fold_pack(wdef - nu)
+    n_pad = v.shape[0]
+    groups64 = AdmmSolver(compiled, dtype=torch.float64)._merged_groups()
+    for g, g64, (sD, sL) in zip(groups, groups64, sm):
+        K, m = g["arrs"]["mask"].shape
+        kfn = lambda: fused_step_merged(sD, sL, v, g["arrs"], 1.0, cfg=cfg_main)  # noqa: E731
+        pfn = lambda: fused_step_merged_plain(sD, sL, v, g["arrs"], 1.0, cfg=cfg_main)  # noqa: E731
+        got, again, want = kfn(), kfn(), pfn()
+        torch.cuda.synchronize()
+        bitwise(f"fused_step_merged[K={K}, float32]", got, want)
+        bitwise(f"fused_step_merged[K={K}, float32] second launch", again, got)
+        a64 = g64["arrs"]
+        got = fused_step_merged(sD.double(), sL.double(), v.double(), a64, 1.0, cfg=cfg64)
+        again = fused_step_merged(sD.double(), sL.double(), v.double(), a64, 1.0, cfg=cfg64)
+        want = fused_step_merged_plain(sD.double(), sL.double(), v.double(), a64, 1.0,
+                                       cfg=cfg64)
+        torch.cuda.synchronize()
+        bitwise(f"fused_step_merged[K={K}, float64]", got, want)
+        bitwise(f"fused_step_merged[K={K}, float64] second launch", again, got)
+        row = dict(group=K, buckets=g["names"], dtype="float32", K=K, m=m, cfg=list(cfg_main),
+                   max_abs_err=0.0, ms=graph_ms(kfn), plain_ms=eager_ms(pfn))
+        # the fused step's bytes and operations (row 3's count) on the group
+        fbytes = 4 * (11 * K * m + 3 * m + n_pad) + 4 * K * m
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            fbytes, projection_flops(cfg_main, K, m), torch.float32)
+        rows["fused_step_merged"].append(row)
+        log(f"# 7a fused_step_merged K={K} {g['names']} m={m}: bitwise equal to plain in "
+            f"float32 (24, 4) and float64 (48, 6), and two launches bitwise equal; kernel "
+            f"{row['ms']:.4f} ms (incl. segment sum)  plain {row['plain_ms']:.2f} ms  "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        del got, again, want
+    del groups64
+    s = solver._split_state(sm, groups)
+    unmerged_ms = 0.0
+    for name, arrs in solver.buckets.items():
+        kind, floor = solver._meta[name]
+        sD, sL = s[name]
+        unmerged_ms += graph_ms(
+            lambda: fused_step(sD, sL, v, arrs, kind, floor, 1.0, cfg=cfg_main))
+    merged_ms = sum(r["ms"] for r in rows["fused_step_merged"])
+    st_m = (solver._merge_state(s, groups), wdef, nu)
+    it_merged = graph_ms(lambda: solver._iterate_fused_merged(*st_m, rho, c, lo, hi, groups),
+                         n=10, reps=5)
+    it_unmerged = graph_ms(lambda: solver._iterate_fused(s, wdef, nu, rho, c, lo, hi),
+                           n=10, reps=5)
+    log(f"# 7a device ms per iteration (CUDA graphs): merged 2 launches + 2 segment sums "
+        f"{merged_ms:.4f} ms vs unmerged 5 + 5 {unmerged_ms:.4f} ms; whole fused iteration "
+        f"merged {it_merged:.4f} ms vs unmerged {it_unmerged:.4f} ms")
+    out["kernel"] = dict(merged_ms=merged_ms, unmerged_ms=unmerged_ms,
+                         iteration_merged_ms=it_merged, iteration_unmerged_ms=it_unmerged)
+    del sm, s, st_m
+
+    # ---- 7b. path 1: solve_fused(merged=True), linear then a utility -----
+    util = ConcaveUtility.linear(obj.c, lo=obj.lo, hi=obj.hi)
+    util = util.with_log(1, c=1.0, b=2.0).with_log(3, c=0.5, b=1.0)
+    eq_u = equilibrate(table, util)
+    compiled_u = compile_table(eq_u.table, pad_pools_to=1024)
+    solver_u = AdmmSolver(compiled_u, dtype=torch.float32, options=opts)
+    launches = []
+    path1 = {}
+    for label, slv, objective, eqx, cobj in (
+            ("linear", solver, eq.objective, eq, obj),
+            ("utility", solver_u, eq_u.objective, eq_u, util)):
+        _build.reset_launch_counts()
+        plain7 = {}
+        with count_plain_calls(plain7):
+            t0 = time.perf_counter()
+            res_m = slv.solve_fused(objective, iters=499, merged=True)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+        counts = dict(_build.LAUNCHES)
+        launches.append(counts)
+        if counts["fused_step_merged"] != 2 * 499 or counts["fused_step"] != 0 or plain7:
+            raise AssertionError(f"7b {label}: launches {counts}, plain versions {plain7}")
+        secs = {True: [], False: []}
+        for merged in (False, True, False):  # in turns with the counted run
+            start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            res = slv.solve_fused(objective, iters=499, merged=merged)
+            stop.record()
+            stop.synchronize()
+            secs[merged].append(start.elapsed_time(stop) / 1e3)
+            if merged and not all(torch.equal(x, y) for x, y in (
+                    (res.psi, res_m.psi), (res.prices, res_m.prices),
+                    (res.objective, res_m.objective))):
+                raise AssertionError(f"7b {label}: a second merged run is not bitwise equal")
+            if not merged:
+                res_u = res
+        obj_m, obj_u = float(res_m.objective), float(res_u.objective)
+        rel = abs(obj_m - obj_u) / max(1.0, abs(obj_u))
+        scale = max(1.0, float(res_u.psi.abs().max()))
+        dpsi = float((res_m.psi - res_u.psi).abs().max()) / scale
+        st = slv.fused_init()
+        c_, lo_, hi_, u_ = slv._pack(objective)
+        gr = slv._merged_groups()
+        st_m = (slv._merge_state(st[0], gr), st[1], st[2])
+        dev_m = graph_ms(lambda: slv._iterate_fused_merged(*st_m, rho, c_, lo_, hi_, gr,
+                                                           util=u_), n=10, reps=5)
+        dev_u = graph_ms(lambda: slv._iterate_fused(*st, rho, c_, lo_, hi_, util=u_),
+                         n=10, reps=5)
+        wall_m = min(secs[True]) / 500
+        wall_u = min(secs[False]) / 500
+        r0 = unscale_result(res_m, eqx.d, slv.compiled)
+        cert = certify(cert_compiled, cobj, r0.deltas, r0.lambdas, r0.prices,
+                       psi_claimed=r0.psi)
+        log(f"# 7b {label}: merged vs unmerged objective {obj_m:.6f} vs {obj_u:.6f} (rel "
+            f"{rel:.2e}), max|psi diff|/max|psi| {dpsi:.2e} (bars 1e-4 / 1e-3); launches "
+            f"{counts}")
+        log(f"# 7b {label}: 500 iterations merged {secs[True]} s -> "
+            f"{500 / min(secs[True]):.1f} it/s, unmerged {secs[False]} s -> "
+            f"{500 / min(secs[False]):.1f} it/s (host clock, first counted run "
+            f"{first_s:.3f} s); device ms per iteration merged {dev_m:.4f} / unmerged "
+            f"{dev_u:.4f}: the card idles {100 * (1 - 1e-3 * dev_m / wall_m):.1f}% / "
+            f"{100 * (1 - 1e-3 * dev_u / wall_u):.1f}%")
+        log(f"# 7b {label}: certificate of the merged route in original units {cert.summary()} "
+            f"feasibility_rel {cert.feasibility_rel:.3e}")
+        if not (rel <= 1e-4 and dpsi <= 1e-3):
+            raise AssertionError(f"7b {label}: merged and unmerged disagree: {rel:.2e} {dpsi:.2e}")
+        if not all(math.isfinite(x) for x in (cert.objective, cert.dual_bound, cert.gap_rel)):
+            raise AssertionError(f"7b {label}: certificate not finite: {cert.summary()}")
+        path1[label] = dict(
+            objective_merged=obj_m, objective_unmerged=obj_u, rel=rel, psi_rel=dpsi,
+            merged_s=secs[True], unmerged_s=secs[False], first_s=first_s,
+            merged_it_s=500 / min(secs[True]), unmerged_it_s=500 / min(secs[False]),
+            device_ms_merged=dev_m, device_ms_unmerged=dev_u,
+            idle_merged=1 - 1e-3 * dev_m / wall_m, idle_unmerged=1 - 1e-3 * dev_u / wall_u,
+            launches=counts, gap_rel=cert.gap_rel, feasibility_rel=cert.feasibility_rel)
+        del res, res_m, res_u
+    out["path1"] = path1
+    del solver
+
+    # ---- 7c. path 2: the certified 100k utility route ----------------------
+    base_opts = AdmmOptions(max_iters=3000, eps_abs=1e-7, eps_rel=1e-7, check_every=25,
+                            projection=cfg_main)
+
+    def unscale(r):
+        return unscale_result(r, eq_u.d, compiled_u)
+
+    _build.reset_launch_counts()
+    plain7 = {}
+    with count_plain_calls(plain7):
+        t_base0 = time.perf_counter()
+        base_solver = AdmmSolver(compiled_u, dtype=torch.float32, options=base_opts)
+        res = base_solver.solve(eq_u.objective)
+        torch.cuda.synchronize()
+        base_s = time.perf_counter() - t_base0
+        r0 = unscale(to_host(res))
+        entry = certify(cert_compiled, util, r0.deltas, r0.lambdas, r0.prices,
+                        psi_claimed=r0.psi)
+        dsolver = counting_solver(compiled_u, options=refine_opts)
+        t0 = time.perf_counter()
+        rout = refine_device(compiled_u, eq_u.objective, res, target_gap=1e-6, fused=True,
+                             cert_space=(cert_compiled, util, unscale), entry_cert=entry,
+                             solver=dsolver)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+    counts = dict(_build.LAUNCHES)
+    launches.append(counts)
+    fc = rout.certificate
+    fused_iters = rout.iters - dsolver.chunks
+    log(f"# 7c refine_device(fused=True), utility: base {int(res.iters)} classic iterations "
+        f"in {base_s:.3f} s (entry {entry.summary()}); refinement {rout.iters} iterations "
+        f"({dsolver.chunks} chunks, {fused_iters} fused) in {t_end - t0:.3f} s; "
+        f"{t_end - t_base0:.3f} s from the base solve's start; final gap_rel "
+        f"{fc.gap_rel:.3e} feasibility_rel {fc.feasibility_rel:.3e}; launches {counts}")
+    if (plain7 or counts["fused_step_delta"] == 0
+            or counts["fused_step_delta"] != len(compiled_u.buckets) * fused_iters):
+        raise AssertionError(f"7c: launches {counts}, plain versions {plain7}")
+    if not (rout.achieved and abs(fc.gap_rel) <= 1e-6 and fc.feasibility_rel <= 1e-6):
+        raise AssertionError(f"7c: the utility route did not certify at 1e-6: {fc.summary()}")
+    route_c = dict(base_iters=int(res.iters), base_s=base_s, refine_iters=int(rout.iters),
+                   chunks=dsolver.chunks, fused_iters=fused_iters, refine_s=t_end - t0,
+                   wall_s=t_end - t_base0, gap_rel=fc.gap_rel,
+                   feasibility_rel=fc.feasibility_rel, objective=fc.objective,
+                   launches=counts)
+    del base_solver, dsolver, res, rout
+    _build.reset_launch_counts()
+    plain7 = {}
+    with count_plain_calls(plain7):
+        t0 = time.perf_counter()
+        route = api.route(table, util, precondition=True, refine_to=1e-6, options=base_opts)
+        api_s = time.perf_counter() - t0
+    counts = dict(_build.LAUNCHES)
+    launches.append(counts)
+    ac = route.certificate
+    log(f"# 7c api.route(table, utility, precondition=True, refine_to=1e-6): {api_s:.3f} s "
+        f"(set-up included), {route.iters} iterations, certified {route.converged}: gap_rel "
+        f"{ac.gap_rel:.3e} feasibility_rel {ac.feasibility_rel:.3e}, objective "
+        f"{route.objective:.6f} (refine_device: {fc.objective:.6f}); launches {counts}")
+    if plain7 or not (route.converged and abs(ac.gap_rel) <= 1e-6
+                      and ac.feasibility_rel <= 1e-6):
+        raise AssertionError(f"7c api: {ac.summary()} plain versions {plain7}")
+    missing = [k for k in ("project_gm", "project_cs", "segment_sum") if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"7c api: kernels never launched: {missing}")
+    out["path2"] = dict(refine_device=route_c, api=dict(
+        seconds=api_s, iters=route.iters, gap_rel=ac.gap_rel,
+        feasibility_rel=ac.feasibility_rel, objective=route.objective, launches=counts))
+
+    # ---- 7d. the three test_utilities flavours, float64, card vs CPU -------
+    spec, lin = random_arbitrage(5, 8, seed=11)
+    n = spec.n_assets
+    fixed = AdmmOptions(max_iters=300, eps_abs=0.0, eps_rel=0.0, check_every=25)
+    flav = {}
+    _build.reset_launch_counts()
+    for flavour in ("log", "power", "quad"):
+        u = ConcaveUtility.linear(lin.c, lo=np.zeros(n))
+        for j in range(n):
+            if flavour == "log":
+                u = u.with_log(j, 1.0 + 0.2 * j, 1.0)
+            elif flavour == "power":
+                u = u.with_power(j, 1.0 + 0.1 * j, 0.5, 1.0)
+            else:
+                u = u.with_quadratic(j, 1.0 + 0.3 * j, 0.5)
+            u = u.with_box(j, 0.0, 50.0)
+        got, want = (api.route(spec, u, certify=True, dtype=torch.float64, options=fixed,
+                               device=dev) for dev in (None, "cpu"))
+        pairs = [(got.objective, want.objective), (got.certificate.dual_bound,
+                                                   want.certificate.dual_bound),
+                 (got.certificate.gap_rel, want.certificate.gap_rel)]
+        pairs += list(zip(got.psi, want.psi)) + list(zip(got.prices, want.prices))
+        worst = max(abs(a - b) / max(1.0, abs(b)) for a, b in pairs)
+        log(f"# 7d {flavour}: card {got.objective:.12f} vs CPU {want.objective:.12f}; worst "
+            f"difference (objective, dual bound, gap, psi, prices) {worst:.2e} (bar 1e-9); "
+            f"gap_rel {got.certificate.gap_rel:.3e}")
+        if not worst <= 1e-9:
+            raise AssertionError(f"7d {flavour}: card and CPU differ by {worst:.2e}")
+        flav[flavour] = dict(card=got.objective, cpu=want.objective, worst=worst,
+                             gap_rel=got.certificate.gap_rel)
+    launches.append(dict(_build.LAUNCHES))
+    if launches[-1]["project_gm"] == 0 or launches[-1]["segment_sum"] == 0:
+        raise AssertionError(f"7d: the card runs launched no kernel: {launches[-1]}")
+    out["flavours"] = flav
+    report["merged_utility"] = out
+    log(f"# phase 7 (merged kernel and utilities) done in {time.perf_counter() - t_phase:.1f} s "
+        f"on {card}")
+    return launches
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -773,7 +1081,7 @@ def main(argv=None):
         bdict, min_x0 = ds.delta_buckets(base, eps, nu0=nu0f)
         if not min_x0 > 0:
             raise AssertionError(f"100k base point has min x0 = {min_x0}")
-        dc, dlo, dhi, start = _prep_delta_solve(dobj, nu0f, rho_d, ds)
+        dc, dlo, dhi, _, start = _prep_delta_solve(dobj, nu0f, rho_d, ds)
         rho_t = ds._t(rho_d)
         st, wd, dnu = ds.fused_init(bdict)
         dnu = ds._t(start)
@@ -1187,7 +1495,12 @@ def main(argv=None):
 
     # ---- 6. sweeps and batches ------------------------------------------------
     phase6 = sweep_phase(report, rows, card=smi, cfg_main=cfg_main, cfg64=cfg64)
-    main_launches = [launches4, launches5] + phase6
+
+    # ---- 7. the merged K-group kernel and concave utilities -------------------
+    phase7 = merged_utility_phase(report, rows, card=smi, cfg_main=cfg_main, cfg64=cfg64,
+                                  counting_solver=CountingDeltaSolver,
+                                  refine_opts=refine_opts)
+    main_launches = [launches4, launches5] + phase6 + phase7
 
     # ---- report -------------------------------------------------------------
     kernels = []

@@ -155,7 +155,7 @@ def test_solve_fused_rejects_unaligned_and_unported_options():
                         device="cpu")
     with pytest.raises(ValueError, match="pad_pools_to=128"):
         solver.solve_fused(obj, iters=3)
-    with pytest.raises(NotImplementedError, match="queue 2, item 5"):
+    with pytest.raises(ValueError, match="pad_pools_to=128"):
         solver.solve_fused(obj, iters=3, merged=True)
     folded = AdmmSolver(fold_compiled(compile_table(table, pad_pools_to=64), 2),
                         options=AdmmOptions(max_iters=5), device="cpu",

@@ -11,18 +11,21 @@ Tolerances are the port's parity bars: atol 5e-5 (float32) and 1e-10
 delta), 2e-4 for a 20-step fused trajectory; y also gets rtol 1e-5.  The
 fused steps' y is the same fixed-order segment sum in the kernel path and
 the plain version, so with equal planes it is equal too.  The scenario-fold
-variants (``fold=``) must equal their plain versions bit for bit, and a
-folded solve run twice must give bitwise-equal results.
+variants (``fold=``) and the merged K-group step (``fused_step_merged``)
+must equal their plain versions bit for bit, and a folded or merged solve
+run twice must give bitwise-equal results.
 """
 import numpy as np
 import pytest
 import torch
 
 from cfmm_routing_tpu_torch.models.reference_instances import arbitrage_instance
+from cfmm_routing_tpu_torch.models.utility import ConcaveUtility
 from cfmm_routing_tpu_torch.ops import _build
 from cfmm_routing_tpu_torch.ops import projection as plain
 from cfmm_routing_tpu_torch.ops.iteration_cuda import (
-    fused_step, fused_step_delta, fused_step_delta_plain, fused_step_plain,
+    fused_step, fused_step_delta, fused_step_delta_plain, fused_step_merged,
+    fused_step_merged_plain, fused_step_plain,
 )
 from cfmm_routing_tpu_torch.ops.projection_cuda import (
     project_cs_cuda, project_cs_delta_cuda, project_gm_cuda, project_gm_delta_cuda,
@@ -350,3 +353,47 @@ def test_folded_solves_twice_are_bitwise_equal(cuda_device):
         for name in compiled.buckets:
             assert np.array_equal(a.deltas[name], b.deltas[name])
             assert np.array_equal(a.lambdas[name], b.lambdas[name])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_merged_kernel_matches_plain_bitwise(cuda_device, dtype):
+    """One launch per K-group (K=2: cs2f+gm2+gm2f, K=4: cs4f+gm4), bitwise
+    equal to the plain version, and twice the same."""
+    table, _ = random_arbitrage_table(16, 300, seed=4, reserve_scale=1.0)
+    solver, s, v = _state(compile_table(table, pad_pools_to=1024), dtype,
+                          cuda_device, seed=3)
+    groups = solver._merged_groups()
+    assert [g["K"] for g in groups] == [2, 4]
+    sm = solver._merge_state(s, groups)
+    _build.reset_launch_counts()
+    for g, (sD, sL) in zip(groups, sm):
+        got = fused_step_merged(sD, sL, v, g["arrs"], 1.5, cfg=CFG)
+        again = fused_step_merged(sD, sL, v, g["arrs"], 1.5, cfg=CFG)
+        want = fused_step_merged_plain(sD, sL, v, g["arrs"], 1.5, cfg=CFG)
+        for x, y, z in zip(got, again, want):
+            assert torch.equal(x, y) and torch.equal(x, z), g["names"]
+    assert _build.LAUNCHES["fused_step_merged"] == 2 * len(groups)
+    assert _build.LAUNCHES["fused_step"] == 0
+
+
+def test_merged_solve_matches_unmerged_on_card(cuda_device):
+    """solve_fused(merged=True) on the card: 2 launches per iteration, the
+    unmerged solve's result to float32 rounding (the consensus terms are
+    added in another order), bitwise equal to itself; also with a concave
+    utility."""
+    table, obj = random_arbitrage_table(16, 300, seed=4, reserve_scale=1.0)
+    compiled = compile_table(table, pad_pools_to=1024)
+    solver = AdmmSolver(compiled, device=cuda_device, options=AdmmOptions(
+        max_iters=21, eps_abs=0.0, eps_rel=0.0, adapt_rho=False))
+    util = ConcaveUtility.linear(obj.c, lo=obj.lo, hi=obj.hi).with_log(1, c=1.0, b=2.0)
+    for objective in (obj, util):
+        _build.reset_launch_counts()
+        a = solver.solve_fused(objective, iters=20, merged=True)
+        assert _build.LAUNCHES["fused_step_merged"] == 40
+        assert _build.LAUNCHES["fused_step"] == 0
+        b = solver.solve_fused(objective, iters=20, merged=True)
+        c = solver.solve_fused(objective, iters=20)
+        assert torch.equal(a.psi, b.psi) and torch.equal(a.prices, b.prices)
+        np.testing.assert_allclose(a.psi.cpu().numpy(), c.psi.cpu().numpy(),
+                                   atol=2e-4, rtol=0)
+        np.testing.assert_allclose(float(a.objective), float(c.objective), rtol=1e-5)

@@ -10,7 +10,10 @@
   bounds agree to 1e-9 relative.
 * ``refine`` (the float64 fallback) certifies the arbitrage instance at 1e-6.
 * The entry points left out of the port so far raise
-  ``NotImplementedError`` naming their ROADMAP.md queue item.
+  ``NotImplementedError`` naming their ROADMAP.md queue item
+  (``CustomUtility``: 12b; ``refine(cpu_shards=)``: 14; the native
+  packer), and ``refine_device`` refuses an objective that is neither an
+  ``Objective`` nor a ``ConcaveUtility``.
 """
 import numpy as np
 import pytest
@@ -28,8 +31,9 @@ from cfmm_routing_tpu_torch import api, convert
 from cfmm_routing_tpu_torch.models.reference_instances import (
     arbitrage_instance, liquidation_instance, two_asset_instance,
 )
+from cfmm_routing_tpu_torch.models.utility import CustomUtility
 from cfmm_routing_tpu_torch.solver import refine_device as rd
-from cfmm_routing_tpu_torch.solver.admm import AdmmOptions, AdmmSolver
+from cfmm_routing_tpu_torch.solver.admm import AdmmOptions
 from cfmm_routing_tpu_torch.solver.certify import certify, dual_bound, polish_prices
 from cfmm_routing_tpu_torch.solver.compiler import compile_spec, compile_table
 from cfmm_routing_tpu_torch.solver.refine import refine
@@ -131,17 +135,16 @@ def test_refine_float64_fallback_certifies_arbitrage(arb):
 def test_left_out_entry_points_name_their_queue_item(arb):
     compiled, obj, base = arb["compiled"], arb["obj"], arb["port_base"]
 
-    class Utility:  # any objective that is not a linear Objective
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        CustomUtility(lambda psi: psi.sum(), obj.lo, obj.hi, smoothness=0.0)
+
+    class Other:  # neither an Objective nor a ConcaveUtility
         c, lo, hi = obj.c, obj.lo, obj.hi
 
-    with pytest.raises(NotImplementedError, match="item 12"):
-        rd.refine_device(compiled, Utility(), base, device="cpu")
+    with pytest.raises(TypeError, match="ConcaveUtility"):
+        rd.refine_device(compiled, Other(), base, device="cpu")
     with pytest.raises(NotImplementedError, match="item 14"):
         refine(compiled, obj, base, cpu_shards=4, device="cpu")
-    solver = AdmmSolver(compile_spec(arbitrage_instance()[0], pad_pools_to=128),
-                        device="cpu", options=AdmmOptions(max_iters=5))
-    with pytest.raises(NotImplementedError, match="queue 2, item 5"):
-        solver.solve_fused(obj, iters=3, merged=True)
     table, _ = random_arbitrage_table(8, 20, seed=1)
     with pytest.raises(NotImplementedError, match="native packer"):
         compile_table(table, backend="native")
