@@ -1,11 +1,12 @@
-// Device projection onto SHIFTED trading sets (the refinement stage), one
-// thread per pool.
+// Device projection onto SHIFTED trading sets (the refinement stage).
 //
 // Replaces the delta projection math of the Pallas kernel fused_step_delta
 // (cfmm_routing_tpu/ops/iteration_pallas.py: _eval_gm_delta_channels,
 // _eval_cs_delta_channels, _gm_delta_bracket_ch, _cs_delta_bracket_ch, over
-// ops/projection_delta.py's _inner_gm_delta and _solve_theta_linear_delta).
-// The plain version is ops/projection_delta.py of this package.
+// ops/projection_delta.py's _inner_gm_delta and _solve_theta_linear_delta)
+// and the refinement's standalone project_gm_delta / project_cs_delta
+// (ops/projection_delta.py there, plain jnp).  The plain version is
+// ops/projection_delta.py of this package.
 //
 // Around a base point (D0, L0) the trades are D = D0 + eps*a, L = L0 + eps*b
 // and the set reads
@@ -21,9 +22,40 @@
 // constraint uses a real log1p: the refinement's precision lives in those
 // O(eps)-relative terms.
 //
-// Layout, instantiations (KC in {2, 4, 8, 16} in registers, KC == 0 for
-// any K), the hoisting of every mu-free term out of the root-find and the
-// fixed-trip root-find itself are those of projection.cuh.
+// What bounds it on an H100: operations and latency, not bytes.  Each pool
+// evaluates h(mu) n_bisect + n_polish + 2 times (56 at (48, 6)), a chain of
+// dependent steps; per geo-mean slot one evaluation is a region select, a
+// sqrt, two IEEE divisions and a log1p.  The bytes bound is about a tenth
+// of the operations bound.  There is no matrix product, so tensor cores
+// (wgmma) have nothing to do, and each slot's inputs are read once, so TMA
+// staging would only add a shared-memory round trip: what the card needs is
+// enough resident warps to hide the chain, and every SM busy.
+//
+// Design: LANES PER SLOT (project_slot_delta).  LANES consecutive lanes of
+// a warp own one pool, LANES the power of two >= K (up to 32); lane c
+// prepares slot c's mu-free terms (GmDeltaSlot / CsDeltaSlot, hoisted out
+// of the root-find) and holds only that slot.  Each evaluation of h(mu)
+// computes the lane's slot term, and the pool's lanes gather the terms in
+// slot order with __shfl_sync, h = ((0 + h_0) + h_1) + ..., exactly as the
+// plain loop adds them; mu_hi is the max over the slots taken the same way.
+// Every lane then runs the identical fixed-trip root-find bookkeeping, so
+// the planes are bitwise equal to the plain version's.  Idle lanes (slot
+// >= K) and pools past the bucket's end run the same steps on an inert
+// slot and store nothing: every lane reaches every shuffle.  A pool of
+// K = 2 thus fills two threads instead of one, and a thread keeps one
+// slot's 18 values in registers instead of K of them.
+//
+// Pools with K > 32 (in no shipped network) take the one-thread-per-pool
+// form (project_pool_delta), which walks the slots from memory in every
+// evaluation and prepares them again: the same values, in the same order.
+//
+// The kernels over this header (projection_delta.cu, fused_step_delta.cu)
+// launch once per group of buckets with the same K: a by-value table of
+// per-bucket descriptors, one bucket per block, and a block-uniform switch
+// on the bucket's kind.
+//
+// Numerics: --fmad=false, IEEE division and sqrt, a true log1p / expm1,
+// the fixed (48, 6) trip counts of ProjectionConfig.
 #pragma once
 
 #include "projection.cuh"
@@ -143,110 +175,225 @@ __device__ __forceinline__ T cs_delta_theta(const CsDeltaSlot<T>& sl, T g,
   return theta;
 }
 
-// Project one pool onto its shifted set.  load(c) returns slot c's DeltaIn;
-// store(c, a, b) receives the (masked) scaled delta trades.  nsig is the
-// pool's constraint level (the log-domain slack for geo-mean pools, the
-// scaled linear slack for constant-sum pools).
-template <typename T, int KC, int KIND, class Load, class Store>
-__device__ __forceinline__ void project_pool_delta(const Load& load, int k,
+// The mu_hi candidate of one slot (0 for a padding slot).
+template <typename T>
+__device__ __forceinline__ T cs_delta_cand(const DeltaIn<T>& in, T g, T nsig) {
+  const T margin = T(1e-3);
+  const T w_safe = in.mask > T(0) ? in.w : T(1);
+  const T vreq = relu(nsig) / w_safe + margin;
+  const T th_v = (vreq + in.aL - g * in.p) / (g * g);
+  const T th_req = relu(tmax(in.q - in.aL, th_v)) + margin;
+  return in.mask > T(0) ? th_req / w_safe : T(0);
+}
+
+template <typename T>
+__device__ __forceinline__ T gm_delta_cand(const DeltaIn<T>& in, T g, T vfac) {
+  const T margin = T(1e-3);
+  const T vreq = in.X0 * vfac + margin;
+  const T th_v = (vreq + in.aL - g * in.p) / (g * g);
+  const T th_req = relu(tmax(in.q - in.aL, th_v)) + margin;
+  const T a_at = tmax(in.p + g * th_req, in.aD);
+  const T M = in.X0 + g * tabs(a_at) + tabs(in.aL) + T(1);
+  const T t_req = T(2) * th_req * M;
+  const T w_safe = in.mask > T(0) ? in.w : T(1);
+  return in.mask > T(0) ? t_req / w_safe : T(0);
+}
+
+// One slot's term of h(mu) (0 for a padding slot).
+template <typename T>
+__device__ __forceinline__ T cs_delta_term(const CsDeltaSlot<T>& sl, T g,
+                                           T mu) {
+  if (!(sl.mask > T(0))) return T(0);
+  const T theta = cs_delta_theta(sl, g, mu);
+  const T v = g * tmax(sl.p + g * theta, sl.aD) - tmax(sl.q - theta, sl.aL);
+  return sl.w * v;
+}
+
+template <typename T, bool FLOOR>
+__device__ __forceinline__ T gm_delta_term(const GmDeltaSlot<T>& sl, T g,
+                                           T mu) {
+  if (!(sl.mask > T(0))) return T(0);
+  const T theta = gm_delta_theta<T, FLOOR>(sl, mu);
+  const T v = g * tmax(sl.p + g * theta, sl.aD) - tmax(sl.q - theta, sl.aL);
+  const T u = v / sl.X0;
+  return sl.w * dlog1p(tmax(u, T(-0.999999)));
+}
+
+// One slot's (masked) scaled delta trades at the root.
+template <typename T, class Slot>
+__device__ __forceinline__ void delta_trades(const Slot& sl, T g, T theta,
+                                             T& A, T& B) {
+  const bool real = sl.mask > T(0);
+  A = real ? tmax(sl.p + g * theta, sl.aD) : T(0);
+  B = real ? tmax(sl.q - theta, sl.aL) : T(0);
+}
+
+// Project one pool onto its shifted set, one thread for all its slots (the
+// form for K > 32).  load(c) returns slot c's DeltaIn; store(c, a, b)
+// receives the (masked) scaled delta trades.  nsig is the pool's
+// constraint level (the log-domain slack for geo-mean pools, the scaled
+// linear slack for constant-sum pools).
+template <typename T, int KIND, class Load, class Store>
+__device__ __forceinline__ void project_pool_delta(const Load& load, int K,
                                                    T g, T nsig, int n_bisect,
                                                    int n_total,
                                                    const Store& store) {
-  const int K = KC > 0 ? KC : k;
-  const T margin = T(1e-3);
   if constexpr (KIND == KIND_CS) {
-    SlotCache<CsDeltaSlot<T>, KC> cache;
     T mu_hi = T(0);
-#pragma unroll
     for (int c = 0; c < K; ++c) {
-      const DeltaIn<T> in = load(c);
-      if constexpr (KC > 0) cache.reg[c] = cs_delta_prep(in, g);
-      const T w_safe = in.mask > T(0) ? in.w : T(1);
-      const T vreq = relu(nsig) / w_safe + margin;
-      const T th_v = (vreq + in.aL - g * in.p) / (g * g);
-      const T th_req = relu(tmax(in.q - in.aL, th_v)) + margin;
-      const T cand = in.mask > T(0) ? th_req / w_safe : T(0);
+      const T cand = cs_delta_cand(load(c), g, nsig);
       mu_hi = c == 0 ? cand : tmax(mu_hi, cand);
     }
     mu_hi = mu_hi + T(1);
-    auto get = [&](int c) -> CsDeltaSlot<T> {
-      if constexpr (KC > 0) return cache.reg[c];
-      else return cs_delta_prep(load(c), g);
-    };
     auto h_of_mu = [&](T mu) {
       T h = T(0);
-#pragma unroll
-      for (int c = 0; c < K; ++c) {
-        const CsDeltaSlot<T> sl = get(c);
-        if (sl.mask > T(0)) {
-          const T theta = cs_delta_theta(sl, g, mu);
-          const T v = g * tmax(sl.p + g * theta, sl.aD) - tmax(sl.q - theta, sl.aL);
-          h = h + sl.w * v;
-        } else {
-          h = h + T(0);
-        }
-      }
+      for (int c = 0; c < K; ++c)
+        h = h + cs_delta_term(cs_delta_prep(load(c), g), g, mu);
       return h;
     };
     const T mu = root_find(h_of_mu, mu_hi, nsig, n_bisect, n_total);
-#pragma unroll
     for (int c = 0; c < K; ++c) {
-      const CsDeltaSlot<T> sl = get(c);
-      const T theta = cs_delta_theta(sl, g, mu);
-      const bool real = sl.mask > T(0);
-      store(c, real ? tmax(sl.p + g * theta, sl.aD) : T(0),
-            real ? tmax(sl.q - theta, sl.aL) : T(0));
+      const CsDeltaSlot<T> sl = cs_delta_prep(load(c), g);
+      T A, B;
+      delta_trades(sl, g, cs_delta_theta(sl, g, mu), A, B);
+      store(c, A, B);
     }
   } else {
     constexpr bool FLOOR = KIND == KIND_GM_FLOOR;
-    SlotCache<GmDeltaSlot<T>, KC> cache;
     const T vfac = dexpm1(relu(nsig));
     T mu_hi = T(0);
-#pragma unroll
     for (int c = 0; c < K; ++c) {
-      const DeltaIn<T> in = load(c);
-      if constexpr (KC > 0) cache.reg[c] = gm_delta_prep(in, g, FLOOR);
-      const T vreq = in.X0 * vfac + margin;
-      const T th_v = (vreq + in.aL - g * in.p) / (g * g);
-      const T th_req = relu(tmax(in.q - in.aL, th_v)) + margin;
-      const T a_at = tmax(in.p + g * th_req, in.aD);
-      const T M = in.X0 + g * tabs(a_at) + tabs(in.aL) + T(1);
-      const T t_req = T(2) * th_req * M;
-      const T w_safe = in.mask > T(0) ? in.w : T(1);
-      const T cand = in.mask > T(0) ? t_req / w_safe : T(0);
+      const T cand = gm_delta_cand(load(c), g, vfac);
       mu_hi = c == 0 ? cand : tmax(mu_hi, cand);
     }
     mu_hi = mu_hi + T(1);
-    auto get = [&](int c) -> GmDeltaSlot<T> {
-      if constexpr (KC > 0) return cache.reg[c];
-      else return gm_delta_prep(load(c), g, FLOOR);
-    };
     auto h_of_mu = [&](T mu) {
       T h = T(0);
-#pragma unroll
-      for (int c = 0; c < K; ++c) {
-        const GmDeltaSlot<T> sl = get(c);
-        if (sl.mask > T(0)) {
-          const T theta = gm_delta_theta<T, FLOOR>(sl, mu);
-          const T v = g * tmax(sl.p + g * theta, sl.aD) - tmax(sl.q - theta, sl.aL);
-          const T u = v / sl.X0;
-          h = h + sl.w * dlog1p(tmax(u, T(-0.999999)));
-        } else {
-          h = h + T(0);
-        }
-      }
+      for (int c = 0; c < K; ++c)
+        h = h + gm_delta_term<T, FLOOR>(gm_delta_prep(load(c), g, FLOOR), g, mu);
       return h;
     };
     const T mu = root_find(h_of_mu, mu_hi, nsig, n_bisect, n_total);
-#pragma unroll
     for (int c = 0; c < K; ++c) {
-      const GmDeltaSlot<T> sl = get(c);
-      const T theta = gm_delta_theta<T, FLOOR>(sl, mu);
-      const bool real = sl.mask > T(0);
-      store(c, real ? tmax(sl.p + g * theta, sl.aD) : T(0),
-            real ? tmax(sl.q - theta, sl.aL) : T(0));
+      const GmDeltaSlot<T> sl = gm_delta_prep(load(c), g, FLOOR);
+      T A, B;
+      delta_trades(sl, g, gm_delta_theta<T, FLOOR>(sl, mu), A, B);
+      store(c, A, B);
     }
   }
 }
 
+// ---- lanes per slot ---------------------------------------------------------
+
+constexpr unsigned kFullWarp = 0xffffffffu;
+
+// The lanes of one pool are LANES consecutive lanes; lane c holds slot c.
+// lanes_sum: ((0 + x_0) + x_1) + ... + x_{K-1} over the pool's lanes, the
+// plain loop's order; every lane of the pool gets the same value.  K is
+// uniform across the warp, so the early exit keeps the shuffles converged.
+template <typename T, int LANES>
+__device__ __forceinline__ T lanes_sum(T x, int K) {
+  if constexpr (LANES == 1) {
+    return T(0) + x;
+  } else {
+    T h = T(0);
+#pragma unroll
+    for (int c = 0; c < LANES; ++c) {
+      if (c >= K) break;
+      h = h + __shfl_sync(kFullWarp, x, c, LANES);
+    }
+    return h;
+  }
+}
+
+// max over the pool's K lanes, folded in slot order as the plain loop does.
+template <typename T, int LANES>
+__device__ __forceinline__ T lanes_max(T x, int K) {
+  if constexpr (LANES == 1) {
+    return x;
+  } else {
+    T r = __shfl_sync(kFullWarp, x, 0, LANES);
+#pragma unroll
+    for (int c = 1; c < LANES; ++c) {
+      if (c >= K) break;
+      r = tmax(r, __shfl_sync(kFullWarp, x, c, LANES));
+    }
+    return r;
+  }
+}
+
+// The inert slot of an idle lane (slot >= K, or a pool past the end).
+template <typename T> __device__ __forceinline__ DeltaIn<T> idle_slot() {
+  DeltaIn<T> in;
+  in.p = T(0); in.q = T(0); in.X0 = T(1); in.w = T(1); in.sS = T(0);
+  in.aD = T(0); in.aL = T(0); in.mask = T(0);
+  return in;
+}
+
+// The cooperative projection: this lane's slot `in` of a pool of K slots
+// spread over LANES lanes (K <= LANES).  Every lane of the warp must call
+// it; (A, B) are this lane's slot's trades.
+template <typename T, int LANES, int KIND>
+__device__ __forceinline__ void project_slot_delta(const DeltaIn<T>& in, int K,
+                                                   T g, T nsig, int n_bisect,
+                                                   int n_total, T& A, T& B) {
+  if constexpr (KIND == KIND_CS) {
+    const CsDeltaSlot<T> sl = cs_delta_prep(in, g);
+    const T mu_hi = lanes_max<T, LANES>(cs_delta_cand(in, g, nsig), K) + T(1);
+    auto h_of_mu = [&](T mu) {
+      return lanes_sum<T, LANES>(cs_delta_term(sl, g, mu), K);
+    };
+    const T mu = root_find(h_of_mu, mu_hi, nsig, n_bisect, n_total);
+    delta_trades(sl, g, cs_delta_theta(sl, g, mu), A, B);
+  } else {
+    constexpr bool FLOOR = KIND == KIND_GM_FLOOR;
+    const GmDeltaSlot<T> sl = gm_delta_prep(in, g, FLOOR);
+    const T vfac = dexpm1(relu(nsig));
+    const T mu_hi = lanes_max<T, LANES>(gm_delta_cand(in, g, vfac), K) + T(1);
+    auto h_of_mu = [&](T mu) {
+      return lanes_sum<T, LANES>(gm_delta_term<T, FLOOR>(sl, g, mu), K);
+    };
+    const T mu = root_find(h_of_mu, mu_hi, nsig, n_bisect, n_total);
+    delta_trades(sl, g, gm_delta_theta<T, FLOOR>(sl, mu), A, B);
+  }
+}
+
+// Lanes per pool for K slots: the power of two >= K up to 32, 0 for the
+// one-thread-per-pool form (K > 32).
+inline int lanes_for(int K) {
+  int l = 1;
+  while (l < K && l < 64) l <<= 1;
+  return l > 32 ? 0 : l;
+}
+
+// The bucket of this block in a grouped launch: the last descriptor whose
+// first block is <= blockIdx.x (block-uniform).
+template <class Table>
+__device__ __forceinline__ int block_bucket(const Table& tab) {
+  int b = 0;
+  while (b + 1 < tab.n && (int)blockIdx.x >= tab.b[b + 1].first_block) ++b;
+  return b;
+}
+
 }  // namespace cfmm
+
+// Call CALL(T, LANES) with the dtype's type and lanes_for(K); each CALL
+// returns.  Unknown dtypes and K < 1 give cudaErrorInvalidValue.
+#define CFMM_LANES_OF(T, K, CALL)                                          \
+  if ((K) < 1) return (int)cudaErrorInvalidValue;                         \
+  switch (cfmm::lanes_for(K)) {                                           \
+    case 1: return CALL(T, 1);                                            \
+    case 2: return CALL(T, 2);                                            \
+    case 4: return CALL(T, 4);                                            \
+    case 8: return CALL(T, 8);                                            \
+    case 16: return CALL(T, 16);                                          \
+    case 32: return CALL(T, 32);                                          \
+    default: return CALL(T, 0);                                           \
+  }
+
+#define CFMM_DISPATCH_LANES(dtype, K, CALL)                                \
+  switch (dtype) {                                                        \
+    case 0: CFMM_LANES_OF(float, K, CALL)                                 \
+    case 1: CFMM_LANES_OF(double, K, CALL)                                \
+    default: return (int)cudaErrorInvalidValue;                           \
+  }

@@ -10,7 +10,10 @@ A failed build raises: there is no fallback.
 Every kernel wrapper adds one to its entry in :data:`LAUNCHES` where it
 launches its kernel, so a run can show which kernels it went through (the
 folded launches of the fused steps count under ``*_fold``, the merged
-K-group launches under ``fused_step_merged``).
+K-group launches under ``fused_step_merged``).  The delta kernels launch
+once per group of buckets with the same slot count: one launch of
+``fused_step_delta`` (or ``fused_step_delta_fold``) or ``project_delta``
+covers every bucket of its group, geo-mean and constant-sum alike.
 """
 from __future__ import annotations
 
@@ -51,7 +54,7 @@ _LIBS = {
     ),
     "projection_delta": (
         "projection_delta.cu",
-        {"cfmm_project_delta": [_C, _C, _C, _C] + [_P] * 12 + [_C, _C, _P]},
+        {"cfmm_project_delta": [_C, _C, _C, _P, _P, _C, _C, _P]},
     ),
     "fused_step": (
         "fused_step.cu",
@@ -61,7 +64,7 @@ _LIBS = {
     ),
     "fused_step_delta": (
         "fused_step_delta.cu",
-        {"cfmm_fused_step_delta": [_C] * 7 + [_D, _D] + [_P] * 18
+        {"cfmm_fused_step_delta": [_C] * 4 + [_D, _D] + [_P] * 3
                                   + [_C, _C, _P]},
     ),
     "segment_sum": (
@@ -72,7 +75,7 @@ _LIBS = {
 _HEADERS = ("projection.cuh", "projection_delta.cuh")
 
 LAUNCHES: Dict[str, int] = {"project_gm": 0, "project_cs": 0,
-                            "project_gm_delta": 0, "project_cs_delta": 0,
+                            "project_delta": 0,
                             "fused_step": 0, "fused_step_delta": 0,
                             "fused_step_fold": 0, "fused_step_delta_fold": 0,
                             "fused_step_merged": 0, "segment_sum": 0}

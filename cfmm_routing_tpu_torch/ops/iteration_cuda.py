@@ -25,9 +25,12 @@ State per bucket:  s = (sD, sL), evolving as  s' = alpha*w + (1-alpha)*s
   (the deferred part contributes -2*(1-alpha)*degree*wdef in O(n)).
 
 The refinement stage runs the same iteration on the shifted trading sets
-of ``ops/projection_delta.py`` (:func:`fused_step_delta`): the projection
-input is further offset by the pre-broadcast base dual ``nu0e``, and the
-projection is the delta one; the deferred-broadcast algebra is unchanged.
+of ``ops/projection_delta.py``: the projection input is further offset by
+the pre-broadcast base dual ``nu0e``, and the projection is the delta one;
+the deferred-broadcast algebra is unchanged.  :func:`fused_step_delta_grouped`
+runs it on a group of buckets with the same channel count K in one launch
+(one lane per slot, a per-bucket descriptor table) and one segment sum over
+the group's own slot order; :func:`fused_step_delta` is a group of one.
 
 :func:`fused_step_merged` runs the base step on one merged K-group
 (``AdmmSolver._merged_groups``): every bucket with the same channel count
@@ -62,12 +65,16 @@ import torch
 
 from . import _build
 from .projection import ProjectionConfig, project_cs, project_gm
-from .projection_cuda import _KIND, check_cuda_args, dtype_code
+from .projection_cuda import (
+    _KIND, _check_group, _check_like, check_cuda_args, dtype_code,
+    group_outputs, launch_table,
+)
 from .projection_delta import project_cs_delta, project_gm_delta
 from .segment import segment_sum, segment_sum_plain
 
 __all__ = ["fused_step", "fused_step_plain", "fused_step_delta",
-           "fused_step_delta_plain", "fused_step_merged",
+           "fused_step_delta_plain", "fused_step_delta_grouped",
+           "fused_step_delta_grouped_plain", "fused_step_merged",
            "fused_step_merged_plain"]
 
 _CLASS_KIND = {code: kind for kind, code in _KIND.items()}  # 2 -> ("cs", False)
@@ -99,14 +106,18 @@ def _check_fold(m, v, fold, what):
     return T, n_pt
 
 
+def _relax(sD, sL, A, B, alpha):
+    """The relaxed state and the consensus-term plane, as the kernels form
+    them: (sD', sL', val)."""
+    a = float(alpha)
+    b = 1.0 - a
+    return a * A + b * sD, a * B + b * sL, a * (B - A) + b * (sL - sD)
+
+
 def _update(sD, sL, A, B, v, arrs, alpha):
     """Relaxation and the consensus reduction, in the segment-sum kernel's
     fixed order (``segment_sum_plain``)."""
-    a = float(alpha)
-    b = 1.0 - a
-    sDn = a * A + b * sD
-    sLn = a * B + b * sL
-    val = a * (B - A) + b * (sL - sD)
+    sDn, sLn, val = _relax(sD, sL, A, B, alpha)
     y = segment_sum_plain(val, arrs["order"], arrs["seg"], v.shape[0])
     return sDn, sLn, A, B, y
 
@@ -300,78 +311,144 @@ def _nu0e(arrs):
     return torch.zeros_like(arrs["mask"]) if nu0e is None else nu0e
 
 
+def _delta_project_plain(sD, sL, v, arrs, kind, needs_floor, cfg, fold):
+    """The plain gather and delta projection of one bucket: (a, b)."""
+    K, m = sD.shape
+    off = _gather(v, arrs, K, m, fold) - _nu0e(arrs)
+    p = sD + off
+    q = sL - off
+    if kind == "gm":
+        return project_gm_delta(
+            p, q, arrs["X0"], arrs["w"], arrs["sS"], arrs["gamma"],
+            arrs["nsig"], arrs["aD"], arrs["aL"], arrs["mask"],
+            needs_floor=needs_floor, cfg=cfg,
+        )
+    return project_cs_delta(
+        p, q, arrs["X0"], arrs["gamma"], arrs["w"], arrs["nsig"],
+        arrs["aD"], arrs["aL"], arrs["mask"], cfg=cfg,
+    )
+
+
 def fused_step_delta_plain(sD, sL, v, arrs, kind, needs_floor, alpha: float,
                            cfg: ProjectionConfig = ProjectionConfig(), fold=None):
     """The fused delta half-iteration in plain PyTorch, on any device.
 
     Returns (sD', sL', a, b, y(n_pad,))."""
-    K, m = sD.shape
-    mask = arrs["mask"]
     if fold is not None:
-        fold = _check_fold(m, v, fold, "fused_step_delta")
-    off = _gather(v, arrs, K, m, fold) - _nu0e(arrs)
-    p = sD + off
-    q = sL - off
-    if kind == "gm":
-        A, B = project_gm_delta(
-            p, q, arrs["X0"], arrs["w"], arrs["sS"], arrs["gamma"],
-            arrs["nsig"], arrs["aD"], arrs["aL"], mask,
-            needs_floor=needs_floor, cfg=cfg,
-        )
-    else:
-        A, B = project_cs_delta(
-            p, q, arrs["X0"], arrs["gamma"], arrs["w"], arrs["nsig"],
-            arrs["aD"], arrs["aL"], mask, cfg=cfg,
-        )
+        fold = _check_fold(sD.shape[1], v, fold, "fused_step_delta")
+    A, B = _delta_project_plain(sD, sL, v, arrs, kind, needs_floor, cfg, fold)
     return _update(sD, sL, A, B, v, arrs, alpha)
+
+
+def fused_step_delta_grouped_plain(s, v, buckets, group, alpha: float,
+                                   cfg: ProjectionConfig = ProjectionConfig(),
+                                   fold=None):
+    """The plain version of :func:`fused_step_delta_grouped`, on any device:
+    each bucket's plain gather, delta projection and relaxation, then one
+    segment sum over the group's consensus terms (the buckets' planes
+    flattened one after another) in the group's slot order."""
+    s_new, w_out, vals = {}, {}, []
+    for name, (kind, floor) in zip(group["names"], group["kinds"]):
+        sD, sL = s[name]
+        f = None if fold is None else _check_fold(sD.shape[1], v, fold,
+                                                  "fused_step_delta")
+        A, B = _delta_project_plain(sD, sL, v, buckets[name], kind, floor, cfg, f)
+        sDn, sLn, val = _relax(sD, sL, A, B, alpha)
+        s_new[name] = (sDn, sLn)
+        w_out[name] = (A, B)
+        vals.append(val.reshape(-1))
+    y = segment_sum_plain(torch.cat(vals), group["order"], group["seg"],
+                          v.shape[0])
+    return s_new, w_out, y
+
+
+def fused_step_delta_grouped(s, v, buckets, group, alpha: float,
+                             cfg: ProjectionConfig = ProjectionConfig(),
+                             fold=None):
+    """One fused half-iteration for a group of DELTA buckets with the same
+    slot count K, in one launch (``csrc/fused_step_delta.cu``), and one
+    segment sum.
+
+    s: bucket name -> (sD, sL) (K, m) delta state planes;  v: (n_pad,)
+    combined broadcast vector (wdef - dnu, zero-padded);  buckets: name ->
+    delta bucket dict from ``DeltaAdmmSolver.delta_buckets``
+    (X0/w/sS/aD/aL/mask/gamma/nsig and, on the re-centred path, the
+    pre-broadcast base-dual plane nu0e);  group: ``names`` (at most
+    ``MAX_GROUP``), ``kinds`` ((kind, needs_floor) per name; the
+    constant-sum reserve floor always applies) and the group's slot order
+    ``order``/``seg`` over the buckets' planes flattened one after another
+    (``DeltaAdmmSolver._delta_groups``);  fold: (T, n_pt) of a scenario
+    fold (module docstring).  Returns (s', w, y): name -> (sD', sL'),
+    name -> (a, b), and y (n_pad,).  CPU tensors run
+    :func:`fused_step_delta_grouped_plain`."""
+    names = group["names"]
+    ref = s[names[0]][0]
+    if fold is not None:
+        for name in names:
+            fold = _check_fold(s[name][0].shape[1], v, fold, "fused_step_delta")
+    if ref.device.type == "cpu":
+        return fused_step_delta_grouped_plain(s, v, buckets, group, alpha, cfg,
+                                              fold)
+    _check_group(group, "fused_step_delta")
+    dims, sizes, args = [], [], []
+    for name, (kind, floor) in zip(names, group["kinds"]):
+        sD, sL = s[name]
+        arrs = buckets[name]
+        nu0e = arrs.get("nu0e")
+        planes = (sD, sL, arrs["X0"], arrs["w"], arrs["sS"], arrs["aD"],
+                  arrs["aL"], arrs["mask"]) + (() if nu0e is None else (nu0e,))
+        K, m = check_cuda_args(planes, (arrs["gamma"], arrs["nsig"]),
+                               "fused_step_delta")
+        _check_like(sD, ref, "fused_step_delta")
+        _check_ids_and_v(sD, v, arrs, "fused_step_delta")
+        dims += [m, _KIND[(kind, bool(floor))], *_fold_args(m, fold)]
+        sizes.append((K, m))
+        args.append((sD, sL, arrs["asset"], arrs["X0"], arrs["w"], arrs["sS"],
+                     arrs["aD"], arrs["aL"], arrs["mask"], nu0e, arrs["gamma"],
+                     arrs["nsig"]))
+    out, views = group_outputs(ref, sizes, 5)  # sD' sL' a b val
+    ptrs = []
+    for ins, outs in zip(args, views):
+        ptrs += [None if t is None else t.data_ptr() for t in ins]
+        ptrs += [t.data_ptr() for t in outs]
+    c_dims, c_ptrs = launch_table(dims, ptrs)
+    a = float(alpha)
+    n_pad = v.shape[0]
+    lib = _build.library("fused_step_delta")
+    with torch.cuda.device(ref.device):
+        stream = torch.cuda.current_stream(ref.device).cuda_stream
+        rc = lib.cfmm_fused_step_delta(
+            dtype_code(ref.dtype), ref.shape[0], len(names), n_pad, a, 1.0 - a,
+            c_dims, c_ptrs, v.data_ptr(), int(cfg.n_bisect), int(cfg.n_polish),
+            stream,
+        )
+    _build.check_launch(rc, "fused_step_delta")
+    _build.LAUNCHES["fused_step_delta" if fold is None
+                    else "fused_step_delta_fold"] += 1
+    y = segment_sum(out[4], group["order"], group["seg"], n_pad)
+    return ({name: (o[0], o[1]) for name, o in zip(names, views)},
+            {name: (o[2], o[3]) for name, o in zip(names, views)}, y)
 
 
 def fused_step_delta(sD, sL, v, arrs, kind, needs_floor, alpha: float,
                      cfg: ProjectionConfig = ProjectionConfig(), fold=None):
-    """One fused half-iteration for one DELTA bucket (refinement stage).
+    """One fused half-iteration for one DELTA bucket (refinement stage):
+    :func:`fused_step_delta_grouped` on a group of one, whose slot order is
+    the bucket's own (``arrs["order"]``/``arrs["seg"]``).
 
     sD/sL: (K, m) delta state planes;  v: (n_pad,) combined broadcast vector
     (wdef - dnu, zero-padded);  arrs: a delta bucket dict from
-    ``DeltaAdmmSolver.delta_buckets`` (X0/w/sS/aD/aL/mask/gamma/nsig and, on
-    the re-centred path, the pre-broadcast base-dual plane nu0e).  The
-    constant-sum reserve floor always applies;  fold: (T, n_pt) of a
-    scenario fold (module docstring).  Returns (sD', sL', a, b, y(n_pad,)).
+    ``DeltaAdmmSolver.delta_buckets``;  fold: (T, n_pt) of a scenario fold
+    (module docstring).  Returns (sD', sL', a, b, y(n_pad,)).
     """
     if fold is not None:
         fold = _check_fold(sD.shape[1], v, fold, "fused_step_delta")
     if sD.device.type == "cpu":
         return fused_step_delta_plain(sD, sL, v, arrs, kind, needs_floor,
                                       alpha, cfg, fold)
-    nu0e = arrs.get("nu0e")
-    planes = (sD, sL, arrs["X0"], arrs["w"], arrs["sS"], arrs["aD"],
-              arrs["aL"], arrs["mask"]) + (() if nu0e is None else (nu0e,))
-    K, m = check_cuda_args(planes, (arrs["gamma"], arrs["nsig"]),
-                           "fused_step_delta")
-    _check_ids_and_v(sD, v, arrs, "fused_step_delta")
-    n_pad = v.shape[0]
-    sDn = torch.empty_like(sD)
-    sLn = torch.empty_like(sD)
-    A = torch.empty_like(sD)
-    B = torch.empty_like(sD)
-    val = torch.empty_like(sD)
-    a = float(alpha)
-    lib = _build.library("fused_step_delta")
-    fm, fn = _fold_args(m, fold)
-    with torch.cuda.device(sD.device):
-        stream = torch.cuda.current_stream(sD.device).cuda_stream
-        rc = lib.cfmm_fused_step_delta(
-            dtype_code(sD.dtype), _KIND[(kind, bool(needs_floor))], K, m,
-            n_pad, fm, fn, a, 1.0 - a,
-            sD.data_ptr(), sL.data_ptr(), arrs["asset"].data_ptr(),
-            arrs["X0"].data_ptr(), arrs["w"].data_ptr(), arrs["sS"].data_ptr(),
-            arrs["aD"].data_ptr(), arrs["aL"].data_ptr(),
-            arrs["mask"].data_ptr(), None if nu0e is None else nu0e.data_ptr(),
-            arrs["gamma"].data_ptr(), arrs["nsig"].data_ptr(), v.data_ptr(),
-            sDn.data_ptr(), sLn.data_ptr(), A.data_ptr(), B.data_ptr(),
-            val.data_ptr(), int(cfg.n_bisect), int(cfg.n_polish), stream,
-        )
-    _build.check_launch(rc, "fused_step_delta")
-    _build.LAUNCHES["fused_step_delta" if fold is None
-                    else "fused_step_delta_fold"] += 1
-    y = segment_sum(val, arrs["order"], arrs["seg"], n_pad)
-    return sDn, sLn, A, B, y
+    group = dict(names=["bucket"], kinds=[(kind, needs_floor)],
+                 order=arrs["order"], seg=arrs["seg"])
+    s_new, w, y = fused_step_delta_grouped({"bucket": (sD, sL)}, v,
+                                           {"bucket": arrs}, group, alpha,
+                                           cfg, fold)
+    return (*s_new["bucket"], *w["bucket"], y)

@@ -9,17 +9,24 @@ Pallas kernels ``project_gm_pallas`` / ``project_cs_pallas``
 ``csrc/projection.cuh``.  The delta forms run the refinement stage's
 classic iteration, which the JAX package leaves to XLA
 (``ops/projection_delta.py`` there); their source is
-``csrc/projection_delta.cu`` over ``csrc/projection_delta.cuh``.  One
-thread per pool, the root-find in registers, bound by arithmetic (see the
-headers).
+``csrc/projection_delta.cu`` over ``csrc/projection_delta.cuh``.  Bound
+by arithmetic and latency (see the headers).
+
+``project_gm``/``project_cs`` run one thread per pool; K in {2, 4, 8, 16}
+runs a register instantiation, any other K one that reads its slots from
+memory inside the root-find (``csrc/projection.cuh``).  The delta
+projection runs one lane per slot (K <= 32; one thread per pool above) and
+one launch per group of buckets with the same K
+(:func:`project_delta_grouped`); ``project_gm_delta_cuda`` /
+``project_cs_delta_cuda`` launch it on one bucket.
 
 On a CPU tensor the wrappers run the plain PyTorch version
-(``ops/projection.py``); on a CUDA tensor they launch the kernel or raise.
-The kernels take float32 or float64 and any K: K in {2, 4, 8, 16} runs a
-register instantiation, any other K one that reads its slots from memory
-inside the root-find (``csrc/projection.cuh``).
+(``ops/projection.py``, ``ops/projection_delta.py``); on a CUDA tensor
+they launch the kernel or raise.  The kernels take float32 or float64.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -28,9 +35,11 @@ from .projection import ProjectionConfig, project_cs, project_gm
 from .projection_delta import project_cs_delta, project_gm_delta
 
 __all__ = ["project_gm_cuda", "project_cs_cuda", "project_gm_delta_cuda",
-           "project_cs_delta_cuda", "dtype_code"]
+           "project_cs_delta_cuda", "project_delta_grouped",
+           "project_delta_grouped_plain", "dtype_code", "MAX_GROUP"]
 
 _KIND = {("gm", False): 0, ("gm", True): 1, ("cs", True): 2, ("cs", False): 2}
+MAX_GROUP = 8  # buckets per grouped delta launch (the kernels' table size)
 
 
 def dtype_code(dtype: torch.dtype) -> int:
@@ -119,25 +128,113 @@ def project_cs_cuda(
                    k0, cfg, "project_cs")
 
 
-def _launch_delta(kind_code, p, q, X0, w, sS, aD, aL, mask, gamma, nsig, cfg,
-                  what):
-    A = torch.empty_like(p)
-    B = torch.empty_like(p)
-    K, m = p.shape
-    lib = _build.library("projection_delta")
-    with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream(p.device).cuda_stream
-        rc = lib.cfmm_project_delta(
-            dtype_code(p.dtype), kind_code, K, m,
-            p.data_ptr(), q.data_ptr(), X0.data_ptr(), w.data_ptr(),
-            None if sS is None else sS.data_ptr(), aD.data_ptr(),
-            aL.data_ptr(), mask.data_ptr(), gamma.data_ptr(), nsig.data_ptr(),
-            A.data_ptr(), B.data_ptr(), int(cfg.n_bisect), int(cfg.n_polish),
-            stream,
+def _check_group(group, what):
+    if not 1 <= len(group["names"]) <= MAX_GROUP:
+        raise ValueError(
+            f"{what}: a grouped launch takes 1 to {MAX_GROUP} buckets (the "
+            f"kernel's descriptor table), not {len(group['names'])}"
         )
-    _build.check_launch(rc, what)
-    _build.LAUNCHES[what] += 1
-    return A, B
+
+
+def _check_like(t, ref, what):
+    """Every bucket of a group has the first bucket's slot count, dtype and
+    device."""
+    if t.shape[0] != ref.shape[0] or t.dtype != ref.dtype or t.device != ref.device:
+        raise ValueError(f"{what}: every bucket of a group must have K = "
+                         f"{ref.shape[0]} slots, dtype {ref.dtype} and device "
+                         f"{ref.device}")
+
+
+def group_outputs(ref, sizes, n_out):
+    """One (n_out, sum K*m) allocation for a grouped launch's outputs, and
+    its per-bucket (K, m) views: output j of bucket b is views[b][j]."""
+    total = sum(K * m for K, m in sizes)
+    out = torch.empty((n_out, total), dtype=ref.dtype, device=ref.device)
+    views = []
+    off = 0
+    for K, m in sizes:
+        views.append([out[j, off:off + K * m].view(K, m) for j in range(n_out)])
+        off += K * m
+    return out, views
+
+
+def launch_table(dims, ptrs):
+    """The ctypes arrays a grouped C launcher reads its descriptor table
+    from: int dims and device pointers (None for a null pointer)."""
+    return (ctypes.c_int * len(dims))(*dims), (ctypes.c_void_p * len(ptrs))(*ptrs)
+
+
+def project_delta_grouped_plain(inputs, buckets, group,
+                                cfg: ProjectionConfig = ProjectionConfig()):
+    """The plain version of :func:`project_delta_grouped`: each bucket's
+    plain delta projection, on any device."""
+    out = {}
+    for name, (kind, floor) in zip(group["names"], group["kinds"]):
+        p, q = inputs[name]
+        a = buckets[name]
+        if kind == "gm":
+            out[name] = project_gm_delta(
+                p, q, a["X0"], a["w"], a["sS"], a["gamma"], a["nsig"], a["aD"],
+                a["aL"], a["mask"], needs_floor=floor, cfg=cfg)
+        else:
+            out[name] = project_cs_delta(
+                p, q, a["X0"], a["gamma"], a["w"], a["nsig"], a["aD"], a["aL"],
+                a["mask"], cfg=cfg)
+    return out
+
+
+def project_delta_grouped(inputs, buckets, group,
+                          cfg: ProjectionConfig = ProjectionConfig()):
+    """The delta projection of a group of buckets with the same slot count
+    K, in one launch (``csrc/projection_delta.cu``).
+
+    ``inputs``: bucket name -> (p, q) (K, m) planes;  ``buckets``: name ->
+    delta bucket dict (X0 w sS aD aL mask gamma nsig; sS may be absent for
+    a constant-sum bucket);  ``group``: ``names`` (at most
+    :data:`MAX_GROUP`) and ``kinds`` ((kind, needs_floor) per name).
+    Returns name -> (a, b).  CPU tensors run
+    :func:`project_delta_grouped_plain`."""
+    names = group["names"]
+    ref = inputs[names[0]][0]
+    if ref.device.type == "cpu":
+        return project_delta_grouped_plain(inputs, buckets, group, cfg)
+    _check_group(group, "project_delta")
+    dims, sizes, args = [], [], []
+    for name, (kind, floor) in zip(names, group["kinds"]):
+        p, q = inputs[name]
+        a = buckets[name]
+        sS = a["sS"] if kind == "gm" else None
+        planes = (p, q, a["X0"], a["w"], a["aD"], a["aL"], a["mask"])
+        K, m = check_cuda_args(planes + (() if sS is None else (sS,)),
+                               (a["gamma"], a["nsig"]), "project_delta")
+        _check_like(p, ref, "project_delta")
+        dims += [m, _KIND[(kind, bool(floor))]]
+        sizes.append((K, m))
+        args.append((p, q, a["X0"], a["w"], sS, a["aD"], a["aL"], a["mask"],
+                     a["gamma"], a["nsig"]))
+    _, views = group_outputs(ref, sizes, 2)
+    ptrs = []
+    for ins, outs in zip(args, views):
+        ptrs += [None if t is None else t.data_ptr() for t in ins]
+        ptrs += [t.data_ptr() for t in outs]
+    c_dims, c_ptrs = launch_table(dims, ptrs)
+    lib = _build.library("projection_delta")
+    with torch.cuda.device(ref.device):
+        stream = torch.cuda.current_stream(ref.device).cuda_stream
+        rc = lib.cfmm_project_delta(
+            dtype_code(ref.dtype), ref.shape[0], len(names), c_dims, c_ptrs,
+            int(cfg.n_bisect), int(cfg.n_polish), stream,
+        )
+    _build.check_launch(rc, "project_delta")
+    _build.LAUNCHES["project_delta"] += 1
+    return {name: tuple(outs) for name, outs in zip(names, views)}
+
+
+def _project_one(kind, p, q, arrs, cfg):
+    """One bucket through the grouped kernel (a group of one)."""
+    group = dict(names=["bucket"], kinds=[kind])
+    return project_delta_grouped({"bucket": (p, q)}, {"bucket": arrs}, group,
+                                 cfg)["bucket"]
 
 
 def project_gm_delta_cuda(
@@ -151,10 +248,8 @@ def project_gm_delta_cuda(
     if p.device.type == "cpu":
         return project_gm_delta(p, q, X0, w, sS, gamma, nsig, aD, aL, mask,
                                 needs_floor=needs_floor, cfg=cfg)
-    check_cuda_args((p, q, X0, w, sS, aD, aL, mask), (gamma, nsig),
-                    "project_gm_delta")
-    return _launch_delta(_KIND[("gm", bool(needs_floor))], p, q, X0, w, sS, aD,
-                         aL, mask, gamma, nsig, cfg, "project_gm_delta")
+    arrs = dict(X0=X0, w=w, sS=sS, gamma=gamma, nsig=nsig, aD=aD, aL=aL, mask=mask)
+    return _project_one(("gm", bool(needs_floor)), p, q, arrs, cfg)
 
 
 def project_cs_delta_cuda(
@@ -166,6 +261,5 @@ def project_cs_delta_cuda(
     Returns (a, b), (K, m)."""
     if p.device.type == "cpu":
         return project_cs_delta(p, q, X0, gamma, w, tgt, aD, aL, mask, cfg=cfg)
-    check_cuda_args((p, q, X0, w, aD, aL, mask), (gamma, tgt), "project_cs_delta")
-    return _launch_delta(_KIND[("cs", True)], p, q, X0, w, None, aD, aL, mask,
-                         gamma, tgt, cfg, "project_cs_delta")
+    arrs = dict(X0=X0, w=w, gamma=gamma, nsig=tgt, aD=aD, aL=aL, mask=mask)
+    return _project_one(("cs", True), p, q, arrs, cfg)

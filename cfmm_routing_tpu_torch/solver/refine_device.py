@@ -14,7 +14,8 @@ certified gap by f32 correction solves on the card, certified in f64.
     RE-CENTRED at the base prices (:meth:`DeltaAdmmSolver._iterate`: the
     state dual is dnu = nu - nu0, so no degree-amplified O(d*|nu|) f32
     products enter the consensus).  On the card the iteration is the fused
-    ``fused_step_delta`` kernel, one launch per bucket.
+    ``fused_step_delta`` kernel, one launch per group of buckets with the
+    same channel count K (:meth:`DeltaAdmmSolver._delta_groups`).
 4.  Compose D = D0 + eps*a in f64 on the host and certify rigorously
     (``solver/certify.py``).  Passes re-centre at the refined point.
 
@@ -32,6 +33,7 @@ is ``ops/prox.py::delta_utility_prox``.  :func:`refine_sweep` is linear.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 from typing import Optional
 
@@ -40,15 +42,16 @@ import torch
 
 from .._device import host, resolve_device
 from ..models.utility import ConcaveUtility, Objective
-from ..ops.iteration_cuda import fused_step_delta
-from ..ops.projection_cuda import project_cs_delta_cuda, project_gm_delta_cuda
+from ..ops.iteration_cuda import fused_step_delta_grouped
+from ..ops.projection_cuda import MAX_GROUP, project_delta_grouped
+from ..ops.segment import slot_order
 from ..ops.prox import DeltaUtility, delta_utility_prox
 from .admm import AdmmOptions, AdmmSolver, RouteResult, _F32_BIG, _fused_ok
 from .certify import certify, certify_batch, dual_bound, polish_prices
 from .compiler import CompiledProblem
 from .refine import RefineResult, to_host
 
-__all__ = ["DeltaAdmmSolver", "refine_device", "refine_sweep",
+__all__ = ["DeltaAdmmSolver", "delta_groups", "refine_device", "refine_sweep",
            "SweepRefineResult"]
 
 _LOG = logging.getLogger("cfmm_routing_tpu_torch.refine_device")
@@ -60,19 +63,11 @@ class DeltaAdmmSolver(AdmmSolver):
     only the per-bucket projection changes.  The pass-varying delta arrays
     (X0, aD, aL, sS, nsig, nu0e) ride the ``buckets=`` override."""
 
-    def _project(self, name, arrs, pD, pL):
-        kind, floor = self._meta[name]
-        cfg = self.options.projection
-        if kind == "gm":
-            return project_gm_delta_cuda(
-                pD, pL, arrs["X0"], arrs["w"], arrs["sS"], arrs["gamma"],
-                arrs["nsig"], arrs["aD"], arrs["aL"], arrs["mask"],
-                needs_floor=floor, cfg=cfg,
-            )
-        return project_cs_delta_cuda(
-            pD, pL, arrs["X0"], arrs["gamma"], arrs["w"], arrs["nsig"],
-            arrs["aD"], arrs["aL"], arrs["mask"], cfg=cfg,
-        )
+    @functools.cached_property
+    def _delta_groups(self):
+        """This solver's :func:`delta_groups`, built once: only the topology
+        enters, which every ``delta_buckets`` call shares."""
+        return delta_groups(self)
 
     def _delta_prox(self, yhat, c, nu, lo, hi, rho, util=None):
         """The re-centred prox.  Linear: ``c`` carries e0 = c_true/rho - nu0
@@ -100,13 +95,21 @@ class DeltaAdmmSolver(AdmmSolver):
         pre-broadcast plane ``nu0e`` (no degree amplification)."""
         buckets = self.buckets if buckets is None else buckets
         alpha = self._alpha
-        w_hat = {}
-        w_norm2 = self._zeros()
-        yhat = self._zeros(self.n)
+        inputs = {}
         for name, arrs in buckets.items():
             off = arrs["nu0e"] + self._bcast_nu(nu, name, buckets)
             zD, zL = z[name]
-            D, L = self._project(name, arrs, zD - off, zL + off)
+            inputs[name] = (zD - off, zL + off)
+        proj = {}
+        for g in self._delta_groups:  # one projection launch per group
+            proj.update(project_delta_grouped(inputs, buckets, g,
+                                              cfg=self.options.projection))
+        w_hat = {}
+        w_norm2 = self._zeros()
+        yhat = self._zeros(self.n)
+        for name in buckets:
+            zD, zL = z[name]
+            D, L = proj[name]
             if with_stats:
                 w_norm2 = w_norm2 + (self._plane_sum(D * D) + self._plane_sum(L * L))
             hD = alpha * D + (1.0 - alpha) * zD
@@ -147,26 +150,26 @@ class DeltaAdmmSolver(AdmmSolver):
 
     def _iterate_fused(self, s, wdef, nu, rho, c, lo, hi, buckets=None,
                        util=None):
-        """Fused delta iteration: one ``fused_step_delta`` launch per bucket.
-        The deferred-broadcast identity z = s +/- wdef_e is untouched by
-        the re-centring (nu0e enters only the projection input, inside the
+        """Fused delta iteration: one ``fused_step_delta`` launch and one
+        segment sum per group of buckets with the same channel count
+        (:attr:`_delta_groups`), the groups' y added in group order.  The
+        deferred-broadcast identity z = s +/- wdef_e is untouched by the
+        re-centring (nu0e enters only the projection input, inside the
         kernel), so the O(n) recursion is the base fused path's."""
         buckets = self.buckets if buckets is None else buckets
         alpha = float(self.options.alpha)
         v, unpack = self._fold_pack(wdef - nu)
-        y = torch.zeros_like(v)
+        y = None
         s_new = {}
         w_out = {}
-        for name, arrs in buckets.items():
-            kind, floor = self._meta[name]
-            sD, sL = s[name]
-            sDn, sLn, A, B, yp = fused_step_delta(
-                sD, sL, v, arrs, kind, floor, alpha, cfg=self.options.projection,
+        for g in self._delta_groups:
+            sg, wg, yg = fused_step_delta_grouped(
+                s, v, buckets, g, alpha, cfg=self.options.projection,
                 fold=self._fold,
             )
-            s_new[name] = (sDn, sLn)
-            w_out[name] = (A, B)
-            y = y + yp
+            s_new.update(sg)
+            w_out.update(wg)
+            y = yg if y is None else y + yg
         yhat = unpack(y) - 2.0 * (1.0 - alpha) * self.degree * wdef
         psi, mu = self._delta_prox(yhat, c, nu, lo, hi, rho, util)
         wdef_new = (1.0 - alpha) * wdef + nu - mu
@@ -314,6 +317,32 @@ class DeltaAdmmSolver(AdmmSolver):
             rho_t, z0=z0, nu0=dnu0, max_iters=int(max_iters), buckets=bdict,
         )
         return fs._unfold_batch(res)
+
+
+def delta_groups(solver):
+    """A solver's buckets grouped by channel count K for the grouped delta
+    kernels (``fused_step_delta_grouped``, ``project_delta_grouped``):
+    groups in ascending K, buckets in sorted-name order inside a group, at
+    most ``MAX_GROUP`` buckets each.  A group holds its ``names``, their
+    ``kinds`` ((kind, needs_floor)) and its own fixed slot order
+    (``order``/``seg``) over the buckets' consensus-term planes flattened
+    one after another."""
+    by_k = {}
+    for name in sorted(solver.buckets):
+        by_k.setdefault(solver.buckets[name]["mask"].shape[0], []).append(name)
+    groups = []
+    for K, names in sorted(by_k.items()):
+        for i in range(0, len(names), MAX_GROUP):
+            part = names[i:i + MAX_GROUP]
+            flat = [np.concatenate([host(solver.buckets[nm][key]).reshape(-1)
+                                    for nm in part])
+                    for key in ("asset", "mask")]
+            order, seg = slot_order(*flat, solver.n)
+            groups.append(dict(
+                K=K, names=part, kinds=[solver._meta[nm] for nm in part],
+                order=torch.as_tensor(order, device=solver.device),
+                seg=torch.as_tensor(seg, device=solver.device)))
+    return groups
 
 
 def _np_dtype(dtype: torch.dtype):

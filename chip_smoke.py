@@ -15,24 +15,31 @@ Phases (any failure raises and the script exits nonzero):
       and ``project_cs`` (cs2f, cs4f) in float32 at the main path's
       ProjectionConfig(24, 4) and in float64 at the default (48, 6);
       ``fused_step`` and ``segment_sum`` on every bucket.
-   b. ``fused_step_delta`` and the standalone ``project_gm_delta`` /
-      ``project_cs_delta`` at the same five shapes, on the delta arrays
-      that ``DeltaAdmmSolver.delta_buckets`` builds from a real 100k base
-      solve, after 5 plain fused delta iterations: float32 and float64 at
-      (48, 6).
+   b. The grouped delta kernels: ``fused_step_delta_grouped`` (with its
+      segment sum) and the standalone delta projection
+      ``project_delta_grouped`` (``project_gm_delta`` + ``project_cs_delta``)
+      on the two K-groups of the five 100k bucket shapes (K=2: cs2f gm2
+      gm2f, K=4: cs4f gm4), on the delta arrays that
+      ``DeltaAdmmSolver.delta_buckets`` builds from a real 100k base solve,
+      after 5 plain fused delta iterations: float32 and float64 at (48, 6),
+      bitwise equal to their plain versions and to a second launch.  Device
+      times per iteration from CUDA graphs, also of the same kernel
+      launched once per bucket (five groups of one).
    c. Any K: a network of 3-, 5- and 12-asset pools compiled with
-      ``pad_pow2=False`` (the run-time-K kernels) and ``pad_pow2=True``
-      (K = 4, 8, 16): all six kernels in float32.
+      ``pad_pow2=False`` (the run-time-K kernels; 4, 8 and 16 lanes per
+      delta pool) and ``pad_pow2=True`` (K = 4, 8, 16), and one of
+      40-asset pools (one thread per delta pool): every kernel in float32,
+      the grouped delta kernels bitwise.
    Tolerances: projections atol 5e-5 (float32) / 1e-10 (float64); fused
    steps atol 2e-5 (1e-10) on the planes and also rtol 1e-5 on y; the
-   segment sum must be bitwise equal to its plain version, whose order of
-   additions the plain fused steps share.
+   segment sum and the grouped delta kernels must be bitwise equal to
+   their plain versions, whose order of additions they share.
 3. The reference optima on the card: in float64 through ``api.arbitrage`` /
    ``api.liquidate`` / ``api.route(certify=True)``, each pin to 1e-6; in
    float32 through the same calls with ``refine_to=1e-7`` (bench.py's base
    options), each certified and pinned to 2e-6; and again compiled with
    ``pad_pools_to=128`` through ``refine_device(fused=True)``, where the
-   ``fused_step_delta`` launches must equal buckets x fused iterations.
+   ``fused_step_delta`` launches must equal K-groups x fused iterations.
 4. The main path at full width: ``random_arbitrage_table(256, 100_000,
    seed=7)`` -> ``equilibrate`` -> ``compile_table(pad_pools_to=1024)`` ->
    ``AdmmSolver.solve_fused(iters=499)`` in float32 -> ``unscale_result`` ->
@@ -44,9 +51,11 @@ Phases (any failure raises and the script exits nonzero):
    ``AdmmSolver.solve`` (max_iters=3000, eps 1e-7, ProjectionConfig(24, 4))
    -> ``refine_device(target_gap=1e-6)`` on the fused delta kernel, with the
    certificate in original units.  Counts reset before, read after; the
-   kernel must run 5 launches per fused delta iteration, no host fallback
-   may be taken, and the certificate must be finite and no worse than at
-   entry.  Whether 1e-6 was reached is printed, not asserted.
+   fused delta kernel must run 2 launches per fused delta iteration (one
+   per K-group) and the delta projection 2 per classic delta iteration, no
+   host fallback may be taken, and the certificate must be finite and no
+   worse than at entry.  Whether 1e-6 was reached is printed, not
+   asserted.
 6. Sweeps and batches (each main-path run with the counts reset just
    before it and read just after, and every call a kernel wrapper makes to
    a plain version counted: there must be none).
@@ -54,7 +63,8 @@ Phases (any failure raises and the script exits nonzero):
       against their plain versions at the folded shapes of 6b (float32 at
       (24, 4) and (48, 6), float64 at (48, 6)) and at 1,000 pools / 64
       assets x T = 1,024 in float32, whose 65,536 prices exceed one block's
-      shared memory: bitwise equal, planes and y.
+      shared memory: bitwise equal, planes and y (the delta step grouped
+      by K).
    b. BASELINE config 5: the 100k network of phase 4 under 8 reserve
       scenarios (``uniform(0.7, 1.3, (8, n_pools))``, ``bench_grid.py:529``)
       -> ``solve_batch_reserves_folded(n_iters=749)`` in float32: 749 fused
@@ -67,7 +77,9 @@ Phases (any failure raises and the script exits nonzero):
       (``bench_grid.py:443-481``) -> ``solve_batch_folded`` (fused
       ``ChunkedDriver``, eps 1e-6) -> ``refine_sweep(target_gap=1e-6)`` on
       ``fused_step_delta(fold=)``.  Every certificate finite and no worse
-      than at entry; how many points reach 1e-6 is printed.
+      than at entry; how many points reach 1e-6 is printed.  Then the
+      grouped fold delta step at these 10k x 50 shapes, where its launches
+      happen: bitwise equal to its plain version, and its device time.
    d. The reference's 51-point frontier: ``api.sweep(two-asset, 0, 2,
       linspace(0, 50, 51), refine_to=1e-6)`` in float32: every point
       certified at 1e-6, u(25) = 31.005495 to 2e-6.
@@ -100,7 +112,8 @@ from CUDA events around CUDA-graph replays of back-to-back calls, summed
 over the buckets one iteration runs; the plain fused steps and the plain
 segment sum, which read a size back to the host, from eager calls; the
 fused steps' times include their segment-sum launch; the fold kernels'
-times are summed over the 6b buckets; bounds from this run's shapes;
+times are summed over the 6b buckets; the grouped delta kernels' times
+over the K-groups of one iteration; bounds from this run's shapes;
 launches summed over the main-path runs of phases 4, 5, 6b-6d and 7b-7d),
 the card's name and power limit as ``nvidia-smi``
 reports them, and last ``{"ok": true, "device": {"platform": "gpu",
@@ -132,11 +145,10 @@ SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
                    "cfmm_routing_tpu/ops/projection_pallas.py:303"),
     "project_cs": ("cfmm_routing_tpu_torch/csrc/projection.cu",
                    "cfmm_routing_tpu/ops/projection_pallas.py:319"),
-    # the refinement's classic projections: plain jnp on the TPU, no Pallas
-    "project_gm_delta": ("cfmm_routing_tpu_torch/csrc/projection_delta.cu",
-                         "cfmm_routing_tpu/ops/projection_delta.py:188"),
-    "project_cs_delta": ("cfmm_routing_tpu_torch/csrc/projection_delta.cu",
-                         "cfmm_routing_tpu/ops/projection_delta.py:237"),
+    # the refinement's classic projections (project_gm_delta and
+    # project_cs_delta, one grouped launch): plain jnp on the TPU, no Pallas
+    "project_delta": ("cfmm_routing_tpu_torch/csrc/projection_delta.cu",
+                      "cfmm_routing_tpu/ops/projection_delta.py:188,237"),
     "fused_step": ("cfmm_routing_tpu_torch/csrc/fused_step.cu",
                    "cfmm_routing_tpu/ops/iteration_pallas.py:260"),
     "fused_step_delta": ("cfmm_routing_tpu_torch/csrc/fused_step_delta.cu",
@@ -270,6 +282,22 @@ def bitwise(label, got, want):
                 f"(max diff {float((a - b).abs().max()):.3e})")
 
 
+def grouped_leaves(out):
+    """The tensors of a grouped delta kernel's result in a fixed order: the
+    fused step's (s', w, y) or the projection's {bucket: (a, b)}."""
+    if isinstance(out, dict):
+        return [t for name in sorted(out) for t in out[name]]
+    s_new, w, y = out
+    return [t for d in (s_new, w) for name in sorted(d) for t in d[name]] + [y]
+
+
+def group_bound(bounds):
+    """A K-group's bound: its buckets' (bound_ms, bound_by) summed, as the
+    per-bucket rows were."""
+    by = {b for _, b in bounds}
+    return sum(t for t, _ in bounds), ("operations" if by == {"operations"} else "bytes")
+
+
 def fused_fold_bytes(K, m, n_pad, es, delta):
     """Bytes a fused step must move on one bucket: each input read once
     (slot planes, int32 ids, per-pool vectors, the price vector), each
@@ -287,10 +315,12 @@ def count_plain_calls(counter):
 
     targets = [(iteration_cuda, "fused_step_plain"),
                (iteration_cuda, "fused_step_delta_plain"),
+               (iteration_cuda, "fused_step_delta_grouped_plain"),
                (iteration_cuda, "fused_step_merged_plain"),
                (projection_cuda, "project_gm"), (projection_cuda, "project_cs"),
                (projection_cuda, "project_gm_delta"),
                (projection_cuda, "project_cs_delta"),
+               (projection_cuda, "project_delta_grouped_plain"),
                (segment, "segment_sum_plain")]
     saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
 
@@ -317,7 +347,8 @@ def sweep_phase(report, rows, card, cfg_main, cfg64):
     from cfmm_routing_tpu_torch.models.reference_instances import two_asset_instance
     from cfmm_routing_tpu_torch.ops import _build
     from cfmm_routing_tpu_torch.ops.iteration_cuda import (
-        fused_step, fused_step_delta, fused_step_delta_plain, fused_step_plain,
+        fused_step, fused_step_delta_grouped, fused_step_delta_grouped_plain,
+        fused_step_plain,
     )
     from cfmm_routing_tpu_torch.solver.admm import AdmmOptions, AdmmSolver, _reserve_buckets
     from cfmm_routing_tpu_torch.solver.certify import certify_batch
@@ -327,7 +358,7 @@ def sweep_phase(report, rows, card, cfg_main, cfg64):
     )
     from cfmm_routing_tpu_torch.solver.precondition import equilibrate
     from cfmm_routing_tpu_torch.solver.refine_device import (
-        _delta_buckets_folded, _psi_batch, refine_sweep,
+        _delta_buckets_folded, _psi_batch, delta_groups, refine_sweep,
     )
     from cfmm_routing_tpu_torch.utils.synth import random_arbitrage_table
 
@@ -341,6 +372,60 @@ def sweep_phase(report, rows, card, cfg_main, cfg64):
         K, m = arrs["mask"].shape
         return tuple(torch.as_tensor(rng.uniform(-1, 1, (K, m)), dtype=arrs["mask"].dtype,
                                      device="cuda") * arrs["mask"] for _ in range(2))
+
+    def half(d):
+        return {k: 0.5 * np.asarray(x, np.float64) for k, x in d.items()}
+
+    def fold_delta_check(slv, bd, vvec, rng, label, timed, f64=True):
+        """``fused_step_delta(fold=)`` grouped by K on the folded delta arrays
+        ``bd`` of the folded solver ``slv`` from a random state: bitwise
+        equal to its plain version (float32, and float64 if ``f64``) and to
+        a second launch.  With ``timed``, returns one float32 row per group:
+        device time from CUDA graphs, the plain version's, the bound."""
+        st = {name: delta_state(a, rng) for name, a in bd.items()}
+        n_v = vvec.shape[0]
+        out_rows = []
+        for g in delta_groups(slv):
+            K = g["K"]
+            ms = [int(bd[nm]["mask"].shape[1]) for nm in g["names"]]
+            kfn = lambda: fused_step_delta_grouped(st, vvec, bd, g, 1.0, cfg=cfg64,  # noqa: E731
+                                                   fold=slv._fold)
+            pfn = lambda: fused_step_delta_grouped_plain(st, vvec, bd, g, 1.0,  # noqa: E731
+                                                         cfg=cfg64, fold=slv._fold)
+            got, again, want = kfn(), kfn(), pfn()
+            torch.cuda.synchronize()
+            bitwise(f"fused_step_delta fold[K={K}, {label}, float32]", grouped_leaves(got),
+                    grouped_leaves(want))
+            bitwise(f"fused_step_delta fold[K={K}, {label}] second launch",
+                    grouped_leaves(again), grouped_leaves(got))
+            del got, again, want
+            if f64:
+                st64 = {nm: tuple(x.double() for x in st[nm]) for nm in g["names"]}
+                bd64 = {nm: as64(bd[nm]) for nm in g["names"]}
+                got = fused_step_delta_grouped(st64, vvec.double(), bd64, g, 1.0, cfg=cfg64,
+                                               fold=slv._fold)
+                want = fused_step_delta_grouped_plain(st64, vvec.double(), bd64, g, 1.0,
+                                                      cfg=cfg64, fold=slv._fold)
+                torch.cuda.synchronize()
+                bitwise(f"fused_step_delta fold[K={K}, {label}, float64]",
+                        grouped_leaves(got), grouped_leaves(want))
+                del st64, bd64, got, want
+            if not timed:
+                continue
+            row = dict(group=K, buckets=g["names"], dtype="float32", K=K, m=sum(ms),
+                       fold=list(slv._fold), cfg=list(cfg64), max_abs_err=0.0,
+                       ms=graph_ms(kfn), plain_ms=eager_ms(pfn, n=1))
+            row["bound_ms"], row["bound_by"] = group_bound([
+                bound_ms(fused_fold_bytes(K, m, n_v, 4, True),
+                         projection_flops(cfg64, K, m, per_step=80), torch.float32)
+                for m in ms])
+            out_rows.append(row)
+            log(f"# 6a fused_step_delta fold K={K} {g['names']} T*m={sum(ms)} ({label}): "
+                f"bitwise equal to plain{' in float32 and float64' if f64 else ''} and "
+                f"across launches; kernel {row['ms']:.4f} ms (1 launch + 1 segment sum)  "
+                f"plain {row['plain_ms']:.2f} ms  bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']})")
+        return out_rows
 
     # ---- the 6b network: 100k pools x 8 reserve scenarios, folded ----------
     t_phase = time.perf_counter()
@@ -453,41 +538,15 @@ def sweep_phase(report, rows, card, cfg_main, cfg64):
         launches=launches6b, repeat_bitwise_equal=True)
     del solver_b, res_c
 
-    # ---- 6a (cont.). fused_step_delta(fold=) at the 6b shapes --------------
+    # ---- 6a (cont.). fused_step_delta(fold=), grouped, at the 6b shapes ----
     nu0f = np.asarray(res_b.prices, np.float64).astype(np.float32).astype(np.float64)
-    half = lambda d: {k: 0.5 * np.asarray(x, np.float64) for k, x in d.items()}  # noqa: E731
     bd, min_x0 = _delta_buckets_folded(fs, half(res_b.deltas), half(res_b.lambdas),
                                        np.full(B, 1e-3), nu0f)
     if not (min_x0 > 0).all():
         raise AssertionError(f"delta arrays at the 6b shapes: min x0 {min_x0}")
     rng = np.random.default_rng(5)
     vd = torch.as_tensor(0.3 * rng.normal(size=n_pad), dtype=torch.float32, device="cuda")
-    for name, arrs in bd.items():
-        kind, floor = fs._meta[name]
-        K, m = arrs["mask"].shape
-        sD, sL = delta_state(arrs, rng)
-        kfn = lambda: fused_step_delta(sD, sL, vd, arrs, kind, floor, 1.0, cfg=cfg64, fold=fold)  # noqa: E731
-        pfn = lambda: fused_step_delta_plain(sD, sL, vd, arrs, kind, floor, 1.0, cfg=cfg64, fold=fold)  # noqa: E731
-        got, want = kfn(), pfn()
-        torch.cuda.synchronize()
-        bitwise(f"fused_step_delta fold[{name}, float32]", got, want)
-        row = dict(bucket=name, dtype="float32", K=K, m=m, fold=list(fold), cfg=list(cfg64),
-                   max_abs_err=max_err(got, want), ms=graph_ms(kfn), plain_ms=eager_ms(pfn, n=1))
-        row["bound_ms"], row["bound_by"] = bound_ms(
-            fused_fold_bytes(K, m, n_pad, 4, True), projection_flops(cfg64, K, m, per_step=80),
-            torch.float32)
-        rows["fused_step_delta_fold"].append(row)
-        a64 = as64(arrs)
-        got = fused_step_delta(sD.double(), sL.double(), vd.double(), a64, kind, floor, 1.0,
-                               cfg=cfg64, fold=fold)
-        want = fused_step_delta_plain(sD.double(), sL.double(), vd.double(), a64, kind, floor,
-                                      1.0, cfg=cfg64, fold=fold)
-        torch.cuda.synchronize()
-        bitwise(f"fused_step_delta fold[{name}, float64]", got, want)
-        log(f"# 6a fused_step_delta fold {name:5s} K={K} T*m={m}: bitwise equal to plain in "
-            f"float32 and float64; kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.2f} ms  "
-            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
-        del a64, got, want
+    rows["fused_step_delta_fold"] += fold_delta_check(fs, bd, vd, rng, "6b", timed=True)
     del bd, bdict, st, fs, res_b, res_b2
     torch.cuda.empty_cache()
 
@@ -507,14 +566,13 @@ def sweep_phase(report, rows, card, cfg_main, cfg64):
         kind, floor = s1k._meta[name]
         K, m = arrs["mask"].shape
         sD, sL = delta_state(arrs, rng)
-        for label, kfn, pfn, a, cfg in (
-                ("fused_step", fused_step, fused_step_plain, arrs, cfg_main),
-                ("fused_step_delta", fused_step_delta, fused_step_delta_plain, bd1[name], cfg64)):
-            got = kfn(sD, sL, v1, a, kind, floor, 1.0, cfg=cfg, fold=s1k._fold)
-            want = pfn(sD, sL, v1, a, kind, floor, 1.0, cfg=cfg, fold=s1k._fold)
-            torch.cuda.synchronize()
-            bitwise(f"{label} fold[{name}, 1k x {T1}]", got, want)
+        got = fused_step(sD, sL, v1, arrs, kind, floor, 1.0, cfg=cfg_main, fold=s1k._fold)
+        want = fused_step_plain(sD, sL, v1, arrs, kind, floor, 1.0, cfg=cfg_main,
+                                fold=s1k._fold)
+        torch.cuda.synchronize()
+        bitwise(f"fused_step fold[{name}, 1k x {T1}]", got, want)
         big.append(dict(bucket=name, K=K, m=m))
+    fold_delta_check(s1k, bd1, v1, rng, f"1k x {T1}", timed=False, f64=False)
     log(f"# 6a 1,000 pools / 64 assets x T={T1} ({sum(b['m'] for b in big)} folded pools; "
         f"{T1 * c_1k.n_assets} prices, {T1 * c_1k.n_assets * 4 // 1024} KB, more than one "
         f"block's 227 KB of shared memory): both fold kernels bitwise equal to plain on "
@@ -560,11 +618,28 @@ def sweep_phase(report, rows, card, cfg_main, cfg64):
         vals = (ct.objective, ct.dual_bound, ct.gap_rel, ct.feasibility_rel)
         if not all(math.isfinite(x) for x in vals) or not score(ct) <= score(ce):
             raise AssertionError(f"6c point {t}: {ct.summary()} (entry {score(ce):.3e})")
+    # the grouped fold delta step at these shapes, where its launches happen
+    fsc, _ = folded_solver(compiled, Tc, opts_s, torch.float32)
+    nu0c = np.asarray(out_s.prices, np.float64).astype(np.float32).astype(np.float64)
+    bdc, min_x0 = _delta_buckets_folded(fsc, half(out_s.deltas), half(out_s.lambdas),
+                                        np.full(Tc, 1e-3), nu0c)
+    if not (min_x0 > 0).all():
+        raise AssertionError(f"delta arrays at the 6c shapes: min x0 {min_x0}")
+    vc = torch.as_tensor(0.3 * rng.normal(size=-(-fsc.n // 128) * 128), dtype=torch.float32,
+                         device="cuda")
+    rows6c = fold_delta_check(fsc, bdc, vc, rng, f"10k x {Tc}", timed=True, f64=False)
+    del fsc, bdc
     out["certified_sweep"] = dict(
         T=Tc, solve_iters=int(out_s.iters[0]), solve_s=solve_s, refine_iters=int(ref_s.iters),
         refine_s=refine_s, certified=n_ok, launches=launches6c,
         entry_worst=max(score(ce) for ce in entry),
-        final_worst=max(score(ct) for ct in ref_s.certificates))
+        final_worst=max(score(ct) for ct in ref_s.certificates),
+        fused_step_delta_fold=rows6c,
+        fused_step_delta_fold_ms=sum(r["ms"] for r in rows6c),
+        fused_step_delta_fold_bound_ms=sum(r["bound_ms"] for r in rows6c))
+    log(f"# 6c grouped fused_step_delta(fold=) at 10k x {Tc}: "
+        f"{sum(r['ms'] for r in rows6c):.4f} ms per iteration (bound "
+        f"{sum(r['bound_ms'] for r in rows6c):.4f} ms)")
 
     # ---- 6d. the reference's 51-point frontier (two-asset.py) ---------------
     spec, _ = two_asset_instance()
@@ -798,9 +873,13 @@ def merged_utility_phase(report, rows, card, cfg_main, cfg64, counting_solver, r
         f"({dsolver.chunks} chunks, {fused_iters} fused) in {t_end - t0:.3f} s; "
         f"{t_end - t_base0:.3f} s from the base solve's start; final gap_rel "
         f"{fc.gap_rel:.3e} feasibility_rel {fc.feasibility_rel:.3e}; launches {counts}")
-    if (plain7 or counts["fused_step_delta"] == 0
-            or counts["fused_step_delta"] != len(compiled_u.buckets) * fused_iters):
-        raise AssertionError(f"7c: launches {counts}, plain versions {plain7}")
+    n_groups = len(dsolver._delta_groups)
+    if (plain7 or counts["fused_step_delta"] == 0 or n_groups != 2
+            or counts["fused_step_delta"] != n_groups * fused_iters
+            or counts["project_delta"] != n_groups * dsolver.chunks):
+        raise AssertionError(f"7c: launches {counts} ({n_groups} K-groups, {fused_iters} "
+                             f"fused and {dsolver.chunks} classic delta iterations), "
+                             f"plain versions {plain7}")
     if not (rout.achieved and abs(fc.gap_rel) <= 1e-6 and fc.feasibility_rel <= 1e-6):
         raise AssertionError(f"7c: the utility route did not certify at 1e-6: {fc.summary()}")
     route_c = dict(base_iters=int(res.iters), base_s=base_s, refine_iters=int(rout.iters),
@@ -888,11 +967,12 @@ def main(argv=None):
     from cfmm_routing_tpu_torch.ops import _build
     from cfmm_routing_tpu_torch.ops import projection as plain
     from cfmm_routing_tpu_torch.ops.iteration_cuda import (
-        fused_step, fused_step_delta, fused_step_delta_plain, fused_step_plain,
+        fused_step, fused_step_delta, fused_step_delta_grouped,
+        fused_step_delta_grouped_plain, fused_step_plain,
     )
     from cfmm_routing_tpu_torch.ops.projection_cuda import (
-        project_cs_cuda, project_cs_delta_cuda, project_gm_cuda,
-        project_gm_delta_cuda,
+        project_cs_cuda, project_cs_delta_cuda, project_delta_grouped,
+        project_delta_grouped_plain, project_gm_cuda, project_gm_delta_cuda,
     )
     from cfmm_routing_tpu_torch.ops.projection_delta import (
         project_cs_delta, project_gm_delta,
@@ -942,9 +1022,8 @@ def main(argv=None):
                  (admm_mod, "project_gm_cuda", plain.project_gm),
                  (admm_mod, "project_cs_cuda", plain.project_cs),
                  (admm_mod, "segment_sum", segment_sum_plain),
-                 (rd_mod, "fused_step_delta", fused_step_delta_plain),
-                 (rd_mod, "project_gm_delta_cuda", project_gm_delta),
-                 (rd_mod, "project_cs_delta_cuda", project_cs_delta)]
+                 (rd_mod, "fused_step_delta_grouped", fused_step_delta_grouped_plain),
+                 (rd_mod, "project_delta_grouped", project_delta_grouped_plain)]
         saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
         for mod, name, fn in swaps:
             setattr(mod, name, fn)
@@ -1067,7 +1146,7 @@ def main(argv=None):
     del solver64
     log(f"# phase 2a (base kernels vs plain) done in {time.perf_counter() - t_phase:.1f} s")
 
-    # ---- 2b. fused_step_delta vs plain on real delta arrays -----------------
+    # ---- 2b. the grouped delta kernels vs plain on real delta arrays --------
     t_phase = time.perf_counter()
     base = to_host(solver.solve_fused(eq.objective, iters=20))
     base = base._replace(psi=_psi_from_trades(compiled, base))
@@ -1076,7 +1155,7 @@ def main(argv=None):
     eps = 1e-3
     dobj = _delta_objective(eq.objective, base.psi, eps)
     delta_opts = AdmmOptions(adapt_rho=False, projection=cfg64)
-    for dtype, atol in ((torch.float32, 2e-5), (torch.float64, 1e-10)):
+    for dtype in (torch.float32, torch.float64):
         ds = DeltaAdmmSolver(compiled, dtype=dtype, options=delta_opts)
         bdict, min_x0 = ds.delta_buckets(base, eps, nu0=nu0f)
         if not min_x0 > 0:
@@ -1090,66 +1169,99 @@ def main(argv=None):
                 st, wd, dnu, _, _ = ds._iterate_fused(st, wd, dnu, rho_t, dc, dlo, dhi,
                                                       buckets=bdict)
         dv, _ = ds._fold_pack(wd - dnu)
+        groups = ds._delta_groups
+        if [g["names"] for g in groups] != [["cs2f", "gm2", "gm2f"], ["cs4f", "gm4"]]:
+            raise AssertionError(f"unexpected delta groups {[g['names'] for g in groups]}")
+        dname = str(dtype).split(".")[1]
+        es = 4 if dtype == torch.float32 else 8
+        pin = {}  # the standalone projection's input at this step
         for name, arrs in bdict.items():
-            kind, floor = ds._meta[name]
-            K, m = arrs["mask"].shape
-            sD, sL = st[name]
-            kfn = lambda: fused_step_delta(sD, sL, dv, arrs, kind, floor, 1.0, cfg=cfg64)  # noqa: E731
-            pfn = lambda: fused_step_delta_plain(sD, sL, dv, arrs, kind, floor, 1.0, cfg=cfg64)  # noqa: E731
-            got, want = kfn(), pfn()
-            torch.cuda.synchronize()
-            err = max_err(got, want)
-            dname = str(dtype).split(".")[1]
-            check_fused(f"fused_step_delta[{name}, {dname}]", got, want, atol)
-            row = dict(bucket=name, dtype=dname, K=K, m=m, cfg=list(cfg64),
-                       max_abs_err=err, planes_err=max_err(got[:4], want[:4]),
-                       ms=graph_ms(kfn), plain_ms=eager_ms(pfn))
-            es = 4 if dtype == torch.float32 else 8
-            # sD sL X0 w sS aD aL mask nu0e + asset ids + gamma nsig + v in;
-            # sD' sL' A B + the consensus-term plane out
-            dbytes = es * (14 * K * m + 2 * m + n_pad) + 4 * K * m
-            row["bound_ms"], row["bound_by"] = bound_ms(
-                dbytes, projection_flops(cfg64, K, m, per_step=80), dtype)
-            rows["fused_step_delta"].append(row)
-            log(f"# fused_step_delta {name:5s} {dname} K={K} m={m}: max|kernel-plain| "
-                f"planes {row['planes_err']:.3e} all {err:.3e}  kernel {row['ms']:.4f} ms  "
-                f"plain {row['plain_ms']:.2f} ms  bound {row['bound_ms']:.4f} ms "
-                f"({row['bound_by']})")
-            # the standalone delta projection at this step's input
             off = ds._bcast_nu(wd - dnu, name, bdict) - arrs["nu0e"]
-            kfn, pfn = delta_projection_calls(
-                kind, floor, sD + off, sL - off, arrs, cfg64,
-                (project_gm_delta_cuda, project_cs_delta_cuda),
-                (project_gm_delta, project_cs_delta))
-            got, want = kfn(), pfn()
+            pin[name] = (st[name][0] + off, st[name][1] - off)
+        for g in groups:
+            K = g["K"]
+            ms = [int(bdict[nm]["mask"].shape[1]) for nm in g["names"]]
+            kfn = lambda: fused_step_delta_grouped(st, dv, bdict, g, 1.0, cfg=cfg64)  # noqa: E731
+            pfn = lambda: fused_step_delta_grouped_plain(st, dv, bdict, g, 1.0, cfg=cfg64)  # noqa: E731
+            got, again, want = kfn(), kfn(), pfn()
             torch.cuda.synchronize()
-            kname = "project_gm_delta" if kind == "gm" else "project_cs_delta"
-            check_close(f"{kname}[{name}, {dname}]", got, want,
-                        5e-5 if dtype == torch.float32 else 1e-10)
-            row = dict(bucket=name, dtype=dname, K=K, m=m, cfg=list(cfg64),
-                       max_abs_err=max_err(got, want), ms=graph_ms(kfn),
+            bitwise(f"fused_step_delta[K={K}, {dname}]", grouped_leaves(got),
+                    grouped_leaves(want))
+            bitwise(f"fused_step_delta[K={K}, {dname}] second launch", grouped_leaves(again),
+                    grouped_leaves(got))
+            row = dict(group=K, buckets=g["names"], dtype=dname, K=K, m=sum(ms),
+                       cfg=list(cfg64), max_abs_err=0.0, ms=graph_ms(kfn),
+                       plain_ms=eager_ms(pfn))
+            # per bucket: sD sL X0 w sS aD aL mask nu0e + asset ids + gamma nsig
+            # + v in; sD' sL' A B + the consensus-term plane out
+            row["bound_ms"], row["bound_by"] = group_bound([
+                bound_ms(es * (14 * K * m + 2 * m + n_pad) + 4 * K * m,
+                         projection_flops(cfg64, K, m, per_step=80), dtype) for m in ms])
+            rows["fused_step_delta"].append(row)
+            log(f"# fused_step_delta K={K} {g['names']} {dname} m={sum(ms)}: bitwise equal "
+                f"to plain and across launches; kernel {row['ms']:.4f} ms (1 launch + 1 "
+                f"segment sum)  plain {row['plain_ms']:.2f} ms  bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']})")
+            kfn = lambda: project_delta_grouped(pin, bdict, g, cfg=cfg64)  # noqa: E731
+            pfn = lambda: project_delta_grouped_plain(pin, bdict, g, cfg=cfg64)  # noqa: E731
+            got, again, want = kfn(), kfn(), pfn()
+            torch.cuda.synchronize()
+            bitwise(f"project_delta[K={K}, {dname}]", grouped_leaves(got), grouped_leaves(want))
+            bitwise(f"project_delta[K={K}, {dname}] second launch", grouped_leaves(again),
+                    grouped_leaves(got))
+            row = dict(group=K, buckets=g["names"], dtype=dname, K=K, m=sum(ms),
+                       cfg=list(cfg64), max_abs_err=0.0, ms=graph_ms(kfn),
                        plain_ms=graph_ms(pfn, n=2, reps=3))
-            # p q X0 w (sS) aD aL mask + gamma nsig in; a b out
-            planes = 10 if kind == "gm" else 9
-            row["bound_ms"], row["bound_by"] = bound_ms(
-                es * (planes * K * m + 2 * m), projection_flops(cfg64, K, m, per_step=80),
-                dtype)
-            rows[kname].append(row)
-            log(f"# {kname} {name:5s} {dname} K={K} m={m}: max|kernel-plain| "
-                f"{row['max_abs_err']:.3e}  kernel {row['ms']:.4f} ms  plain "
+            # per bucket: p q X0 w (sS) aD aL mask + gamma nsig in; a b out
+            row["bound_ms"], row["bound_by"] = group_bound([
+                bound_ms(es * ((10 if ds._meta[nm][0] == "gm" else 9) * K * m + 2 * m),
+                         projection_flops(cfg64, K, m, per_step=80), dtype)
+                for nm, m in zip(g["names"], ms)])
+            rows["project_delta"].append(row)
+            log(f"# project_delta K={K} {g['names']} {dname} m={sum(ms)}: bitwise equal to "
+                f"plain and across launches; kernel {row['ms']:.4f} ms  plain "
                 f"{row['plain_ms']:.2f} ms  bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
-        del ds, bdict, st
-    log(f"# phase 2b (fused_step_delta vs plain) done in {time.perf_counter() - t_phase:.1f} s")
+        if dtype == torch.float32:
+            # the same kernels launched once per bucket (five groups of one),
+            # and one whole fused delta iteration, in this run
+            one_fused = one_proj = 0.0
+            for name, arrs in bdict.items():
+                kind, floor = ds._meta[name]
+                sD, sL = st[name]
+                one_fused += graph_ms(lambda: fused_step_delta(
+                    sD, sL, dv, arrs, kind, floor, 1.0, cfg=cfg64))
+                one_proj += graph_ms(delta_projection_calls(
+                    kind, floor, *pin[name], arrs, cfg64,
+                    (project_gm_delta_cuda, project_cs_delta_cuda),
+                    (project_gm_delta, project_cs_delta))[0])
+            it_ms = graph_ms(lambda: ds._iterate_fused(st, wd, dnu, rho_t, dc, dlo, dhi,
+                                                       buckets=bdict), n=10, reps=5)
+            grouped = {k: sum(r["ms"] for r in rows[k] if r["dtype"] == "float32")
+                       for k in ("fused_step_delta", "project_delta")}
+            log(f"# 2b device ms per iteration (CUDA graphs, float32, (48, 6)): fused delta "
+                f"step 2 grouped launches + 2 segment sums {grouped['fused_step_delta']:.4f} vs "
+                f"5 + 5 as groups of one {one_fused:.4f}; delta projection 2 grouped "
+                f"launches {grouped['project_delta']:.4f} vs 5 as groups of one "
+                f"{one_proj:.4f}; one whole fused delta iteration {it_ms:.4f}")
+            report["delta_grouping"] = dict(
+                fused_grouped_ms=grouped["fused_step_delta"], fused_per_bucket_ms=one_fused,
+                project_grouped_ms=grouped["project_delta"], project_per_bucket_ms=one_proj,
+                fused_iteration_ms=it_ms)
+        del ds, bdict, st, pin
+    log(f"# phase 2b (grouped delta kernels vs plain) done in "
+        f"{time.perf_counter() - t_phase:.1f} s")
 
     # ---- 2c. any K: run-time-K and K = 4, 8, 16 instantiations ---------------
     t_phase = time.perf_counter()
-    spec_w, obj_w = mixed_width_arbitrage(seed=2)
     cfg_w = plain.ProjectionConfig()
     any_k = []
-    for pad_pow2 in (False, True):
+    # K = 40: one thread per delta pool (the form for K > 32)
+    for pad_pow2, want_w in ((False, [3, 5, 12]), (True, [4, 8, 16]), (False, [40])):
+        spec_w, obj_w = mixed_width_arbitrage(
+            widths=(40,) if want_w == [40] else (3, 5, 12),
+            n_assets=48 if want_w == [40] else 16, seed=2)
         comp_w = compile_spec(spec_w, pad_pow2=pad_pow2, pad_pools_to=128)
         widths = sorted({b.width for b in comp_w.buckets.values()})
-        want_w = [4, 8, 16] if pad_pow2 else [3, 5, 12]
         if widths != want_w:
             raise AssertionError(f"widths {widths} != {want_w}")
         sw = AdmmSolver(comp_w, options=AdmmOptions(max_iters=200, check_every=25,
@@ -1164,6 +1276,7 @@ def main(argv=None):
         rng = np.random.default_rng(5)
         vw = torch.as_tensor(rng.normal(size=128), dtype=torch.float32, device="cuda")
         worst = 0.0
+        s_w = {}
         for name, arrs in sw.buckets.items():
             kind, floor = sw._meta[name]
             K, m = arrs["mask"].shape
@@ -1182,27 +1295,28 @@ def main(argv=None):
             torch.cuda.synchronize()
             check_close(f"any-K projection[{name}, K={K}]", got, want, 5e-5)
             worst = max(worst, max_err(got, want))
-            kfn, pfn = delta_projection_calls(
-                kind, floor, sD, sL, bd_w[name], cfg_w,
-                (project_gm_delta_cuda, project_cs_delta_cuda),
-                (project_gm_delta, project_cs_delta))
-            got, want = kfn(), pfn()
+            got = fused_step(sD, sL, vw, arrs, kind, floor, 1.5, cfg=cfg_w)
+            want = fused_step_plain(sD, sL, vw, arrs, kind, floor, 1.5, cfg=cfg_w)
             torch.cuda.synchronize()
-            check_close(f"any-K delta projection[{name}, K={K}]", got, want, 5e-5)
-            worst = max(worst, max_err(got, want))
-            for label, kfn, pfn, a2 in (
-                    ("fused_step", fused_step, fused_step_plain, arrs),
-                    ("fused_step_delta", fused_step_delta, fused_step_delta_plain,
-                     bd_w[name])):
-                got = kfn(sD, sL, vw, a2, kind, floor, 1.5, cfg=cfg_w)
-                want = pfn(sD, sL, vw, a2, kind, floor, 1.5, cfg=cfg_w)
-                torch.cuda.synchronize()
-                check_fused(f"any-K {label}[{name}, K={K}]", got, want, 2e-5)
-                worst = max(worst, max_err(got[:4], want[:4]))
+            check_fused(f"any-K fused_step[{name}, K={K}]", got, want, 2e-5)
+            worst = max(worst, max_err(got[:4], want[:4]))
+            s_w[name] = (sD, sL)
             any_k.append(dict(pad_pow2=pad_pow2, bucket=name, K=K, m=m))
+        # the grouped delta kernels, one group per K (4, 8 or 16 lanes a pool)
+        for g in dsw._delta_groups:
+            for label, kfn, pfn, gargs in (
+                    ("fused_step_delta", fused_step_delta_grouped,
+                     fused_step_delta_grouped_plain, (s_w, vw, bd_w, g, 1.5)),
+                    ("project_delta", project_delta_grouped, project_delta_grouped_plain,
+                     (s_w, bd_w, g))):
+                got, want = kfn(*gargs, cfg=cfg_w), pfn(*gargs, cfg=cfg_w)
+                torch.cuda.synchronize()
+                bitwise(f"any-K {label}[K={g['K']}]", grouped_leaves(got),
+                        grouped_leaves(want))
         log(f"# any K (pad_pow2={pad_pow2}): buckets "
-            f"{[(n, b.width) for n, b in comp_w.buckets.items()]}; all six kernels "
-            f"match their plain versions (worst plane error {worst:.3e})")
+            f"{[(n, b.width) for n, b in comp_w.buckets.items()]}; the base kernels match "
+            f"their plain versions (worst plane error {worst:.3e}), the grouped delta "
+            f"kernels bitwise")
         # the run-time-K fused step's time on the widest bucket
         name = max(sw.buckets, key=lambda n: sw.buckets[n]["mask"].shape[0])
         arrs = sw.buckets[name]
@@ -1280,6 +1394,7 @@ def main(argv=None):
         torch.cuda.synchronize()
         fused_iters = out.iters - dsolver.chunks  # each chunk: k fused + 1 classic
         launches = _build.LAUNCHES["fused_step_delta"]
+        n_groups = len(dsolver._delta_groups)
         value = float(out.result.psi[4]) if label == "liquidation" else float(
             out.certificate.objective)
         rel = abs(value - pin) / abs(pin)
@@ -1291,9 +1406,9 @@ def main(argv=None):
         if not (out.achieved and rel < 2e-6):
             raise AssertionError(f"refine_device(fused=True) {label}: "
                                  f"{out.certificate.summary()} rel {rel:.2e}")
-        if launches != len(comp128.buckets) * fused_iters or launches == 0:
+        if launches != n_groups * fused_iters or launches == 0:
             raise AssertionError(f"fused_step_delta launches {launches} != "
-                                 f"{len(comp128.buckets)} x {fused_iters}")
+                                 f"{n_groups} K-groups x {fused_iters}")
         pins.append(dict(label=label, mode="refine_device(fused=True)", value=value,
                          pin=pin, rel=rel, chunks=dsolver.chunks,
                          fused_iters=fused_iters, launches=launches,
@@ -1463,14 +1578,19 @@ def main(argv=None):
     log(f"# certified route: wall clock from the start of the base solve to the "
         f"accepted certificate {wall_s:.3f} s (network set-up before it: "
         f"{t_base0 - t_start:.3f} s)")
-    log(f"# certified route: launches {launches5}")
+    log(f"# certified route: launches {launches5} (K-groups "
+        f"{[g['names'] for g in dsolver._delta_groups]})")
+    n_groups = len(dsolver._delta_groups)
     if launches5["fused_step_delta"] == 0:
         raise AssertionError("fused_step_delta was never launched on the certified route")
-    if launches5["fused_step_delta"] != len(compiled.buckets) * fused_iters:
+    if n_groups != 2 or launches5["fused_step_delta"] != n_groups * fused_iters:
         raise AssertionError(f"fused_step_delta launches {launches5['fused_step_delta']} "
-                             f"!= {len(compiled.buckets)} x {fused_iters}")
-    missing = [k for k in ("project_gm", "project_cs", "project_gm_delta",
-                           "project_cs_delta", "segment_sum") if launches5[k] == 0]
+                             f"!= {n_groups} K-groups x {fused_iters} fused iterations")
+    if launches5["project_delta"] != n_groups * dsolver.chunks:
+        raise AssertionError(f"project_delta launches {launches5['project_delta']} != "
+                             f"{n_groups} K-groups x {dsolver.chunks} classic delta iterations")
+    missing = [k for k in ("project_gm", "project_cs", "project_delta", "segment_sum")
+               if launches5[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the certified route: {missing}")
     if fallbacks:

@@ -11,8 +11,11 @@ Tolerances are the port's parity bars: atol 5e-5 (float32) and 1e-10
 delta), 2e-4 for a 20-step fused trajectory; y also gets rtol 1e-5.  The
 fused steps' y is the same fixed-order segment sum in the kernel path and
 the plain version, so with equal planes it is equal too.  The scenario-fold
-variants (``fold=``) and the merged K-group step (``fused_step_merged``)
-must equal their plain versions bit for bit, and a folded or merged solve
+variants (``fold=``), the merged K-group step (``fused_step_merged``) and
+the grouped delta kernels (``fused_step_delta_grouped``,
+``project_delta_grouped``: one launch per group of buckets with the same
+K, one lane per slot up to K = 32, one thread per pool above) must equal
+their plain versions bit for bit, and a folded, merged or refined solve
 run twice must give bitwise-equal results.
 """
 import numpy as np
@@ -24,11 +27,13 @@ from cfmm_routing_tpu_torch.models.utility import ConcaveUtility
 from cfmm_routing_tpu_torch.ops import _build
 from cfmm_routing_tpu_torch.ops import projection as plain
 from cfmm_routing_tpu_torch.ops.iteration_cuda import (
-    fused_step, fused_step_delta, fused_step_delta_plain, fused_step_merged,
+    fused_step, fused_step_delta, fused_step_delta_grouped,
+    fused_step_delta_grouped_plain, fused_step_delta_plain, fused_step_merged,
     fused_step_merged_plain, fused_step_plain,
 )
 from cfmm_routing_tpu_torch.ops.projection_cuda import (
-    project_cs_cuda, project_cs_delta_cuda, project_gm_cuda, project_gm_delta_cuda,
+    project_cs_cuda, project_cs_delta_cuda, project_delta_grouped,
+    project_delta_grouped_plain, project_gm_cuda, project_gm_delta_cuda,
 )
 from cfmm_routing_tpu_torch.ops.projection_delta import (
     project_cs_delta, project_gm_delta,
@@ -271,7 +276,11 @@ def test_refine_device_fused_certifies_arbitrage(cuda_device, monkeypatch):
     out = refine_device(compiled, obj, base, target_gap=1e-7, fused=True)
     assert out.achieved, out.certificate.summary()
     assert abs(out.certificate.objective - 21.499805) / 21.499805 < 2e-6
-    assert _build.LAUNCHES["fused_step_delta"] == len(compiled.buckets) * sum(calls) > 0
+    groups = len({b.width for b in compiled.buckets.values()})  # one per K
+    assert _build.LAUNCHES["fused_step_delta"] == groups * sum(calls) > 0
+    again = refine_device(compiled, obj, base, target_gap=1e-7, fused=True)
+    assert np.array_equal(again.result.psi, out.result.psi)
+    assert np.array_equal(again.result.prices, out.result.prices)
 
 
 def _fold_case(dtype, device, T=3, seed=6):
@@ -397,3 +406,80 @@ def test_merged_solve_matches_unmerged_on_card(cuda_device):
         np.testing.assert_allclose(a.psi.cpu().numpy(), c.psi.cpu().numpy(),
                                    atol=2e-4, rtol=0)
         np.testing.assert_allclose(float(a.objective), float(c.objective), rtol=1e-5)
+
+
+def _check_grouped(solver, bdict, s, v, fold=None):
+    """Every group of ``solver._delta_groups``: the grouped fused delta step
+    and the grouped delta projection bitwise equal to their plain versions,
+    and a second launch bitwise equal to the first.  Returns the number of
+    groups."""
+    groups = solver._delta_groups
+    for g in groups:
+        runs = [fused_step_delta_grouped(s, v, bdict, g, 1.5, cfg=CFG, fold=fold)
+                for _ in range(2)]
+        want = fused_step_delta_grouped_plain(s, v, bdict, g, 1.5, cfg=CFG, fold=fold)
+        pin = {name: (sD + 0.25, sL - 0.25) for name, (sD, sL) in s.items()}
+        runs += [project_delta_grouped(pin, bdict, g, cfg=CFG) for _ in range(2)]
+        want_p = project_delta_grouped_plain(pin, bdict, g, cfg=CFG)
+        torch.cuda.synchronize()
+        for got in runs[:2]:
+            for name in g["names"]:
+                for i in range(2):
+                    assert torch.equal(got[0][name][i], want[0][name][i]), (g["names"], name)
+                    assert torch.equal(got[1][name][i], want[1][name][i]), (g["names"], name)
+            assert torch.equal(got[2], want[2]), g["names"]
+        for got in runs[2:]:
+            for name in g["names"]:
+                for i in range(2):
+                    assert torch.equal(got[name][i], want_p[name][i]), (g["names"], name)
+    return len(groups)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_grouped_delta_kernels_match_plain_bitwise(cuda_device, dtype):
+    """K=2 (cs2f, gm2, gm2f) and K=4 (cs4f, gm4): one grouped launch per
+    group, bitwise equal to the plain grouped versions and to themselves;
+    then the same on a T=2 fold (points of 128 and 256 pools)."""
+    table, obj = random_arbitrage_table(16, 300, seed=4, reserve_scale=1.0)
+    compiled = compile_table(table, pad_pools_to=128)
+    solver, bdict, s, v = _delta_state(compiled, obj, dtype, cuda_device, seed=7)
+    assert [g["names"] for g in solver._delta_groups] == [["cs2f", "gm2", "gm2f"],
+                                                           ["cs4f", "gm4"]]
+    _build.reset_launch_counts()
+    n = _check_grouped(solver, bdict, s, v)
+    assert _build.LAUNCHES["fused_step_delta"] == 2 * n
+    assert _build.LAUNCHES["project_delta"] == 2 * n
+
+    T, nA = 2, compiled.n_assets
+    fsolver = DeltaAdmmSolver(fold_compiled(compiled, T), dtype=dtype, device=cuda_device,
+                              fold=(T, nA), options=AdmmOptions(projection=CFG))
+    rng = np.random.default_rng(8)
+    trades = {k: 0.01 * rng.uniform(0, 1, (T, b.width, b.m)) * b.mask.T[None]
+              for k, b in compiled.buckets.items()}
+    fb, min_x0 = _delta_buckets_folded(fsolver, trades, trades,
+                                       rng.uniform(1e-3, 1e-2, T),
+                                       rng.uniform(0.5, 2.0, (T, nA)))
+    assert (min_x0 > 0).all()
+    fs = {name: tuple(torch.as_tensor(x, dtype=dtype, device=cuda_device) * a["mask"]
+                      for x in rng.uniform(-2.0, 2.0, (2,) + tuple(a["mask"].shape)))
+          for name, a in fb.items()}
+    fv = torch.as_tensor(rng.normal(size=128), dtype=dtype, device=cuda_device)
+    _build.reset_launch_counts()
+    n = _check_grouped(fsolver, fb, fs, fv, fold=fsolver._fold)
+    assert _build.LAUNCHES["fused_step_delta_fold"] == 2 * n
+
+
+@pytest.mark.parametrize("widths,pad_pow2", [((3, 5, 12), False), ((3, 5, 12), True),
+                                             ((40,), False)],
+                         ids=["K3-5-12", "K4-8-16", "K40"])
+def test_lanes_per_slot_any_k_bitwise(cuda_device, widths, pad_pow2):
+    """Lanes per slot at K = 3, 5, 12 (4, 8 and 16 lanes, idle lanes
+    masked) and K = 4, 8, 16, and the one-thread-per-pool form at K = 40:
+    the grouped delta kernels bitwise equal to their plain versions."""
+    spec, obj = mixed_width_arbitrage(widths=widths, n_assets=48 if 40 in widths else 16,
+                                      seed=2)
+    compiled = compile_spec(spec, pad_pow2=pad_pow2, pad_pools_to=128)
+    solver, bdict, s, v = _delta_state(compiled, obj, torch.float32, cuda_device, seed=9)
+    want_k = sorted({K if not pad_pow2 else 1 << (K - 1).bit_length() for K in widths})
+    assert [g["K"] for g in solver._delta_groups] == want_k
+    _check_grouped(solver, bdict, s, v)
