@@ -183,6 +183,7 @@ int launch(int K, int nb, int n_pad, double alpha, double beta,
            const int* dims, const void* const* ptrs, const void* v,
            int n_bisect, int n_total, cudaStream_t st) {
   constexpr int kPools = LANES > 0 ? kThreads / LANES : kThreads;
+  static cfmm::SmemGuard smem_guard;
   Table<T> tab = {};
   tab.n = nb;
   int blocks = 0;
@@ -224,12 +225,8 @@ int launch(int K, int nb, int n_pad, double alpha, double beta,
   }
   if (blocks == 0) return 0;
   const size_t smem = (size_t)n_sh * sizeof(T);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fused_delta_kernel<T, LANES>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const cudaError_t err = smem_guard.allow(fused_delta_kernel<T, LANES>, smem);
+  if (err != cudaSuccess) return (int)err;
   fused_delta_kernel<T, LANES><<<blocks, kThreads, smem, st>>>(
       tab, (const T*)v, n_pad, (T)alpha, (T)beta, K, n_bisect, n_total);
   return (int)cudaGetLastError();

@@ -1,4 +1,5 @@
-// Shared device projection onto CFMM trading sets, one thread per pool.
+// Shared device projection onto CFMM trading sets: one thread per pool
+// (project_pool) or lanes per slot (project_slot).
 //
 // Replaces the projection math of the JAX package's Pallas kernels
 // (cfmm_routing_tpu/ops/projection_pallas.py: _inner_gm, _solve_theta_linear,
@@ -19,7 +20,11 @@
 //     mu-free terms.  The values are the same as the register path's.
 // A kernel hands project_pool a loader load(c) -> SlotIn (the slot's raw
 // inputs) and a store(c, D, L) callback, so the fused step can gather its
-// input and write its outputs in place.
+// input and write its outputs in place.  The standalone projections and the
+// merged fused step run project_pool; the grouped fused step runs
+// project_slot (the lanes-per-slot section below): LANES lanes own one
+// pool, one slot each, and gather h(mu)'s slot terms by shuffles in slot
+// order, so a thread keeps one prepared slot (15 values) instead of K.
 //
 // Bound: compute.  Each pool evaluates h(mu) n_bisect + n_polish + 2 times;
 // every evaluation costs per slot a square root, a logarithm (geo-mean) or a
@@ -41,6 +46,29 @@
 namespace cfmm {
 
 enum Kind { KIND_GM = 0, KIND_GM_FLOOR = 1, KIND_CS = 2 };
+
+// Dynamic shared memory above 48 KB must be allowed per kernel and per
+// device.  A launcher keeps one SmemGuard per kernel, which sets the
+// attribute once per device and size, so a launch captured in a CUDA graph
+// makes no call but the launch (cudaGetDevice only reads the host thread's
+// current device).
+struct SmemGuard {
+  static constexpr int kDevices = 64;
+  size_t allowed[kDevices] = {};
+  template <typename F>
+  cudaError_t allow(F* kernel, size_t smem) {
+    if (smem <= 48 * 1024) return cudaSuccess;
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev < 0 || dev >= kDevices) return cudaErrorInvalidDevice;
+    if (smem <= allowed[dev]) return cudaSuccess;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess) allowed[dev] = smem;
+    return err;
+  }
+};
 
 template <typename T> struct Lim;
 template <> struct Lim<float> {
@@ -316,6 +344,128 @@ __device__ __forceinline__ void project_pool(const Load& load, int k, T g,
   }
 }
 
+// ---- lanes per slot ---------------------------------------------------------
+// LANES consecutive lanes of a warp own one pool, lane c slot c (LANES the
+// power of two >= K, up to 32).  Each lane prepares and keeps only its own
+// slot; every evaluation of h(mu) computes the lane's slot term and the
+// pool's lanes gather the terms with __shfl_sync in slot order, so the sum
+// rounds as the plain loop's; every lane then runs the identical fixed-trip
+// root-find.  Idle lanes (slot >= K) and pools past a bucket's end run the
+// same steps on an inert slot and store nothing: every lane reaches every
+// shuffle.
+
+constexpr unsigned kFullWarp = 0xffffffffu;
+
+// The lanes of one pool are LANES consecutive lanes; lane c holds slot c.
+// lanes_sum: ((0 + x_0) + x_1) + ... + x_{K-1} over the pool's lanes, the
+// plain loop's order; every lane of the pool gets the same value.  K is
+// uniform across the warp, so the early exit keeps the shuffles converged.
+template <typename T, int LANES>
+__device__ __forceinline__ T lanes_sum(T x, int K) {
+  if constexpr (LANES == 1) {
+    return T(0) + x;
+  } else {
+    T h = T(0);
+#pragma unroll
+    for (int c = 0; c < LANES; ++c) {
+      if (c >= K) break;
+      h = h + __shfl_sync(kFullWarp, x, c, LANES);
+    }
+    return h;
+  }
+}
+
+// max over the pool's K lanes, folded in slot order as the plain loop does.
+template <typename T, int LANES>
+__device__ __forceinline__ T lanes_max(T x, int K) {
+  if constexpr (LANES == 1) {
+    return x;
+  } else {
+    T r = __shfl_sync(kFullWarp, x, 0, LANES);
+#pragma unroll
+    for (int c = 1; c < LANES; ++c) {
+      if (c >= K) break;
+      r = tmax(r, __shfl_sync(kFullWarp, x, c, LANES));
+    }
+    return r;
+  }
+}
+
+// Lanes per pool for K slots: the power of two >= K up to 32, 0 for the
+// one-thread-per-pool form (K > 32).
+inline int lanes_for(int K) {
+  int l = 1;
+  while (l < K && l < 64) l <<= 1;
+  return l > 32 ? 0 : l;
+}
+
+// The bucket of this block in a grouped launch: the last descriptor whose
+// first block is <= blockIdx.x (block-uniform).
+template <class Table>
+__device__ __forceinline__ int block_bucket(const Table& tab) {
+  int b = 0;
+  while (b + 1 < tab.n && (int)blockIdx.x >= tab.b[b + 1].first_block) ++b;
+  return b;
+}
+
+// The inert slot of an idle lane of the base projection.
+template <typename T> __device__ __forceinline__ SlotIn<T> idle_in() {
+  SlotIn<T> in;
+  in.p = T(0); in.q = T(0); in.R = T(1); in.w = T(0); in.s = T(0);
+  in.mask = T(0);
+  return in;
+}
+
+// The cooperative projection of one pool of K slots spread over LANES lanes
+// (K <= LANES): this lane's slot `in`, the pool's gamma, log k0 and k0.
+// Every lane of the warp must call it; (D, L) are this lane's slot's
+// trades.  The same values as project_pool, in the same order.
+template <typename T, int LANES, int KIND>
+__device__ __forceinline__ void project_slot(const SlotIn<T>& in, int K, T g,
+                                             T logk0, T k0, int n_bisect,
+                                             int n_total, T& D, T& L) {
+  if constexpr (KIND == KIND_CS) {
+    const CsSlot<T> sl = cs_prep(in, g);
+    const T w_safe = in.mask > T(0) ? in.w : T(1);
+    const T mu_hi =
+        lanes_max<T, LANES>(relu(in.q) * in.mask / w_safe, K) + T(1);
+    auto h_of_mu = [&](T mu) {
+      T Dm, Lm;
+      cs_dl(sl, g, mu, Dm, Lm);
+      const T x = tmax(sl.R + g * Dm - Lm, T(0)) * sl.mask;
+      return lanes_sum<T, LANES>(sl.w * x, K);
+    };
+    const T mu = root_find(h_of_mu, mu_hi, k0, n_bisect, n_total);
+    cs_dl(sl, g, mu, D, L);
+  } else {
+    constexpr bool FLOOR = KIND == KIND_GM_FLOOR;
+    const GmSlot<T> sl = gm_prep(in, g, FLOOR);
+    const T Rp = in.R + in.s;
+    const T qp = relu(in.q) + T(1e-3);
+    const T need_t = tmax(T(2) * qp * (Rp + g * relu(in.p)),
+                          T(4) * qp * qp * g * g);
+    const T w_safe = in.mask > T(0) ? in.w : T(1);
+    const T cand = in.mask > T(0)
+                       ? need_t / (w_safe * tmax(k0, Lim<T>::tiny()))
+                       : T(0);
+    const T mu_hi = T(4) * lanes_max<T, LANES>(cand, K) + T(1);
+    auto h_of_mu = [&](T mu) {
+      const T t = mu * sl.w * k0;
+      T xi = inner_gm(sl, t);
+      if (FLOOR && xi < sl.s) xi = sl.s;
+      return lanes_sum<T, LANES>(sl.w * dlog(tmax(xi, Lim<T>::log_floor())),
+                                 K);
+    };
+    const T mu = root_find(h_of_mu, mu_hi, logk0, n_bisect, n_total);
+    const T t = mu * sl.w * k0;
+    const T xi = inner_gm(sl, t);
+    T theta = t / tmax(xi, Lim<T>::tiny());
+    if (FLOOR && xi < sl.s) theta = tmax(sl.thf, theta);
+    D = relu(sl.p + g * theta) * sl.mask;
+    L = relu(sl.q - theta) * sl.mask;
+  }
+}
+
 }  // namespace cfmm
 
 // Dispatch a templated launch over (dtype, K, kind).  K in {2, 4, 8, 16}
@@ -346,4 +496,25 @@ __device__ __forceinline__ void project_pool(const Load& load, int k, T g,
     case 0: CFMM_DISPATCH_K(float, K, kind, LAUNCH); break;                   \
     case 1: CFMM_DISPATCH_K(double, K, kind, LAUNCH); break;                  \
     default: return (int)cudaErrorInvalidValue;                              \
+  }
+
+// Call CALL(T, LANES) with the dtype's type and lanes_for(K); each CALL
+// returns.  Unknown dtypes and K < 1 give cudaErrorInvalidValue.
+#define CFMM_LANES_OF(T, K, CALL)                                          \
+  if ((K) < 1) return (int)cudaErrorInvalidValue;                         \
+  switch (cfmm::lanes_for(K)) {                                           \
+    case 1: return CALL(T, 1);                                            \
+    case 2: return CALL(T, 2);                                            \
+    case 4: return CALL(T, 4);                                            \
+    case 8: return CALL(T, 8);                                            \
+    case 16: return CALL(T, 16);                                          \
+    case 32: return CALL(T, 32);                                          \
+    default: return CALL(T, 0);                                           \
+  }
+
+#define CFMM_DISPATCH_LANES(dtype, K, CALL)                                \
+  switch (dtype) {                                                        \
+    case 0: CFMM_LANES_OF(float, K, CALL)                                 \
+    case 1: CFMM_LANES_OF(double, K, CALL)                                \
+    default: return (int)cudaErrorInvalidValue;                           \
   }

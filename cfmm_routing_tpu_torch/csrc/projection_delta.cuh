@@ -283,44 +283,7 @@ __device__ __forceinline__ void project_pool_delta(const Load& load, int K,
   }
 }
 
-// ---- lanes per slot ---------------------------------------------------------
-
-constexpr unsigned kFullWarp = 0xffffffffu;
-
-// The lanes of one pool are LANES consecutive lanes; lane c holds slot c.
-// lanes_sum: ((0 + x_0) + x_1) + ... + x_{K-1} over the pool's lanes, the
-// plain loop's order; every lane of the pool gets the same value.  K is
-// uniform across the warp, so the early exit keeps the shuffles converged.
-template <typename T, int LANES>
-__device__ __forceinline__ T lanes_sum(T x, int K) {
-  if constexpr (LANES == 1) {
-    return T(0) + x;
-  } else {
-    T h = T(0);
-#pragma unroll
-    for (int c = 0; c < LANES; ++c) {
-      if (c >= K) break;
-      h = h + __shfl_sync(kFullWarp, x, c, LANES);
-    }
-    return h;
-  }
-}
-
-// max over the pool's K lanes, folded in slot order as the plain loop does.
-template <typename T, int LANES>
-__device__ __forceinline__ T lanes_max(T x, int K) {
-  if constexpr (LANES == 1) {
-    return x;
-  } else {
-    T r = __shfl_sync(kFullWarp, x, 0, LANES);
-#pragma unroll
-    for (int c = 1; c < LANES; ++c) {
-      if (c >= K) break;
-      r = tmax(r, __shfl_sync(kFullWarp, x, c, LANES));
-    }
-    return r;
-  }
-}
+// ---- lanes per slot (the helpers are in projection.cuh) --------------------
 
 // The inert slot of an idle lane (slot >= K, or a pool past the end).
 template <typename T> __device__ __forceinline__ DeltaIn<T> idle_slot() {
@@ -358,42 +321,4 @@ __device__ __forceinline__ void project_slot_delta(const DeltaIn<T>& in, int K,
   }
 }
 
-// Lanes per pool for K slots: the power of two >= K up to 32, 0 for the
-// one-thread-per-pool form (K > 32).
-inline int lanes_for(int K) {
-  int l = 1;
-  while (l < K && l < 64) l <<= 1;
-  return l > 32 ? 0 : l;
-}
-
-// The bucket of this block in a grouped launch: the last descriptor whose
-// first block is <= blockIdx.x (block-uniform).
-template <class Table>
-__device__ __forceinline__ int block_bucket(const Table& tab) {
-  int b = 0;
-  while (b + 1 < tab.n && (int)blockIdx.x >= tab.b[b + 1].first_block) ++b;
-  return b;
-}
-
 }  // namespace cfmm
-
-// Call CALL(T, LANES) with the dtype's type and lanes_for(K); each CALL
-// returns.  Unknown dtypes and K < 1 give cudaErrorInvalidValue.
-#define CFMM_LANES_OF(T, K, CALL)                                          \
-  if ((K) < 1) return (int)cudaErrorInvalidValue;                         \
-  switch (cfmm::lanes_for(K)) {                                           \
-    case 1: return CALL(T, 1);                                            \
-    case 2: return CALL(T, 2);                                            \
-    case 4: return CALL(T, 4);                                            \
-    case 8: return CALL(T, 8);                                            \
-    case 16: return CALL(T, 16);                                          \
-    case 32: return CALL(T, 32);                                          \
-    default: return CALL(T, 0);                                           \
-  }
-
-#define CFMM_DISPATCH_LANES(dtype, K, CALL)                                \
-  switch (dtype) {                                                        \
-    case 0: CFMM_LANES_OF(float, K, CALL)                                 \
-    case 1: CFMM_LANES_OF(double, K, CALL)                                \
-    default: return (int)cudaErrorInvalidValue;                           \
-  }

@@ -58,7 +58,7 @@ _LIBS = {
     ),
     "fused_step": (
         "fused_step.cu",
-        {"cfmm_fused_step": [_C] * 7 + [_D, _D] + [_P] * 16 + [_C, _C, _P],
+        {"cfmm_fused_step": [_C] * 4 + [_D, _D] + [_P] * 3 + [_C, _C, _P],
          "cfmm_fused_step_merged": [_C] * 4 + [_D, _D] + [_P] * 17
                                    + [_C, _C, _P]},
     ),
@@ -69,7 +69,7 @@ _LIBS = {
     ),
     "segment_sum": (
         "segment_sum.cu",
-        {"cfmm_segment_sum": [_C, _C, _C] + [_P] * 5},
+        {"cfmm_segment_sum": [_C] * 4 + [_P] * 6},
     ),
 }
 _HEADERS = ("projection.cuh", "projection_delta.cuh")

@@ -39,6 +39,10 @@ K on one concatenated pool axis, with an int32 class per 128-pool block
 per K-group instead of one per bucket; the group carries its own fixed slot
 order for the segment sum.
 
+:func:`fused_step_grouped` runs the base step on a group of buckets with the
+same channel count K in one launch (one lane per slot) and one segment sum
+over the group's slot order; :func:`fused_step` is a group of one.
+
 The CUDA kernels are ``csrc/fused_step.cu`` (``fused_step`` and
 ``fused_step_merged``) and ``csrc/fused_step_delta.cu``.
 Each writes its slots' consensus terms to a (K, m) plane that the
@@ -72,7 +76,8 @@ from .projection_cuda import (
 from .projection_delta import project_cs_delta, project_gm_delta
 from .segment import segment_sum, segment_sum_plain
 
-__all__ = ["fused_step", "fused_step_plain", "fused_step_delta",
+__all__ = ["fused_step", "fused_step_plain", "fused_step_grouped",
+           "fused_step_grouped_plain", "fused_step_delta",
            "fused_step_delta_plain", "fused_step_delta_grouped",
            "fused_step_delta_grouped_plain", "fused_step_merged",
            "fused_step_merged_plain"]
@@ -137,34 +142,132 @@ def _check_ids_and_v(sD, v, arrs, what):
         raise ValueError(f"{what}: the bucket's asset count exceeds n_pad")
 
 
-def fused_step_plain(sD, sL, v, arrs, kind, needs_floor, alpha: float,
-                     cfg: ProjectionConfig = ProjectionConfig(), fold=None):
-    """The fused half-iteration in plain PyTorch, on any device.
-
-    Returns (sD', sL', D, L, y(n_pad,))."""
+def _project_plain(sD, sL, v, arrs, kind, needs_floor, cfg, fold):
+    """The plain gather and projection of one bucket: (D, L)."""
     K, m = sD.shape
-    mask = arrs["mask"]
-    if fold is not None:
-        fold = _check_fold(m, v, fold, "fused_step")
     ve = _gather(v, arrs, K, m, fold)
     p = sD + ve
     q = sL - ve
     if kind == "gm":
-        D, L = project_gm(
+        return project_gm(
             p, q, arrs["R"], arrs["w"], arrs["s"], arrs["gamma"],
-            arrs["logk0"], arrs["k0"], mask, needs_floor=needs_floor, cfg=cfg,
-        )
-    else:
-        D, L = project_cs(
-            p, q, arrs["R"], arrs["gamma"], arrs["w"], arrs["k0"], mask,
+            arrs["logk0"], arrs["k0"], arrs["mask"], needs_floor=needs_floor,
             cfg=cfg,
         )
+    return project_cs(
+        p, q, arrs["R"], arrs["gamma"], arrs["w"], arrs["k0"], arrs["mask"],
+        cfg=cfg,
+    )
+
+
+def fused_step_plain(sD, sL, v, arrs, kind, needs_floor, alpha: float,
+                     cfg: ProjectionConfig = ProjectionConfig(), fold=None):
+    """The fused half-iteration of one bucket in plain PyTorch, on any
+    device, with the bucket's own segment sum.
+
+    Returns (sD', sL', D, L, y(n_pad,))."""
+    if fold is not None:
+        fold = _check_fold(sD.shape[1], v, fold, "fused_step")
+    D, L = _project_plain(sD, sL, v, arrs, kind, needs_floor, cfg, fold)
     return _update(sD, sL, D, L, v, arrs, alpha)
+
+
+def fused_step_grouped_plain(s, v, buckets, group, alpha: float,
+                             cfg: ProjectionConfig = ProjectionConfig(),
+                             fold=None):
+    """The plain version of :func:`fused_step_grouped`, on any device: each
+    bucket's plain gather, projection and relaxation (the planes equal
+    :func:`fused_step_plain`'s bit for bit), then one segment sum over the
+    group's consensus terms (the buckets' planes flattened one after
+    another) in the group's slot order."""
+    s_new, w_out, vals = {}, {}, []
+    for name, (kind, floor) in zip(group["names"], group["kinds"]):
+        sD, sL = s[name]
+        f = None if fold is None else _check_fold(sD.shape[1], v, fold,
+                                                  "fused_step")
+        D, L = _project_plain(sD, sL, v, buckets[name], kind, floor, cfg, f)
+        sDn, sLn, val = _relax(sD, sL, D, L, alpha)
+        s_new[name] = (sDn, sLn)
+        w_out[name] = (D, L)
+        vals.append(val.reshape(-1))
+    y = segment_sum_plain(torch.cat(vals), group["order"], group["seg"],
+                          v.shape[0])
+    return s_new, w_out, y
+
+
+def _launch_group(kernel, ref, group, dims, sizes, args, v, alpha, cfg, fold):
+    """The grouped launch of ``kernel`` ("fused_step" or "fused_step_delta":
+    the library and its C entry ``cfmm_<kernel>``) from the validated
+    per-bucket ``dims`` and input tensors ``args`` (None for a null
+    pointer), then the group's segment sum.  Returns (s', w, y) as the
+    grouped wrappers do."""
+    names = group["names"]
+    out, views = group_outputs(ref, sizes, 5)  # sD' sL' (D, L | a, b) val
+    ptrs = []
+    for ins, outs in zip(args, views):
+        ptrs += [None if t is None else t.data_ptr() for t in ins]
+        ptrs += [t.data_ptr() for t in outs]
+    c_dims, c_ptrs = launch_table(dims, ptrs)
+    a = float(alpha)
+    n_pad = v.shape[0]
+    entry = getattr(_build.library(kernel), f"cfmm_{kernel}")
+    with torch.cuda.device(ref.device):
+        stream = torch.cuda.current_stream(ref.device).cuda_stream
+        rc = entry(dtype_code(ref.dtype), ref.shape[0], len(names), n_pad, a,
+                   1.0 - a, c_dims, c_ptrs, v.data_ptr(), int(cfg.n_bisect),
+                   int(cfg.n_polish), stream)
+    _build.check_launch(rc, kernel)
+    _build.LAUNCHES[kernel if fold is None else f"{kernel}_fold"] += 1
+    y = segment_sum(out[4], group["order"], group["seg"], n_pad)
+    return ({name: (o[0], o[1]) for name, o in zip(names, views)},
+            {name: (o[2], o[3]) for name, o in zip(names, views)}, y)
+
+
+def fused_step_grouped(s, v, buckets, group, alpha: float,
+                       cfg: ProjectionConfig = ProjectionConfig(), fold=None):
+    """One fused half-iteration for a group of buckets with the same slot
+    count K, in one launch (``csrc/fused_step.cu``, one lane per slot up to
+    K = 32), and one segment sum over the group's slot order.
+
+    s: bucket name -> (sD, sL) (K, m) state planes;  v: (n_pad,) combined
+    broadcast vector (wdef - nu, zero-padded);  buckets: name -> the
+    solver's device bucket dict (R w s mask asset gamma logk0 k0);  group:
+    ``names`` (at most ``MAX_GROUP``), ``kinds`` ((kind, needs_floor) per
+    name) and the group's slot order ``order``/``seg`` over the buckets'
+    planes flattened one after another (``AdmmSolver._groups``);  fold:
+    (T, n_pt) of a scenario fold (module docstring).  Returns (s', w, y):
+    name -> (sD', sL'), name -> (D, L), and y (n_pad,).  CPU tensors run
+    :func:`fused_step_grouped_plain`."""
+    names = group["names"]
+    ref = s[names[0]][0]
+    if fold is not None:
+        for name in names:
+            fold = _check_fold(s[name][0].shape[1], v, fold, "fused_step")
+    if ref.device.type == "cpu":
+        return fused_step_grouped_plain(s, v, buckets, group, alpha, cfg, fold)
+    _check_group(group, "fused_step")
+    dims, sizes, args = [], [], []
+    for name, (kind, floor) in zip(names, group["kinds"]):
+        sD, sL = s[name]
+        arrs = buckets[name]
+        planes = (sD, sL, arrs["R"], arrs["w"], arrs["s"], arrs["mask"])
+        K, m = check_cuda_args(planes, (arrs["gamma"], arrs["logk0"],
+                                        arrs["k0"]), "fused_step")
+        _check_like(sD, ref, "fused_step")
+        _check_ids_and_v(sD, v, arrs, "fused_step")
+        dims += [m, _KIND[(kind, bool(floor))], *_fold_args(m, fold)]
+        sizes.append((K, m))
+        args.append((sD, sL, arrs["asset"], arrs["R"], arrs["w"], arrs["s"],
+                     arrs["mask"], arrs["gamma"], arrs["logk0"], arrs["k0"]))
+    return _launch_group("fused_step", ref, group, dims, sizes, args, v, alpha,
+                         cfg, fold)
 
 
 def fused_step(sD, sL, v, arrs, kind, needs_floor, alpha: float,
                cfg: ProjectionConfig = ProjectionConfig(), fold=None):
-    """One fused half-iteration for one bucket.
+    """One fused half-iteration for one bucket: :func:`fused_step_grouped`
+    on a group of one, whose slot order is the bucket's own
+    (``arrs["order"]``/``arrs["seg"]``).
 
     sD/sL: (K, m) state planes;  v: (n_pad,) combined broadcast vector
     (wdef - nu, zero-padded);  arrs: the solver's device bucket dict
@@ -177,36 +280,11 @@ def fused_step(sD, sL, v, arrs, kind, needs_floor, alpha: float,
     if sD.device.type == "cpu":
         return fused_step_plain(sD, sL, v, arrs, kind, needs_floor, alpha, cfg,
                                 fold)
-    planes = (sD, sL, arrs["R"], arrs["w"], arrs["s"], arrs["mask"])
-    vectors = (arrs["gamma"], arrs["logk0"], arrs["k0"])
-    K, m = check_cuda_args(planes, vectors, "fused_step")
-    _check_ids_and_v(sD, v, arrs, "fused_step")
-    asset = arrs["asset"]
-    n_pad = v.shape[0]
-    sDn = torch.empty_like(sD)
-    sLn = torch.empty_like(sD)
-    D = torch.empty_like(sD)
-    L = torch.empty_like(sD)
-    val = torch.empty_like(sD)
-    a = float(alpha)
-    lib = _build.library("fused_step")
-    fm, fn = _fold_args(m, fold)
-    with torch.cuda.device(sD.device):
-        stream = torch.cuda.current_stream(sD.device).cuda_stream
-        rc = lib.cfmm_fused_step(
-            dtype_code(sD.dtype), _KIND[(kind, bool(needs_floor))], K, m,
-            n_pad, fm, fn, a, 1.0 - a,
-            sD.data_ptr(), sL.data_ptr(), asset.data_ptr(),
-            arrs["R"].data_ptr(), arrs["w"].data_ptr(), arrs["s"].data_ptr(),
-            arrs["mask"].data_ptr(), arrs["gamma"].data_ptr(),
-            arrs["logk0"].data_ptr(), arrs["k0"].data_ptr(), v.data_ptr(),
-            sDn.data_ptr(), sLn.data_ptr(), D.data_ptr(), L.data_ptr(),
-            val.data_ptr(), int(cfg.n_bisect), int(cfg.n_polish), stream,
-        )
-    _build.check_launch(rc, "fused_step")
-    _build.LAUNCHES["fused_step" if fold is None else "fused_step_fold"] += 1
-    y = segment_sum(val, arrs["order"], arrs["seg"], n_pad)
-    return sDn, sLn, D, L, y
+    group = dict(names=["bucket"], kinds=[(kind, needs_floor)],
+                 order=arrs["order"], seg=arrs["seg"])
+    s_new, w, y = fused_step_grouped({"bucket": (sD, sL)}, v, {"bucket": arrs},
+                                     group, alpha, cfg, fold)
+    return (*s_new["bucket"], *w["bucket"], y)
 
 
 def _class_spans(cls):
@@ -406,28 +484,8 @@ def fused_step_delta_grouped(s, v, buckets, group, alpha: float,
         args.append((sD, sL, arrs["asset"], arrs["X0"], arrs["w"], arrs["sS"],
                      arrs["aD"], arrs["aL"], arrs["mask"], nu0e, arrs["gamma"],
                      arrs["nsig"]))
-    out, views = group_outputs(ref, sizes, 5)  # sD' sL' a b val
-    ptrs = []
-    for ins, outs in zip(args, views):
-        ptrs += [None if t is None else t.data_ptr() for t in ins]
-        ptrs += [t.data_ptr() for t in outs]
-    c_dims, c_ptrs = launch_table(dims, ptrs)
-    a = float(alpha)
-    n_pad = v.shape[0]
-    lib = _build.library("fused_step_delta")
-    with torch.cuda.device(ref.device):
-        stream = torch.cuda.current_stream(ref.device).cuda_stream
-        rc = lib.cfmm_fused_step_delta(
-            dtype_code(ref.dtype), ref.shape[0], len(names), n_pad, a, 1.0 - a,
-            c_dims, c_ptrs, v.data_ptr(), int(cfg.n_bisect), int(cfg.n_polish),
-            stream,
-        )
-    _build.check_launch(rc, "fused_step_delta")
-    _build.LAUNCHES["fused_step_delta" if fold is None
-                    else "fused_step_delta_fold"] += 1
-    y = segment_sum(out[4], group["order"], group["seg"], n_pad)
-    return ({name: (o[0], o[1]) for name, o in zip(names, views)},
-            {name: (o[2], o[3]) for name, o in zip(names, views)}, y)
+    return _launch_group("fused_step_delta", ref, group, dims, sizes, args, v,
+                         alpha, cfg, fold)
 
 
 def fused_step_delta(sD, sL, v, arrs, kind, needs_floor, alpha: float,

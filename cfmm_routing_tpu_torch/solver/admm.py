@@ -26,11 +26,13 @@ per-asset price vector nu (and rho*nu converges to the optimal asset
 prices).
 
 The solver runs on the card unless it is given ``device="cpu"``.  The
-iteration loops are Python loops that never read a device value back,
-except the residual check once every ``check_every`` iterations.  On the
-card every consensus reduction is a fixed-order segment sum
-(``ops/segment.py``), so two runs give bitwise-equal iterates; on the CPU it
-is ``index_add_``, which is sequential there.
+iteration loops never read a device value back, except the residual check
+once every ``check_every`` iterations; on the card their stats-free blocks
+are CUDA-graph replays (``solver/graphs.py``), on the CPU Python loops.  On
+the card every consensus reduction is a fixed-order segment sum
+(``ops/segment.py``), one per group of buckets with the same channel count
+(:attr:`AdmmSolver._groups`), so two runs give bitwise-equal iterates; on
+the CPU it is ``index_add_``, which is sequential there.
 
 The methods that touch bucket arrays take an optional ``buckets=`` override
 (the refinement stage's delta arrays ride it; see
@@ -40,9 +42,11 @@ The objective is a linear :class:`Objective` or a separable
 :class:`ConcaveUtility`; a utility changes only the consensus prox
 (``ops/prox.py``), the bucket-side work is the same.
 
-``solve_fused(merged=True)`` runs one ``fused_step_merged`` launch per
-channel count K instead of one ``fused_step`` per bucket: same-K buckets
-share a concatenated pool axis with a per-128-pool-block class table
+The fused path runs one grouped ``fused_step`` launch per channel count K
+(:attr:`AdmmSolver._groups`, one lane per slot).  ``solve_fused(merged=True)``
+runs the reference's merged entry point instead, one ``fused_step_merged``
+launch per K with one thread per pool: same-K buckets share a concatenated
+pool axis with a per-128-pool-block class table
 (:meth:`AdmmSolver._merged_groups`).
 
 A solver built with ``fold=(T, n_pt)`` runs a scenario fold
@@ -57,6 +61,7 @@ and ``solve_batch_reserves`` return.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict, NamedTuple, Optional
 
@@ -65,16 +70,22 @@ import torch
 
 from .._device import host, resolve_device
 from ..models.utility import ConcaveUtility, Objective
-from ..ops.iteration_cuda import fused_step, fused_step_merged
+from ..ops.iteration_cuda import fused_step_grouped, fused_step_merged
 from ..ops.projection import ProjectionConfig
-from ..ops.projection_cuda import _KIND, project_cs_cuda, project_gm_cuda
+from ..ops.projection_cuda import (
+    _KIND, MAX_GROUP, project_cs_cuda, project_gm_cuda,
+)
 from ..ops.prox import psi_prox, utility_prox, utility_value
 from ..ops.segment import segment_sum, slot_order
 from .compiler import CompiledProblem
+from .graphs import GraphCache, run_block
 
 __all__ = ["AdmmOptions", "AdmmSolver", "RouteResult"]
 
 _CONSENSUS_MODES = ("auto", "onehot", "radix", "scatter")
+# iterations per captured block of the fixed-length fused solves (the
+# routes' check_every): replayed n // 25 times, the rest eager
+_FUSED_BLOCK = 25
 _F32_BIG = float(np.finfo(np.float32).max / 4)
 
 
@@ -105,6 +116,9 @@ class AdmmOptions:
     # and reduces with index_add_ here; the one-hot and radix layouts
     # exist for the TPU's matrix unit and are accepted for compatibility.
     consensus: str = "auto"
+    # the one-hot layout's chunk width on the TPU: accepted for
+    # compatibility and ignored, as consensus="onehot" is
+    onehot_chunk: int = 512
 
 
 class RouteResult(NamedTuple):
@@ -185,6 +199,32 @@ def _reserve_buckets(solver, compiled_scaled):
     return out
 
 
+def bucket_groups(solver):
+    """A solver's buckets grouped by channel count K for the grouped kernels
+    (``fused_step_grouped``, ``fused_step_delta_grouped``,
+    ``project_delta_grouped``): groups in ascending K, buckets in
+    sorted-name order inside a group, at most ``MAX_GROUP`` buckets each.  A
+    group holds its ``K``, its ``names``, their ``kinds`` ((kind,
+    needs_floor)) and its own fixed slot order (``order``/``seg``) over the
+    buckets' consensus-term planes flattened one after another."""
+    by_k = {}
+    for name in sorted(solver.buckets):
+        by_k.setdefault(solver.buckets[name]["mask"].shape[0], []).append(name)
+    groups = []
+    for K, names in sorted(by_k.items()):
+        for i in range(0, len(names), MAX_GROUP):
+            part = names[i:i + MAX_GROUP]
+            flat = [np.concatenate([host(solver.buckets[nm][key]).reshape(-1)
+                                    for nm in part])
+                    for key in ("asset", "mask")]
+            order, seg = slot_order(*flat, solver.n)
+            groups.append(dict(
+                K=K, names=part, kinds=[solver._meta[nm] for nm in part],
+                order=torch.as_tensor(order, device=solver.device),
+                seg=torch.as_tensor(seg, device=solver.device)))
+    return groups
+
+
 class AdmmSolver:
     """ADMM solver bound to one problem structure and one device.
 
@@ -229,6 +269,14 @@ class AdmmSolver:
         self.consensus = mode
         self._alpha = self._t(options.alpha)
         self._merged = None  # the merged K-groups, built at first use
+        self._graphs = GraphCache()  # captured iteration blocks (card only)
+
+    @functools.cached_property
+    def _groups(self):
+        """This solver's :func:`bucket_groups`, built once: only the topology
+        enters, which every ``buckets=`` override (reserve scenarios, delta
+        arrays) shares."""
+        return bucket_groups(self)
 
     def _t(self, x) -> torch.Tensor:
         """A tensor of the solve dtype on the solver's device."""
@@ -287,16 +335,25 @@ class AdmmSolver:
         K, m = arrs["mask"].shape
         return nu.index_select(0, arrs["asset"].reshape(-1)).reshape(K, m) * arrs["mask"]
 
-    def _reduce_edges(self, vals, name, buckets=None):
-        """sum_{slots with asset j} vals -> (n,).  vals must be pre-masked.
-        On the card: the fixed-order segment-sum kernel."""
-        arrs = (self.buckets if buckets is None else buckets)[name]
-        if vals.device.type == "cuda":
-            return segment_sum(vals.contiguous(), arrs["order"], arrs["seg"],
-                               self.n)
-        return self._zeros(self.n).index_add_(
-            0, arrs["asset"].reshape(-1), vals.reshape(-1)
-        )
+    def _reduce_edges(self, planes, buckets):
+        """sum_{slots with asset j} of every bucket's pre-masked (K, m)
+        plane -> (n,).  On the card: one fixed-order segment-sum kernel per
+        K-group (:attr:`_groups`) over its buckets' planes one after
+        another, the groups' sums added in group order.  On the CPU:
+        ``index_add_`` bucket by bucket."""
+        if next(iter(planes.values())).device.type == "cuda":
+            y = None
+            for g in self._groups:
+                vals = [planes[nm].reshape(-1) for nm in g["names"]]
+                vals = vals[0].contiguous() if len(vals) == 1 else torch.cat(vals)
+                yg = segment_sum(vals, g["order"], g["seg"], self.n)
+                y = yg if y is None else y + yg
+            return y
+        y = self._zeros(self.n)
+        for name, vals in planes.items():
+            y = y + self._zeros(self.n).index_add_(
+                0, buckets[name]["asset"].reshape(-1), vals.reshape(-1))
+        return y
 
     # ---- single iteration ---------------------------------------------------
 
@@ -336,8 +393,8 @@ class AdmmSolver:
         buckets = self.buckets if buckets is None else buckets
         alpha = self._alpha
         w_hat = {}
+        cterm = {}
         w_norm2 = self._zeros()
-        yhat = self._zeros(self.n)
         for name, arrs in buckets.items():
             nu_e = self._bcast_nu(nu, name, buckets)
             zD, zL = z[name]
@@ -347,7 +404,8 @@ class AdmmSolver:
             hD = alpha * D + (1.0 - alpha) * zD
             hL = alpha * L + (1.0 - alpha) * zL
             w_hat[name] = (D, L, hD, hL)
-            yhat = yhat + self._reduce_edges(hL - hD, name, buckets)
+            cterm[name] = hL - hD
+        yhat = self._reduce_edges(cterm, buckets)
 
         s = yhat - 2.0 * self.degree * nu
         psi, mu = self._prox(s, c, lo, hi, rho, util)
@@ -412,22 +470,23 @@ class AdmmSolver:
 
     def _iterate_fused(self, s, wdef, nu, rho, c, lo, hi, buckets=None,
                        util=None):
+        """One fused iteration: one ``fused_step_grouped`` launch and one
+        segment sum per group of buckets with the same channel count
+        (:attr:`_groups`), the groups' y added in group order."""
         buckets = self.buckets if buckets is None else buckets
         alpha = float(self.options.alpha)
         v, unpack = self._fold_pack(wdef - nu)
-        y = torch.zeros_like(v)
+        y = None
         s_new = {}
         w_out = {}
-        for name, arrs in buckets.items():
-            kind, floor = self._meta[name]
-            sD, sL = s[name]
-            sDn, sLn, D, L, yp = fused_step(
-                sD, sL, v, arrs, kind, floor, alpha, cfg=self.options.projection,
+        for g in self._groups:
+            sg, wg, yg = fused_step_grouped(
+                s, v, buckets, g, alpha, cfg=self.options.projection,
                 fold=self._fold,
             )
-            s_new[name] = (sDn, sLn)
-            w_out[name] = (D, L)
-            y = y + yp
+            s_new.update(sg)
+            w_out.update(wg)
+            y = yg if y is None else y + yg
         yhat = unpack(y) - 2.0 * (1.0 - alpha) * self.degree * wdef
         svec = yhat - 2.0 * self.degree * nu
         psi, mu = self._prox(svec, c, lo, hi, rho, util)
@@ -491,8 +550,8 @@ class AdmmSolver:
     def _iterate_fused_merged(self, sm, wdef, nu, rho, c, lo, hi, groups,
                               util=None):
         """:meth:`_iterate_fused` on merged K-group state: one
-        ``fused_step_merged`` launch (and one segment sum) per channel count
-        instead of one ``fused_step`` per bucket."""
+        ``fused_step_merged`` launch (and one segment sum) per channel
+        count."""
         alpha = float(self.options.alpha)
         v, unpack = self._fold_pack(wdef - nu)
         y = torch.zeros_like(v)
@@ -530,10 +589,12 @@ class AdmmSolver:
                           z0=None, nu0=None, util=None, merged=False):
         """Fixed-iteration solve on the fused-kernel path.
 
-        Runs ``n_iters`` fused iterations (one kernel launch per bucket per
-        iteration, no residual bookkeeping in the loop), then materializes
-        the classic edge state and runs ONE classic iteration to harvest
-        exact residual norms and exactly-feasible primal trades.
+        Runs ``n_iters`` fused iterations (one kernel launch per K-group per
+        iteration, no residual bookkeeping in the loop; on the card in
+        blocks of ``_FUSED_BLOCK`` replayed as a CUDA graph, the rest
+        eager), then materializes the classic edge state and runs ONE
+        classic iteration to harvest exact residual norms and
+        exactly-feasible primal trades.
 
         ``z0``/``nu0`` warm-start the fused state: z = s + wdef_e with
         wdef = 0 reproduces any classic edge state exactly, so chunked
@@ -547,19 +608,36 @@ class AdmmSolver:
             s = dict(z0)
         if nu0 is not None:
             nu = nu0
+        consts = (rho, c, lo, hi, util)
+        reps, rest = divmod(n_iters, _FUSED_BLOCK)
         if merged:
             if buckets is not None:
                 raise ValueError("the merged path runs the solver's own buckets")
             groups = self._merged_groups()
-            sm = self._merge_state(s, groups)
-            for _ in range(n_iters):
-                sm, wdef, nu, _, _ = self._iterate_fused_merged(
-                    sm, wdef, nu, rho, c, lo, hi, groups, util=util)
+
+            def step(st, k):
+                return self._iterate_fused_merged(*st, *k[:4], groups,
+                                                  util=k[4])[:3]
+
+            st = (self._merge_state(s, groups), wdef, nu)
+            st = run_block(self, "fused_merged", step, _FUSED_BLOCK, reps, st,
+                           consts, owner=self.buckets)
+            for _ in range(rest):
+                st = step(st, consts)
+            sm, wdef, nu = st
             s = self._split_state(sm, groups)
         else:
-            for _ in range(n_iters):
-                s, wdef, nu, _, _ = self._iterate_fused(
-                    s, wdef, nu, rho, c, lo, hi, buckets=buckets, util=util)
+            def step(st, k):
+                s_new, wdef_new, nu_new, _, _ = self._iterate_fused(
+                    *st, *k[:4], buckets=buckets, util=k[4])
+                return {nm: s_new[nm] for nm in st[0]}, wdef_new, nu_new
+
+            st = run_block(self, "fused", step, _FUSED_BLOCK, reps,
+                           (s, wdef, nu), consts,
+                           owner=self.buckets if buckets is None else buckets)
+            for _ in range(rest):
+                st = step(st, consts)
+            s, wdef, nu = st
         z = self.fused_to_z(s, wdef, buckets)
         z, nu, psi, w, st = self._iterate(z, nu, rho, c, lo, hi, buckets=buckets,
                                           util=util)
@@ -614,7 +692,7 @@ class AdmmSolver:
         Requires every bucket's pool count to be a multiple of 128 (compile
         with ``pad_pools_to=128``), as the JAX package's fused path does.
         ``merged=True``: one ``fused_step_merged`` launch per channel count
-        per iteration instead of one ``fused_step`` per bucket; not on a
+        per iteration (the reference's merged kernel); not on a
         scenario fold, whose kernels stage one point's prices per block where
         the merged kernel would stage all T points'."""
         if merged and self._fold is not None:
@@ -661,12 +739,15 @@ class AdmmSolver:
         psi = self._zeros(self.n)
         w = {name: (torch.zeros_like(zD), torch.zeros_like(zL))
              for name, (zD, zL) in z.items()}
+        def step(state, k):  # one stats-free iteration
+            z_new, nu_new, _, _, _ = self._iterate(
+                *state, *k[:4], with_stats=False, buckets=buckets, util=k[4])
+            return {nm: z_new[nm] for nm in state[0]}, nu_new
+
         k = 0
         while k < budget:
-            for _ in range(check_every - 1):
-                z, nu, _, _, _ = self._iterate(z, nu, rho, c, lo, hi,
-                                               with_stats=False, buckets=buckets,
-                                               util=util)
+            z, nu = run_block(self, "classic", step, check_every - 1, 1,
+                              (z, nu), (rho, c, lo, hi, util), owner=buckets)
             z, nu, psi, w, st = self._iterate(z, nu, rho, c, lo, hi,
                                               buckets=buckets, util=util)
             r, sd, eps_pri, eps_dua = self._residuals(self._joint(st), sqn)
@@ -774,16 +855,18 @@ class AdmmSolver:
         psi = self._zeros(self.n)
         w = {name: (torch.zeros_like(zD), torch.zeros_like(zL))
              for name, (zD, zL) in z.items()}
+        def step(state, k):  # one stats-free iteration of every point
+            z_new, nu_new, _, _, _ = self._iterate(
+                *state, *k, with_stats=False, buckets=buckets)
+            return {nm: z_new[nm] for nm in state[0]}, nu_new
+
         k = 0  # the iteration count of every point still running
         while True:
             live = (iters < budget) & ((r > eps_pri) | (sd > eps_dua))
             if not bool(live.any()):
                 break
-            z_n, nu_n = z, nu
-            for _ in range(check_every - 1):
-                z_n, nu_n, _, _, _ = self._iterate(z_n, nu_n, rho, c, lo, hi,
-                                                   with_stats=False,
-                                                   buckets=buckets)
+            z_n, nu_n = run_block(self, "batch", step, check_every - 1, 1,
+                                  (z, nu), (rho, c, lo, hi), owner=buckets)
             z_n, nu_n, psi_n, w_n, st = self._iterate(z_n, nu_n, rho, c, lo, hi,
                                                       buckets=buckets)
             r_n, sd_n, ep_n, ed_n = self._residuals(st, sqn)

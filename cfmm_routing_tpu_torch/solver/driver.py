@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from .admm import RouteResult, _fused_ok
+from .graphs import run_block
 
 __all__ = ["ChunkRecord", "ChunkedDriver", "SolveLog"]
 
@@ -115,23 +116,34 @@ class ChunkedDriver:
             )
 
     def _run_chunk(self, z, nu, rho, c, lo, hi, util=None):
-        """``chunk`` classic iterations; residual sums of the last one."""
+        """``chunk`` classic iterations (the first ``chunk - 1`` one
+        replayed block on the card); residual sums of the last one."""
         sol = self.solver
-        for _ in range(self.chunk - 1):
-            z, nu, _, _, _ = sol._iterate(z, nu, rho, c, lo, hi, with_stats=False,
-                                          util=util)
+
+        def step(state, k):
+            z_new, nu_new, _, _, _ = sol._iterate(*state, *k[:4],
+                                                  with_stats=False, util=k[4])
+            return {nm: z_new[nm] for nm in state[0]}, nu_new
+
+        z, nu = run_block(sol, "chunk", step, self.chunk - 1, 1, (z, nu),
+                          (rho, c, lo, hi, util), owner=sol.buckets)
         z, nu, psi, _, st = sol._iterate(z, nu, rho, c, lo, hi, util=util)
         return z, nu, psi, st
 
     def _run_chunk_fused(self, z, nu, rho, c, lo, hi, util=None):
-        """``chunk - 1`` fused iterations from the fused state re-seeded at
-        the chunk boundary (z = s + 0_e), then one classic iteration."""
+        """``chunk - 1`` fused iterations (one replayed block on the card)
+        from the fused state re-seeded at the chunk boundary (z = s + 0_e),
+        then one classic iteration."""
         sol = self.solver
-        s = dict(z)
-        wdef = sol._zeros(sol.n)
-        for _ in range(self.chunk - 1):
-            s, wdef, nu, _, _ = sol._iterate_fused(s, wdef, nu, rho, c, lo, hi,
-                                                   util=util)
+
+        def step(state, k):
+            s_new, wdef_new, nu_new, _, _ = sol._iterate_fused(*state, *k[:4],
+                                                               util=k[4])
+            return {nm: s_new[nm] for nm in state[0]}, wdef_new, nu_new
+
+        s, wdef, nu = run_block(sol, "chunk_fused", step, self.chunk - 1, 1,
+                                (dict(z), sol._zeros(sol.n), nu),
+                                (rho, c, lo, hi, util), owner=sol.buckets)
         z = sol.fused_to_z(s, wdef)
         z, nu, psi, _, st = sol._iterate(z, nu, rho, c, lo, hi, util=util)
         return z, nu, psi, st

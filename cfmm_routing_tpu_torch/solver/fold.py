@@ -3,8 +3,8 @@
 T independent copies of the same network are block-diagonal in the
 consensus — point t's pools touch only point t's asset block — so a batch
 of T solves is one solve over ``T*m`` pools and ``T*n`` assets.  Folding
-keeps the iteration on the fused kernels with one launch per bucket per
-iteration whatever T is: each kernel block stages only its own point's
+keeps the iteration on the fused kernels with one launch per channel
+count per iteration whatever T is: each kernel block stages only its own point's
 prices (``ops/iteration_cuda.py``, ``fold=``), and the segment sum reduces
 the consensus over the folded asset ids, which never mix two points.
 

@@ -15,7 +15,7 @@ certified gap by f32 correction solves on the card, certified in f64.
     state dual is dnu = nu - nu0, so no degree-amplified O(d*|nu|) f32
     products enter the consensus).  On the card the iteration is the fused
     ``fused_step_delta`` kernel, one launch per group of buckets with the
-    same channel count K (:meth:`DeltaAdmmSolver._delta_groups`).
+    same channel count K (``AdmmSolver._groups``).
 4.  Compose D = D0 + eps*a in f64 on the host and certify rigorously
     (``solver/certify.py``).  Passes re-centre at the refined point.
 
@@ -33,7 +33,6 @@ is ``ops/prox.py::delta_utility_prox``.  :func:`refine_sweep` is linear.
 from __future__ import annotations
 
 import dataclasses
-import functools
 import logging
 from typing import Optional
 
@@ -43,15 +42,14 @@ import torch
 from .._device import host, resolve_device
 from ..models.utility import ConcaveUtility, Objective
 from ..ops.iteration_cuda import fused_step_delta_grouped
-from ..ops.projection_cuda import MAX_GROUP, project_delta_grouped
-from ..ops.segment import slot_order
+from ..ops.projection_cuda import project_delta_grouped
 from ..ops.prox import DeltaUtility, delta_utility_prox
 from .admm import AdmmOptions, AdmmSolver, RouteResult, _F32_BIG, _fused_ok
 from .certify import certify, certify_batch, dual_bound, polish_prices
 from .compiler import CompiledProblem
 from .refine import RefineResult, to_host
 
-__all__ = ["DeltaAdmmSolver", "delta_groups", "refine_device", "refine_sweep",
+__all__ = ["DeltaAdmmSolver", "refine_device", "refine_sweep",
            "SweepRefineResult"]
 
 _LOG = logging.getLogger("cfmm_routing_tpu_torch.refine_device")
@@ -62,12 +60,6 @@ class DeltaAdmmSolver(AdmmSolver):
     Topology (asset ids, masks, slot order, degree) is the base problem's;
     only the per-bucket projection changes.  The pass-varying delta arrays
     (X0, aD, aL, sS, nsig, nu0e) ride the ``buckets=`` override."""
-
-    @functools.cached_property
-    def _delta_groups(self):
-        """This solver's :func:`delta_groups`, built once: only the topology
-        enters, which every ``delta_buckets`` call shares."""
-        return delta_groups(self)
 
     def _delta_prox(self, yhat, c, nu, lo, hi, rho, util=None):
         """The re-centred prox.  Linear: ``c`` carries e0 = c_true/rho - nu0
@@ -101,12 +93,12 @@ class DeltaAdmmSolver(AdmmSolver):
             zD, zL = z[name]
             inputs[name] = (zD - off, zL + off)
         proj = {}
-        for g in self._delta_groups:  # one projection launch per group
+        for g in self._groups:  # one projection launch per group
             proj.update(project_delta_grouped(inputs, buckets, g,
                                               cfg=self.options.projection))
         w_hat = {}
+        cterm = {}
         w_norm2 = self._zeros()
-        yhat = self._zeros(self.n)
         for name in buckets:
             zD, zL = z[name]
             D, L = proj[name]
@@ -115,7 +107,8 @@ class DeltaAdmmSolver(AdmmSolver):
             hD = alpha * D + (1.0 - alpha) * zD
             hL = alpha * L + (1.0 - alpha) * zL
             w_hat[name] = (D, L, hD, hL)
-            yhat = yhat + self._reduce_edges(hL - hD, name, buckets)
+            cterm[name] = hL - hD
+        yhat = self._reduce_edges(cterm, buckets)
 
         psi, dmu = self._delta_prox(yhat, c, nu, lo, hi, rho, util)
 
@@ -152,7 +145,7 @@ class DeltaAdmmSolver(AdmmSolver):
                        util=None):
         """Fused delta iteration: one ``fused_step_delta`` launch and one
         segment sum per group of buckets with the same channel count
-        (:attr:`_delta_groups`), the groups' y added in group order.  The
+        (``AdmmSolver._groups``), the groups' y added in group order.  The
         deferred-broadcast identity z = s +/- wdef_e is untouched by the
         re-centring (nu0e enters only the projection input, inside the
         kernel), so the O(n) recursion is the base fused path's."""
@@ -162,7 +155,7 @@ class DeltaAdmmSolver(AdmmSolver):
         y = None
         s_new = {}
         w_out = {}
-        for g in self._delta_groups:
+        for g in self._groups:
             sg, wg, yg = fused_step_delta_grouped(
                 s, v, buckets, g, alpha, cfg=self.options.projection,
                 fold=self._fold,
@@ -317,32 +310,6 @@ class DeltaAdmmSolver(AdmmSolver):
             rho_t, z0=z0, nu0=dnu0, max_iters=int(max_iters), buckets=bdict,
         )
         return fs._unfold_batch(res)
-
-
-def delta_groups(solver):
-    """A solver's buckets grouped by channel count K for the grouped delta
-    kernels (``fused_step_delta_grouped``, ``project_delta_grouped``):
-    groups in ascending K, buckets in sorted-name order inside a group, at
-    most ``MAX_GROUP`` buckets each.  A group holds its ``names``, their
-    ``kinds`` ((kind, needs_floor)) and its own fixed slot order
-    (``order``/``seg``) over the buckets' consensus-term planes flattened
-    one after another."""
-    by_k = {}
-    for name in sorted(solver.buckets):
-        by_k.setdefault(solver.buckets[name]["mask"].shape[0], []).append(name)
-    groups = []
-    for K, names in sorted(by_k.items()):
-        for i in range(0, len(names), MAX_GROUP):
-            part = names[i:i + MAX_GROUP]
-            flat = [np.concatenate([host(solver.buckets[nm][key]).reshape(-1)
-                                    for nm in part])
-                    for key in ("asset", "mask")]
-            order, seg = slot_order(*flat, solver.n)
-            groups.append(dict(
-                K=K, names=part, kinds=[solver._meta[nm] for nm in part],
-                order=torch.as_tensor(order, device=solver.device),
-                seg=torch.as_tensor(seg, device=solver.device)))
-    return groups
 
 
 def _np_dtype(dtype: torch.dtype):

@@ -14,7 +14,10 @@ Phases (any failure raises and the script exits nonzero):
       state (20 plain fused iterations): ``project_gm`` (gm2, gm2f, gm4)
       and ``project_cs`` (cs2f, cs4f) in float32 at the main path's
       ProjectionConfig(24, 4) and in float64 at the default (48, 6);
-      ``fused_step`` and ``segment_sum`` on every bucket.
+      ``segment_sum`` on every bucket and on each K-group's slot order;
+      ``fused_step`` on every bucket (a group of one) and grouped, one
+      launch + one segment sum per K-group (K=2: cs2f gm2 gm2f, K=4: cs4f
+      gm4), float32 and float64.
    b. The grouped delta kernels: ``fused_step_delta_grouped`` (with its
       segment sum) and the standalone delta projection
       ``project_delta_grouped`` (``project_gm_delta`` + ``project_cs_delta``)
@@ -28,12 +31,13 @@ Phases (any failure raises and the script exits nonzero):
    c. Any K: a network of 3-, 5- and 12-asset pools compiled with
       ``pad_pow2=False`` (the run-time-K kernels; 4, 8 and 16 lanes per
       delta pool) and ``pad_pow2=True`` (K = 4, 8, 16), and one of
-      40-asset pools (one thread per delta pool): every kernel in float32,
-      the grouped delta kernels bitwise.
-   Tolerances: projections atol 5e-5 (float32) / 1e-10 (float64); fused
-   steps atol 2e-5 (1e-10) on the planes and also rtol 1e-5 on y; the
-   segment sum and the grouped delta kernels must be bitwise equal to
-   their plain versions, whose order of additions they share.
+      40-asset pools (one thread per pool): every kernel in float32, the
+      fused steps (per bucket and grouped) and the grouped delta kernels
+      bitwise.
+   Tolerances: projections atol 5e-5 (float32) / 1e-10 (float64); the
+   segment sum, the fused steps and the grouped delta kernels must be
+   bitwise equal to their plain versions, whose order of additions they
+   share.
 3. The reference optima on the card: in float64 through ``api.arbitrage`` /
    ``api.liquidate`` / ``api.route(certify=True)``, each pin to 1e-6; in
    float32 through the same calls with ``refine_to=1e-7`` (bench.py's base
@@ -44,13 +48,21 @@ Phases (any failure raises and the script exits nonzero):
    seed=7)`` -> ``equilibrate`` -> ``compile_table(pad_pools_to=1024)`` ->
    ``AdmmSolver.solve_fused(iters=499)`` in float32 -> ``unscale_result`` ->
    ``certify``, with every kernel's launch count reset just before and read
-   just after.  The kernel path's objective must match the plain path's and
-   the classic path's to 1e-3 relative; a second kernel run, and a second
-   50-iteration classic solve, must be bitwise equal to the first.
+   just after: exactly 499 grouped ``fused_step`` launches per K-group.
+   The kernel path's objective must match the plain path's and the
+   classic path's to 1e-3 relative; two more replayed runs and two eager
+   ones (``graphs.eager()``, in turns, the counts reset before each), and
+   a second 50-iteration classic solve, must be bitwise equal to the first,
+   the four runs with equal launch counts; it/s and the card's idle share
+   replayed and eager.
 5. The certified route at full width: the same network -> float32 classic
    ``AdmmSolver.solve`` (max_iters=3000, eps 1e-7, ProjectionConfig(24, 4))
    -> ``refine_device(target_gap=1e-6)`` on the fused delta kernel, with the
-   certificate in original units.  Counts reset before, read after; the
+   certificate in original units, run eagerly and then replayed (the base's
+   24-iteration check blocks and the refinement's 25-iteration fused blocks
+   as CUDA graphs): the two bitwise equal in the base, with the same final
+   certificate and launches; the seconds of both.  Counts reset before each
+   run, read after; the
    fused delta kernel must run 2 launches per fused delta iteration (one
    per K-group) and the delta projection 2 per classic delta iteration, no
    host fallback may be taken, and the certificate must be finite and no
@@ -68,18 +80,20 @@ Phases (any failure raises and the script exits nonzero):
    b. BASELINE config 5: the 100k network of phase 4 under 8 reserve
       scenarios (``uniform(0.7, 1.3, (8, n_pools))``, ``bench_grid.py:529``)
       -> ``solve_batch_reserves_folded(n_iters=749)`` in float32: 749 fused
-      iterations (exactly 5 x 749 fold launches) + 1 classic, 750 in all.
-      Per-point objectives match the batched classic
-      ``solve_batch_reserves`` at 750 iterations to 5e-4 relative; a second
-      run is bitwise equal.
+      iterations (exactly 2 x 749 grouped fold launches) + 1 classic, 750
+      in all.  Per-point objectives match the batched classic
+      ``solve_batch_reserves`` at 750 iterations to 5e-4 relative; two
+      more replayed runs and two eager ones are bitwise equal (seconds and
+      scenario-iterations/s of both).
    c. A certified objective sweep: ``random_arbitrage_table(64, 10_000,
       seed=7)``, equilibrated, ``pad_pools_to=1024``, 50 objective points
       (``bench_grid.py:443-481``) -> ``solve_batch_folded`` (fused
       ``ChunkedDriver``, eps 1e-6) -> ``refine_sweep(target_gap=1e-6)`` on
-      ``fused_step_delta(fold=)``.  Every certificate finite and no worse
-      than at entry; how many points reach 1e-6 is printed.  Then the
-      grouped fold delta step at these 10k x 50 shapes, where its launches
-      happen: bitwise equal to its plain version, and its device time.
+      ``fused_step_delta(fold=)``, replayed and then eagerly: equal.  Every
+      certificate finite and no worse than at entry; how many points reach
+      1e-6 is printed.  Then both grouped fold steps at these 10k x 50
+      shapes, where their launches happen: bitwise equal to their plain
+      versions, and their device times.
    d. The reference's 51-point frontier: ``api.sweep(two-asset, 0, 2,
       linspace(0, 50, 51), refine_to=1e-6)`` in float32: every point
       certified at 1e-6, u(25) = 31.005495 to 2e-6.
@@ -100,12 +114,23 @@ Phases (any failure raises and the script exits nonzero):
       atoms on assets 1 and 3), with its certificate in original units.
    c. Path 2: the 100k utility route, classic float32 base (phase 5's
       options) -> ``refine_device(target_gap=1e-6, fused=True)`` with the
-      certificate in original units, and ``api.route(table, utility,
+      certificate in original units, eager and replayed (equal, both
+      timed), and ``api.route(table, utility,
       precondition=True, refine_to=1e-6)``: both certified at 1e-6.
    d. The three ``tests/test_utilities.py`` flavours (log, power, quad on
       ``random_arbitrage(5, 8, seed=11)``, boxed) through
       ``api.route(certify=True)`` in float64, 300 iterations, on the card and
       on the CPU: equal to 1e-9.
+8. CUDA-graph replays (``solver/graphs.py``) against eager runs: at 100k
+   pools in float32 (60 iterations, folds of 8) and float64 (30, folds of
+   2), the classic solve (linear and concave utility), the fused and
+   merged solves, the fused and classic delta solves, the folded reserve
+   batch, the per-point batch and ``ChunkedDriver`` classic and fused:
+   replayed bitwise equal to eager, with equal launch counts.  Peak device
+   memory of the 100k fused solve and the 100k x 8 folded batch, eager and
+   replayed.  ``torch.profiler`` windows over 50 and 500 fused-base
+   iterations and over one classic check block, replayed and eager: the
+   CUDA kernels' busy share of their span.
 
 It prints one JSON line describing every kernel of the path (device times
 from CUDA events around CUDA-graph replays of back-to-back calls, summed
@@ -229,12 +254,6 @@ def check_close(label, got, want, atol, rtol=0.0):
             )
 
 
-def check_fused(label, got, want, atol):
-    """A fused step's (sD', sL', D, L) to atol, y also to rtol 1e-5."""
-    check_close(label, got[:4], want[:4], atol)
-    check_close(f"{label} y", got[4:], want[4:], atol, rtol=1e-5)
-
-
 def gm_or_cs_bytes(kind, K, m, es):
     # each input read once, each output written once
     if kind == "gm":  # p q R w s mask, gamma logk0 k0 -> D L
@@ -314,6 +333,7 @@ def count_plain_calls(counter):
     from cfmm_routing_tpu_torch.ops import iteration_cuda, projection_cuda, segment
 
     targets = [(iteration_cuda, "fused_step_plain"),
+               (iteration_cuda, "fused_step_grouped_plain"),
                (iteration_cuda, "fused_step_delta_plain"),
                (iteration_cuda, "fused_step_delta_grouped_plain"),
                (iteration_cuda, "fused_step_merged_plain"),
@@ -348,9 +368,12 @@ def sweep_phase(report, rows, card, cfg_main, cfg64):
     from cfmm_routing_tpu_torch.ops import _build
     from cfmm_routing_tpu_torch.ops.iteration_cuda import (
         fused_step, fused_step_delta_grouped, fused_step_delta_grouped_plain,
-        fused_step_plain,
+        fused_step_grouped, fused_step_grouped_plain, fused_step_plain,
     )
-    from cfmm_routing_tpu_torch.solver.admm import AdmmOptions, AdmmSolver, _reserve_buckets
+    from cfmm_routing_tpu_torch.solver import graphs
+    from cfmm_routing_tpu_torch.solver.admm import (
+        AdmmOptions, AdmmSolver, _reserve_buckets,
+    )
     from cfmm_routing_tpu_torch.solver.certify import certify_batch
     from cfmm_routing_tpu_torch.solver.compiler import compile_table
     from cfmm_routing_tpu_torch.solver.fold import (
@@ -358,7 +381,7 @@ def sweep_phase(report, rows, card, cfg_main, cfg64):
     )
     from cfmm_routing_tpu_torch.solver.precondition import equilibrate
     from cfmm_routing_tpu_torch.solver.refine_device import (
-        _delta_buckets_folded, _psi_batch, delta_groups, refine_sweep,
+        _delta_buckets_folded, _psi_batch, refine_sweep,
     )
     from cfmm_routing_tpu_torch.utils.synth import random_arbitrage_table
 
@@ -385,7 +408,7 @@ def sweep_phase(report, rows, card, cfg_main, cfg64):
         st = {name: delta_state(a, rng) for name, a in bd.items()}
         n_v = vvec.shape[0]
         out_rows = []
-        for g in delta_groups(slv):
+        for g in slv._groups:
             K = g["K"]
             ms = [int(bd[nm]["mask"].shape[1]) for nm in g["names"]]
             kfn = lambda: fused_step_delta_grouped(st, vvec, bd, g, 1.0, cfg=cfg64,  # noqa: E731
@@ -427,6 +450,54 @@ def sweep_phase(report, rows, card, cfg_main, cfg64):
                 f"({row['bound_by']})")
         return out_rows
 
+    def fold_base_check(slv, bd, st, vvec, label, timed, f64=True):
+        """``fused_step(fold=)`` grouped by K on the folded arrays ``bd``: bitwise
+        equal to its plain version (float32 at (24, 4), and float64 at (48, 6)
+        if ``f64``) and to a second launch.  With ``timed``, one float32 row
+        per group: device time from CUDA graphs, the plain version's, the
+        bound."""
+        n_v = vvec.shape[0]
+        out_rows = []
+        for g in slv._groups:
+            K = g["K"]
+            ms = [int(bd[nm]["mask"].shape[1]) for nm in g["names"]]
+            kfn = lambda: fused_step_grouped(st, vvec, bd, g, 1.0, cfg=cfg_main,  # noqa: E731
+                                             fold=slv._fold)
+            pfn = lambda: fused_step_grouped_plain(st, vvec, bd, g, 1.0,  # noqa: E731
+                                                   cfg=cfg_main, fold=slv._fold)
+            got, again, want = kfn(), kfn(), pfn()
+            torch.cuda.synchronize()
+            bitwise(f"fused_step fold[K={K}, {label}, float32]", grouped_leaves(got),
+                    grouped_leaves(want))
+            bitwise(f"fused_step fold[K={K}, {label}] second launch", grouped_leaves(again),
+                    grouped_leaves(got))
+            del got, again, want
+            if f64:
+                st64 = {nm: tuple(x.double() for x in st[nm]) for nm in g["names"]}
+                bd64 = {nm: as64(bd[nm]) for nm in g["names"]}
+                got = fused_step_grouped(st64, vvec.double(), bd64, g, 1.0, cfg=cfg64,
+                                         fold=slv._fold)
+                want = fused_step_grouped_plain(st64, vvec.double(), bd64, g, 1.0,
+                                                cfg=cfg64, fold=slv._fold)
+                torch.cuda.synchronize()
+                bitwise(f"fused_step fold[K={K}, {label}, float64]", grouped_leaves(got),
+                        grouped_leaves(want))
+                del st64, bd64, got, want
+            if not timed:
+                continue
+            row = dict(group=K, buckets=g["names"], dtype="float32", K=K, m=sum(ms),
+                       fold=list(slv._fold), cfg=list(cfg_main), max_abs_err=0.0,
+                       ms=graph_ms(kfn), plain_ms=eager_ms(pfn, n=1))
+            row["bound_ms"], row["bound_by"] = group_bound([
+                bound_ms(fused_fold_bytes(K, m, n_v, 4, False),
+                         projection_flops(cfg_main, K, m), torch.float32) for m in ms])
+            out_rows.append(row)
+            log(f"# 6a fused_step fold K={K} {g['names']} T*m={sum(ms)} ({label}): bitwise "
+                f"equal to plain{' in float32 and float64' if f64 else ''} and across "
+                f"launches; kernel {row['ms']:.4f} ms (1 launch + 1 segment sum)  plain "
+                f"{row['plain_ms']:.2f} ms  bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        return out_rows
+
     # ---- the 6b network: 100k pools x 8 reserve scenarios, folded ----------
     t_phase = time.perf_counter()
     table, obj = random_arbitrage_table(256, 100_000, seed=7)
@@ -456,32 +527,15 @@ def sweep_phase(report, rows, card, cfg_main, cfg64):
     v, _ = fs._fold_pack(wdef - nu)
     n_pad = v.shape[0]
     fold = fs._fold
-    for name, arrs in bdict.items():
+    for name, arrs in bdict.items():  # the per-bucket wrapper: groups of one
         kind, floor = fs._meta[name]
-        K, m = arrs["mask"].shape
         sD, sL = s[name]
-        kfn = lambda: fused_step(sD, sL, v, arrs, kind, floor, 1.0, cfg=cfg_main, fold=fold)  # noqa: E731
-        pfn = lambda: fused_step_plain(sD, sL, v, arrs, kind, floor, 1.0, cfg=cfg_main, fold=fold)  # noqa: E731
-        got, want = kfn(), pfn()
+        got = fused_step(sD, sL, v, arrs, kind, floor, 1.0, cfg=cfg_main, fold=fold)
+        want = fused_step_plain(sD, sL, v, arrs, kind, floor, 1.0, cfg=cfg_main, fold=fold)
         torch.cuda.synchronize()
-        bitwise(f"fused_step fold[{name}, float32]", got, want)
-        row = dict(bucket=name, dtype="float32", K=K, m=m, fold=list(fold), cfg=list(cfg_main),
-                   max_abs_err=max_err(got, want), ms=graph_ms(kfn), plain_ms=eager_ms(pfn, n=1))
-        row["bound_ms"], row["bound_by"] = bound_ms(
-            fused_fold_bytes(K, m, n_pad, 4, False), projection_flops(cfg_main, K, m),
-            torch.float32)
-        rows["fused_step_fold"].append(row)
-        a64 = as64(arrs)
-        got = fused_step(sD.double(), sL.double(), v.double(), a64, kind, floor, 1.0,
-                         cfg=cfg64, fold=fold)
-        want = fused_step_plain(sD.double(), sL.double(), v.double(), a64, kind, floor, 1.0,
-                                cfg=cfg64, fold=fold)
-        torch.cuda.synchronize()
-        bitwise(f"fused_step fold[{name}, float64]", got, want)
-        log(f"# 6a fused_step fold {name:5s} K={K} T*m={m}: bitwise equal to plain in "
-            f"float32 and float64; kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.2f} ms  "
-            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
-        del a64, got, want
+        bitwise(f"fused_step fold[{name}, float32] (a group of one)", got, want)
+        del got, want
+    rows["fused_step_fold"] += fold_base_check(fs, bdict, s, v, "6b", timed=True)
     del s, wdef, nu
 
     # ---- 6b. BASELINE config 5: 8 reserve scenarios at 100k pools ----------
@@ -493,7 +547,7 @@ def sweep_phase(report, rows, card, cfg_main, cfg64):
                                             n_iters=749)
     fold_s = time.perf_counter() - t0
     launches6b = dict(_build.LAUNCHES)
-    expect = 749 * len(compiled.buckets)
+    expect = 749 * len(fs._groups)
     log(f"# 6b folded reserve batch: 749 fused + 1 classic iterations in {fold_s:.3f} s "
         f"(host clock, reserve planes included) -> {750 / fold_s:.1f} it/s, "
         f"{B * 750 / fold_s:.1f} scenario-it/s; launches {launches6b}")
@@ -504,22 +558,31 @@ def sweep_phase(report, rows, card, cfg_main, cfg64):
     objs = np.asarray(res_b.objective, np.float64)
     if not (objs.shape == (B,) and np.isfinite(objs).all() and np.isfinite(res_b.psi).all()):
         raise AssertionError("folded reserve batch: non-finite or misshapen result")
-    t0 = time.perf_counter()
-    res_b2 = solve_batch_reserves_folded(compiled, eq.objective, scale_r, options=opts6,
-                                         n_iters=749)
-    fold2_s = time.perf_counter() - t0
-    leaves = [(res_b.objective, res_b2.objective), (res_b.psi, res_b2.psi),
-              (res_b.prices, res_b2.prices)]
-    leaves += [(res_b.deltas[k], res_b2.deltas[k]) for k in res_b.deltas]
-    leaves += [(res_b.lambdas[k], res_b2.lambdas[k]) for k in res_b.lambdas]
-    if not all(np.array_equal(a, b) for a, b in leaves):
-        raise AssertionError("a second folded reserve batch is not bitwise equal to the first")
+    secs6b = {"eager": [], "replayed": []}
+    for mode in ("replayed", "eager", "eager", "replayed"):  # in turns, after the first
+        ctx = graphs.eager() if mode == "eager" else contextlib.nullcontext()
+        with ctx:
+            t0 = time.perf_counter()
+            res_b2 = solve_batch_reserves_folded(compiled, eq.objective, scale_r,
+                                                 options=opts6, n_iters=749)
+            secs6b[mode].append(time.perf_counter() - t0)
+        leaves = [(res_b.objective, res_b2.objective), (res_b.psi, res_b2.psi),
+                  (res_b.prices, res_b2.prices)]
+        leaves += [(res_b.deltas[k], res_b2.deltas[k]) for k in res_b.deltas]
+        leaves += [(res_b.lambdas[k], res_b2.lambdas[k]) for k in res_b.lambdas]
+        if not all(np.array_equal(a, b) for a, b in leaves):
+            raise AssertionError(f"a {mode} folded reserve batch is not bitwise equal to the "
+                                 "first")
+    fold2_s, fold_eager_s = min(secs6b["replayed"]), min(secs6b["eager"])
     st = fs.fused_init(bdict)
     iter_dev_ms = graph_ms(lambda: fs._iterate_fused(*st, rho, c_f, lo_f, hi_f, buckets=bdict),
                            n=5, reps=3)
-    log(f"# 6b second run bitwise equal ({fold2_s:.3f} s, {750 / fold2_s:.1f} it/s); one folded "
-        f"fused iteration {iter_dev_ms:.4f} ms on the device (CUDA graph) vs "
-        f"{1e3 * fold2_s / 750:.4f} ms per iteration on the host clock")
+    log(f"# 6b repeat runs bitwise equal: replayed {secs6b['replayed']} s -> "
+        f"{750 / fold2_s:.1f} it/s, {B * 750 / fold2_s:.1f} scenario-it/s; eager "
+        f"{secs6b['eager']} s -> {750 / fold_eager_s:.1f} it/s, "
+        f"{B * 750 / fold_eager_s:.1f} scenario-it/s (in turns, host clock, reserve planes "
+        f"included); one folded fused iteration {iter_dev_ms:.4f} ms on the device (CUDA "
+        f"graph) vs {1e3 * fold2_s / 750:.4f} ms replayed per iteration on the host clock")
     t0 = time.perf_counter()
     solver_b = AdmmSolver(compiled, dtype=torch.float32, options=opts6)
     res_c = solver_b.solve_batch_reserves(eq.objective, scale_r)
@@ -534,6 +597,7 @@ def sweep_phase(report, rows, card, cfg_main, cfg64):
     out["reserve_batch"] = dict(
         B=B, folded_buckets=fshapes, real_slots=n_slots, setup_s=setup_s, fold_s=fold_s,
         fold2_s=fold2_s, iters_per_s=750 / fold2_s, iteration_device_ms=iter_dev_ms,
+        seconds=secs6b, eager_iters_per_s=750 / fold_eager_s,
         classic_s=classic_s, objectives=objs.tolist(), max_rel_vs_classic=float(rel.max()),
         launches=launches6b, repeat_bitwise_equal=True)
     del solver_b, res_c
@@ -562,23 +626,25 @@ def sweep_phase(report, rows, card, cfg_main, cfg64):
     v1 = torch.as_tensor(0.3 * rng.normal(size=T1 * c_1k.n_assets), dtype=torch.float32,
                          device="cuda")
     big = []
+    st1k = {}
     for name, arrs in s1k.buckets.items():
         kind, floor = s1k._meta[name]
         K, m = arrs["mask"].shape
-        sD, sL = delta_state(arrs, rng)
+        sD, sL = st1k[name] = delta_state(arrs, rng)
         got = fused_step(sD, sL, v1, arrs, kind, floor, 1.0, cfg=cfg_main, fold=s1k._fold)
         want = fused_step_plain(sD, sL, v1, arrs, kind, floor, 1.0, cfg=cfg_main,
                                 fold=s1k._fold)
         torch.cuda.synchronize()
         bitwise(f"fused_step fold[{name}, 1k x {T1}]", got, want)
         big.append(dict(bucket=name, K=K, m=m))
+    fold_base_check(s1k, s1k.buckets, st1k, v1, f"1k x {T1}", timed=False, f64=False)
     fold_delta_check(s1k, bd1, v1, rng, f"1k x {T1}", timed=False, f64=False)
     log(f"# 6a 1,000 pools / 64 assets x T={T1} ({sum(b['m'] for b in big)} folded pools; "
         f"{T1 * c_1k.n_assets} prices, {T1 * c_1k.n_assets * 4 // 1024} KB, more than one "
         f"block's 227 KB of shared memory): both fold kernels bitwise equal to plain on "
         f"{[b['bucket'] for b in big]}")
     out["fold_1k_x_1024"] = big
-    del s1k, bd1
+    del s1k, bd1, st1k
 
     # ---- 6c. a certified objective sweep: 10k pools x 50 points -------------
     table, obj = random_arbitrage_table(64, 10_000, seed=7)
@@ -591,29 +657,45 @@ def sweep_phase(report, rows, card, cfg_main, cfg64):
     lo_s = np.tile(np.asarray(eq.objective.lo)[None, :], (Tc, 1))
     hi_s = np.full((Tc, n), np.inf)
     opts_s = AdmmOptions(max_iters=4000, eps_abs=1e-6, eps_rel=1e-6, projection=cfg_main)
-    _build.reset_launch_counts()
-    plain6 = {}
-    t0 = time.perf_counter()
-    with count_plain_calls(plain6):
-        out_s = solve_batch_folded(compiled, c_s, np.maximum(lo_s, -3e38),
+    def certified_sweep(mode):
+        ctx = graphs.eager() if mode == "eager" else contextlib.nullcontext()
+        _build.reset_launch_counts()
+        plain = {}
+        with ctx, count_plain_calls(plain):
+            t0 = time.perf_counter()
+            o = solve_batch_folded(compiled, c_s, np.maximum(lo_s, -3e38),
                                    np.full((Tc, n), 3e38), options=opts_s, chunk=250)
-        solve_s = time.perf_counter() - t0
-        entry = certify_batch(compiled, c_s, lo_s, hi_s, out_s.deltas, out_s.lambdas,
-                              out_s.prices, psi_claimed=_psi_batch(
-                                  compiled, out_s.deltas, out_s.lambdas))
-        t1 = time.perf_counter()
-        ref_s = refine_sweep(compiled, c_s, lo_s, hi_s, out_s, target_gap=1e-6)
-        refine_s = time.perf_counter() - t1
-    launches6c = dict(_build.LAUNCHES)
+            solve_s = time.perf_counter() - t0
+            ent = certify_batch(compiled, c_s, lo_s, hi_s, o.deltas, o.lambdas,
+                                o.prices, psi_claimed=_psi_batch(compiled, o.deltas,
+                                                                 o.lambdas))
+            t1 = time.perf_counter()
+            r = refine_sweep(compiled, c_s, lo_s, hi_s, o, target_gap=1e-6)
+            refine_s = time.perf_counter() - t1
+        return o, ent, r, solve_s, refine_s, dict(_build.LAUNCHES), plain
+
+    out_s, entry, ref_s, solve_s, refine_s, launches6c, plain6 = certified_sweep("replayed")
+    eager6c = certified_sweep("eager")
     n_ok = int(np.sum(ref_s.achieved))
-    log(f"# 6c certified sweep, 10k pools x {Tc} objectives: folded fused solve "
-        f"{int(out_s.iters[0])} iterations in {solve_s:.3f} s (converged "
-        f"{bool(out_s.converged[0])}); refine_sweep {ref_s.iters} correction iterations "
-        f"in {refine_s:.3f} s; {n_ok}/{Tc} points certified at 1e-6; launches {launches6c}")
+    for mode, (o, _, r, t_s, t_r, _, _) in (("replayed", (out_s, None, ref_s, solve_s,
+                                                          refine_s, None, None)),
+                                          ("eager", eager6c)):
+        log(f"# 6c certified sweep ({mode}), 10k pools x {Tc} objectives: folded fused "
+            f"solve {int(o.iters[0])} iterations in {t_s:.3f} s (converged "
+            f"{bool(o.converged[0])}; {Tc * int(o.iters[0]) / t_s:.1f} scenario-it/s); "
+            f"refine_sweep {r.iters} correction iterations in {t_r:.3f} s; "
+            f"{int(np.sum(r.achieved))}/{Tc} points certified at 1e-6")
+    log(f"# 6c launches {launches6c}")
+    same6c = (np.array_equal(out_s.psi, eager6c[0].psi)
+              and np.array_equal(out_s.prices, eager6c[0].prices)
+              and np.array_equal(ref_s.prices, eager6c[2].prices)
+              and launches6c == eager6c[5])
+    if not same6c:
+        raise AssertionError("6c: the replayed sweep differs from the eager one")
     if launches6c["fused_step_fold"] == 0 or launches6c["fused_step_delta_fold"] == 0:
         raise AssertionError(f"6c: a fold kernel never launched: {launches6c}")
-    if plain6:
-        raise AssertionError(f"6c: plain versions ran: {plain6}")
+    if plain6 or eager6c[6]:
+        raise AssertionError(f"6c: plain versions ran: {plain6} {eager6c[6]}")
     for t, (ct, ce) in enumerate(zip(ref_s.certificates, entry)):
         vals = (ct.objective, ct.dual_bound, ct.gap_rel, ct.feasibility_rel)
         if not all(math.isfinite(x) for x in vals) or not score(ct) <= score(ce):
@@ -628,10 +710,16 @@ def sweep_phase(report, rows, card, cfg_main, cfg64):
     vc = torch.as_tensor(0.3 * rng.normal(size=-(-fsc.n // 128) * 128), dtype=torch.float32,
                          device="cuda")
     rows6c = fold_delta_check(fsc, bdc, vc, rng, f"10k x {Tc}", timed=True, f64=False)
-    del fsc, bdc
+    st6c = {name: delta_state(a, rng) for name, a in fsc.buckets.items()}
+    rows6c_base = fold_base_check(fsc, fsc.buckets, st6c, vc, f"10k x {Tc}", timed=True,
+                                  f64=False)
+    del fsc, bdc, st6c
     out["certified_sweep"] = dict(
         T=Tc, solve_iters=int(out_s.iters[0]), solve_s=solve_s, refine_iters=int(ref_s.iters),
         refine_s=refine_s, certified=n_ok, launches=launches6c,
+        eager=dict(solve_s=eager6c[3], refine_s=eager6c[4]),
+        fused_step_fold=rows6c_base,
+        fused_step_fold_ms=sum(r["ms"] for r in rows6c_base),
         entry_worst=max(score(ce) for ce in entry),
         final_worst=max(score(ct) for ct in ref_s.certificates),
         fused_step_delta_fold=rows6c,
@@ -676,6 +764,7 @@ def merged_utility_phase(report, rows, card, cfg_main, cfg64, counting_solver, r
     from cfmm_routing_tpu_torch.ops.iteration_cuda import (
         fused_step, fused_step_merged, fused_step_merged_plain,
     )
+    from cfmm_routing_tpu_torch.solver import graphs
     from cfmm_routing_tpu_torch.solver.admm import AdmmOptions, AdmmSolver
     from cfmm_routing_tpu_torch.solver.certify import certify
     from cfmm_routing_tpu_torch.solver.compiler import compile_spec, compile_table
@@ -754,8 +843,9 @@ def merged_utility_phase(report, rows, card, cfg_main, cfg64, counting_solver, r
     it_unmerged = graph_ms(lambda: solver._iterate_fused(s, wdef, nu, rho, c, lo, hi),
                            n=10, reps=5)
     log(f"# 7a device ms per iteration (CUDA graphs): merged 2 launches + 2 segment sums "
-        f"{merged_ms:.4f} ms vs unmerged 5 + 5 {unmerged_ms:.4f} ms; whole fused iteration "
-        f"merged {it_merged:.4f} ms vs unmerged {it_unmerged:.4f} ms")
+        f"{merged_ms:.4f} ms vs fused_step per bucket (groups of one) 5 + 5 "
+        f"{unmerged_ms:.4f} ms; whole fused iteration merged {it_merged:.4f} ms vs unmerged "
+        f"(grouped, 2 + 2) {it_unmerged:.4f} ms")
     out["kernel"] = dict(merged_ms=merged_ms, unmerged_ms=unmerged_ms,
                          iteration_merged_ms=it_merged, iteration_unmerged_ms=it_unmerged)
     del sm, s, st_m
@@ -846,48 +936,67 @@ def merged_utility_phase(report, rows, card, cfg_main, cfg64, counting_solver, r
     def unscale(r):
         return unscale_result(r, eq_u.d, compiled_u)
 
-    _build.reset_launch_counts()
-    plain7 = {}
-    with count_plain_calls(plain7):
-        t_base0 = time.perf_counter()
-        base_solver = AdmmSolver(compiled_u, dtype=torch.float32, options=base_opts)
-        res = base_solver.solve(eq_u.objective)
-        torch.cuda.synchronize()
-        base_s = time.perf_counter() - t_base0
-        r0 = unscale(to_host(res))
-        entry = certify(cert_compiled, util, r0.deltas, r0.lambdas, r0.prices,
-                        psi_claimed=r0.psi)
-        dsolver = counting_solver(compiled_u, options=refine_opts)
-        t0 = time.perf_counter()
-        rout = refine_device(compiled_u, eq_u.objective, res, target_gap=1e-6, fused=True,
-                             cert_space=(cert_compiled, util, unscale), entry_cert=entry,
-                             solver=dsolver)
-        torch.cuda.synchronize()
-        t_end = time.perf_counter()
-    counts = dict(_build.LAUNCHES)
+    def utility_route(mode):
+        ctx = graphs.eager() if mode == "eager" else contextlib.nullcontext()
+        _build.reset_launch_counts()
+        plain = {}
+        with ctx, count_plain_calls(plain):
+            torch.cuda.synchronize()
+            t_base0 = time.perf_counter()
+            base_solver = AdmmSolver(compiled_u, dtype=torch.float32, options=base_opts)
+            res = base_solver.solve(eq_u.objective)
+            torch.cuda.synchronize()
+            base_s = time.perf_counter() - t_base0
+            r0 = unscale(to_host(res))
+            entry = certify(cert_compiled, util, r0.deltas, r0.lambdas, r0.prices,
+                            psi_claimed=r0.psi)
+            dsolver = counting_solver(compiled_u, options=refine_opts)
+            t0 = time.perf_counter()
+            rout = refine_device(compiled_u, eq_u.objective, res, target_gap=1e-6,
+                                 fused=True, cert_space=(cert_compiled, util, unscale),
+                                 entry_cert=entry, solver=dsolver)
+            torch.cuda.synchronize()
+            t_end = time.perf_counter()
+        return dict(r0=r0, iters=int(res.iters), base_s=base_s, entry=entry, rout=rout,
+                    chunks=dsolver.chunks, n_groups=len(dsolver._groups),
+                    refine_s=t_end - t0, wall_s=t_end - t_base0,
+                    counts=dict(_build.LAUNCHES), plain=plain)
+
+    ue = utility_route("eager")
+    ur = utility_route("replayed")
+    for mode, u_ in (("eager", ue), ("replayed", ur)):
+        log(f"# 7c refine_device(fused=True), utility ({mode}): base {u_['iters']} classic "
+            f"iterations in {u_['base_s']:.3f} s; refinement {u_['rout'].iters} iterations "
+            f"({u_['chunks']} chunks) in {u_['refine_s']:.3f} s; {u_['wall_s']:.3f} s from "
+            f"the base solve's start (host clock)")
+    if not (np.array_equal(np.asarray(ue["r0"].psi), np.asarray(ur["r0"].psi))
+            and ue["rout"].certificate.gap_rel == ur["rout"].certificate.gap_rel
+            and ue["counts"] == ur["counts"]):
+        raise AssertionError("7c: the replayed utility route differs from the eager one")
+    res_iters, entry, rout, counts = ur["iters"], ur["entry"], ur["rout"], ur["counts"]
+    plain7 = {**ue["plain"], **ur["plain"]}
     launches.append(counts)
     fc = rout.certificate
-    fused_iters = rout.iters - dsolver.chunks
-    log(f"# 7c refine_device(fused=True), utility: base {int(res.iters)} classic iterations "
-        f"in {base_s:.3f} s (entry {entry.summary()}); refinement {rout.iters} iterations "
-        f"({dsolver.chunks} chunks, {fused_iters} fused) in {t_end - t0:.3f} s; "
-        f"{t_end - t_base0:.3f} s from the base solve's start; final gap_rel "
-        f"{fc.gap_rel:.3e} feasibility_rel {fc.feasibility_rel:.3e}; launches {counts}")
-    n_groups = len(dsolver._delta_groups)
+    fused_iters = rout.iters - ur["chunks"]
+    log(f"# 7c replayed and eager runs equal (base bitwise, same certificate and launches); "
+        f"entry {entry.summary()}; final gap_rel {fc.gap_rel:.3e} feasibility_rel "
+        f"{fc.feasibility_rel:.3e}; {fused_iters} fused delta iterations; launches {counts}")
+    n_groups = ur["n_groups"]
     if (plain7 or counts["fused_step_delta"] == 0 or n_groups != 2
             or counts["fused_step_delta"] != n_groups * fused_iters
-            or counts["project_delta"] != n_groups * dsolver.chunks):
+            or counts["project_delta"] != n_groups * ur["chunks"]):
         raise AssertionError(f"7c: launches {counts} ({n_groups} K-groups, {fused_iters} "
-                             f"fused and {dsolver.chunks} classic delta iterations), "
+                             f"fused and {ur['chunks']} classic delta iterations), "
                              f"plain versions {plain7}")
     if not (rout.achieved and abs(fc.gap_rel) <= 1e-6 and fc.feasibility_rel <= 1e-6):
         raise AssertionError(f"7c: the utility route did not certify at 1e-6: {fc.summary()}")
-    route_c = dict(base_iters=int(res.iters), base_s=base_s, refine_iters=int(rout.iters),
-                   chunks=dsolver.chunks, fused_iters=fused_iters, refine_s=t_end - t0,
-                   wall_s=t_end - t_base0, gap_rel=fc.gap_rel,
+    route_c = dict(base_iters=res_iters, base_s=ur["base_s"], refine_iters=int(rout.iters),
+                   chunks=ur["chunks"], fused_iters=fused_iters, refine_s=ur["refine_s"],
+                   wall_s=ur["wall_s"], gap_rel=fc.gap_rel,
                    feasibility_rel=fc.feasibility_rel, objective=fc.objective,
-                   launches=counts)
-    del base_solver, dsolver, res, rout
+                   launches=counts, eager=dict(base_s=ue["base_s"], refine_s=ue["refine_s"],
+                                               wall_s=ue["wall_s"]))
+    del ue, ur, rout
     _build.reset_launch_counts()
     plain7 = {}
     with count_plain_calls(plain7):
@@ -951,10 +1060,433 @@ def merged_utility_phase(report, rows, card, cfg_main, cfg64, counting_solver, r
     return launches
 
 
+def result_leaves(res):
+    """A RouteResult's arrays in a fixed order, as CPU tensors."""
+    out = [res.objective, res.psi, res.prices, res.iters, res.r_norm, res.s_norm,
+           res.rho_final]
+    out += [res.deltas[k] for k in sorted(res.deltas)]
+    out += [res.lambdas[k] for k in sorted(res.lambdas)]
+    return [x.cpu() if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+            for x in out]
+
+
+def replay_vs_eager(label, run):
+    """Run ``run`` eagerly (``graphs.eager()``) and replayed: raise unless
+    the two results are bitwise equal with equal launch counts.  Returns
+    (eager seconds, replayed seconds, launches), host clock with a
+    synchronize."""
+    from cfmm_routing_tpu_torch.ops import _build
+    from cfmm_routing_tpu_torch.solver import graphs
+
+    out = {}
+    for mode in ("eager", "replayed"):
+        ctx = graphs.eager() if mode == "eager" else contextlib.nullcontext()
+        with ctx:
+            _build.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run()
+            torch.cuda.synchronize()
+            out[mode] = (time.perf_counter() - t0, result_leaves(res),
+                         dict(_build.LAUNCHES))
+    (te, le, ce), (tr, lr, cr) = out["eager"], out["replayed"]
+    if ce != cr:
+        raise AssertionError(f"{label}: launches eager {ce} != replayed {cr}")
+    for i, (a, b) in enumerate(zip(le, lr)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}: replayed output {i} differs from eager by "
+                                 f"{float((a.double() - b.double()).abs().max()):.3e}")
+    return te, tr, cr
+
+
+def device_busy(fn, label):
+    """torch.profiler over ``fn``: the CUDA kernels' summed durations over
+    the span from the first kernel's start to the last one's end.  Returns
+    (busy share, kernels, span ms) or None when the trace has no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = []
+    for e in prof.events():
+        dev = getattr(e, "device_type", None)
+        if dev is not None and "CUDA" in str(dev) and e.time_range.end > e.time_range.start:
+            spans.append((e.time_range.start, e.time_range.end))
+    if not spans:
+        log(f"# profiler ({label}): key_averages() shows no device time; the CUDA-event "
+            f"estimate stands")
+        return None
+    spans.sort()
+    busy = 0.0
+    cur_s, cur_e = spans[0]
+    for s_, e_ in spans[1:]:  # the union of the kernels' intervals
+        if s_ > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s_, e_
+        else:
+            cur_e = max(cur_e, e_)
+    busy += cur_e - cur_s
+    span = spans[-1][1] - spans[0][0]
+    return busy / span, len(spans), span / 1e3
+
+
+def replay_phase(report, card, cfg_main, cfg64):
+    """Phase 8, CUDA-graph replays against eager runs (module docstring)."""
+    from cfmm_routing_tpu_torch.models.utility import ConcaveUtility
+    from cfmm_routing_tpu_torch.solver import graphs
+    from cfmm_routing_tpu_torch.solver.admm import AdmmOptions, AdmmSolver
+    from cfmm_routing_tpu_torch.solver.compiler import compile_table
+    from cfmm_routing_tpu_torch.solver.driver import ChunkedDriver
+    from cfmm_routing_tpu_torch.solver.fold import solve_batch_reserves_folded
+    from cfmm_routing_tpu_torch.solver.precondition import equilibrate
+    from cfmm_routing_tpu_torch.solver.refine import to_host
+    from cfmm_routing_tpu_torch.solver.refine_device import (
+        DeltaAdmmSolver, _delta_objective, _psi_from_trades,
+    )
+    from cfmm_routing_tpu_torch.utils.synth import random_arbitrage_table
+
+    t_phase = time.perf_counter()
+    table, obj = random_arbitrage_table(256, 100_000, seed=7)
+    eq = equilibrate(table, obj)
+    compiled = compile_table(eq.table, pad_pools_to=1024)
+    util = ConcaveUtility.linear(obj.c, lo=obj.lo, hi=obj.hi)
+    util = util.with_log(1, c=1.0, b=2.0).with_log(3, c=0.5, b=1.0)
+    eq_u = equilibrate(table, util)
+    out = {}
+    for dtype, depth, T in ((torch.float32, 60, 8), (torch.float64, 30, 2)):
+        dname = str(dtype).split(".")[1]
+        cfg = cfg_main if dtype == torch.float32 else cfg64
+        fixed = AdmmOptions(max_iters=2 * depth, eps_abs=0.0, eps_rel=0.0,
+                            check_every=depth // 2, projection=cfg)
+        solver = AdmmSolver(compiled, dtype=dtype, options=fixed)
+        base = to_host(AdmmSolver(compiled, options=AdmmOptions(
+            max_iters=100, check_every=25, projection=cfg_main)).solve(eq.objective))
+        base = base._replace(psi=_psi_from_trades(compiled, base))
+        dsolver = DeltaAdmmSolver(compiled, dtype=dtype, options=dataclasses.replace(
+            fixed, adapt_rho=False))
+        nu0 = np.asarray(base.prices, np.float64).astype(np.float32).astype(np.float64)
+        bdict, _ = dsolver.delta_buckets(base, 1e-3, nu0=nu0)
+        dobj = _delta_objective(eq.objective, base.psi, 1e-3)
+        scale = np.random.default_rng(3).uniform(0.7, 1.3, size=(T, compiled.n_pools))
+        c_b = np.asarray(eq.objective.c)[None, :] * np.linspace(0.9, 1.1, T)[:, None]
+        lo_b = np.tile(np.maximum(eq.objective.lo, -3e38), (T, 1))
+        paths = {
+            "classic": lambda: solver.solve(eq.objective),
+            "classic utility": lambda: AdmmSolver(compile_table(
+                eq_u.table, pad_pools_to=1024), dtype=dtype, options=fixed).solve(
+                eq_u.objective),
+            "fused": lambda: solver.solve_fused(eq.objective, iters=depth),
+            "merged": lambda: solver.solve_fused(eq.objective, iters=depth, merged=True),
+            "fused delta": lambda: dsolver.solve_delta(dobj, bdict, nu0, 1.0, depth,
+                                                       fused=True),
+            "classic delta": lambda: dsolver.solve_delta(dobj, bdict, nu0, 1.0, depth),
+            f"fold x {T}": lambda: solve_batch_reserves_folded(
+                compiled, eq.objective, scale, options=fixed, dtype=dtype,
+                n_iters=depth - 1),
+            f"batch per point x {T}": lambda: solver.solve_batch(
+                c_b, lo_b, np.full_like(c_b, 3e38)),
+            "driver classic": lambda: ChunkedDriver(solver, chunk=depth // 2).solve(
+                eq.objective, max_iters=depth)[0],
+            "driver fused": lambda: ChunkedDriver(solver, chunk=depth // 2,
+                                                  fused=True).solve(
+                eq.objective, max_iters=depth)[0],
+        }
+        rows = {}
+        for name, run in paths.items():
+            te, tr, counts = replay_vs_eager(f"{name} {dname}", run)
+            rows[name] = dict(eager_s=te, replayed_s=tr,
+                              launches={k: v for k, v in counts.items() if v})
+            log(f"# 8 replay vs eager, {name} ({dname}, {depth} iterations at 100k "
+                f"pools): bitwise equal, launches equal; {te:.3f} s eager vs {tr:.3f} s "
+                f"replayed (host clock, first replayed run includes the capture)")
+        out[dname] = rows
+        del solver, dsolver, bdict
+        torch.cuda.empty_cache()
+
+    # peak device memory of the fused base (100k, 499 + 1 iterations) and of
+    # the folded reserve batch (100k x 8, 749 + 1), eager and replayed (the
+    # replayed run includes its capture), each on a fresh solver
+    from cfmm_routing_tpu_torch.solver.admm import _reserve_buckets
+    from cfmm_routing_tpu_torch.solver.fold import fold_compiled
+
+    opts_m = AdmmOptions(max_iters=750, eps_abs=0.0, eps_rel=0.0, adapt_rho=False,
+                         projection=cfg_main)
+    scale8 = np.random.default_rng(3).uniform(0.7, 1.3, size=(8, compiled.n_pools))
+    mem = {}
+
+    def fused_100k():
+        slv = AdmmSolver(compiled, dtype=torch.float32, options=opts_m)
+        return lambda: slv.solve_fused(eq.objective, iters=499)
+
+    def fold_100k_x_8():
+        slv = AdmmSolver(fold_compiled(compiled, 8), dtype=torch.float32, options=opts_m,
+                         fold=(8, compiled.n_assets))
+        bd = _reserve_buckets(slv, fold_compiled(compiled, 8, scale8))
+        k = (slv._t(np.tile(x, 8)) for x in (eq.objective.c,
+                                             np.maximum(eq.objective.lo, -3e38),
+                                             np.minimum(eq.objective.hi, 3e38)))
+        c8, lo8, hi8 = k
+        return lambda: slv._solve_fused_impl(c8, lo8, hi8, slv._t(1.0), 749, buckets=bd)
+
+    for label, make in (("100k", fused_100k), ("100k x 8", fold_100k_x_8)):
+        for mode in ("eager", "replayed"):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            run = make()
+            ctx = graphs.eager() if mode == "eager" else contextlib.nullcontext()
+            with ctx:
+                run()
+            torch.cuda.synchronize()
+            mem[f"{label}, {mode}"] = dict(
+                peak_mb=torch.cuda.max_memory_allocated() / 2**20,
+                above_start_mb=(torch.cuda.max_memory_allocated() - before) / 2**20)
+            del run
+        log(f"# 8 peak device memory, fused solve at {label}: eager "
+            f"{mem[f'{label}, eager']['peak_mb']:.1f} MB, replayed "
+            f"{mem[f'{label}, replayed']['peak_mb']:.1f} MB (max_memory_allocated; "
+            f"{mem[f'{label}, eager']['above_start_mb']:.1f} / "
+            f"{mem[f'{label}, replayed']['above_start_mb']:.1f} MB above the start)")
+    out["memory"] = mem
+
+    # device busy share from torch.profiler: 50 and 500 fused-base
+    # iterations (each ends in one eager classic harvest iteration), then
+    # one classic check block (24 stats-free + 1)
+    opts = AdmmOptions(max_iters=25, eps_abs=0.0, eps_rel=0.0, adapt_rho=False,
+                       check_every=25, projection=cfg_main)
+    solver = AdmmSolver(compiled, dtype=torch.float32, options=opts)
+    solver.solve_fused(eq.objective, iters=50)  # captured before the window
+    solver.solve(eq.objective)
+    prof = {}
+    solver.solve_fused(eq.objective, iters=500)
+    for label, fn in (("fused base, 50 iterations",
+                       lambda: solver.solve_fused(eq.objective, iters=50)),
+                      ("fused base, 500 iterations",
+                       lambda: solver.solve_fused(eq.objective, iters=500)),
+                      ("classic check block, 25 iterations",
+                       lambda: solver.solve(eq.objective))):
+        for mode in ("replayed", "eager"):
+            ctx = graphs.eager() if mode == "eager" else contextlib.nullcontext()
+            with ctx:
+                got = device_busy(fn, f"{label}, {mode}")
+            if got is not None:
+                prof[f"{label}, {mode}"] = dict(busy=got[0], kernels=got[1],
+                                                span_ms=got[2])
+                log(f"# 8 profiler, {label}, {mode}: {got[1]} kernels busy "
+                    f"{100 * got[0]:.1f}% of their {got[2]:.3f} ms span (idle "
+                    f"{100 * (1 - got[0]):.1f}%)")
+    out["profiler"] = prof
+    report["graphs"] = out
+    log(f"# phase 8 (graph replays vs eager) done in {time.perf_counter() - t_phase:.1f} s "
+        f"on {card}")
+
+
+def build_report(build_dir):
+    """Registers and spills of every kernel in the ``-Xptxas=-v`` logs kept
+    beside the built libraries ({library: {kernel: [registers, spill
+    stores, spill loads]}}), and the root-find loops of the float32 kernels
+    instantiated for 2 (slots or lanes a pool: the 100k network's K = 2) in
+    the fused-step library, from ``cuobjdump -sass``: each backward branch's
+    loop, its instructions and its MUFU and shuffle operations."""
+    import glob
+    import os
+    import re
+
+    regs = {}
+    for log_path in sorted(glob.glob(os.path.join(build_dir, "lib*_*.log"))):
+        lib = re.sub(r"^lib|_[0-9a-f]{16}\.log$", "", os.path.basename(log_path))
+        kernels, name = {}, None
+        for line in open(log_path):
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                name = m.group(1)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and name:
+                kernels.setdefault(name, [0, 0, 0])[1:] = [int(m.group(1)), int(m.group(2))]
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                kernels.setdefault(name, [0, 0, 0])[0] = int(m.group(1))
+        regs[lib] = kernels
+    libs = sorted(glob.glob(os.path.join(build_dir, "libfused_step_*.so")))
+    libs = [p for p in libs if re.search(r"libfused_step_[0-9a-f]{16}\.so$", p)]
+    if not libs:
+        raise RuntimeError(f"no built fused-step library in {build_dir}")
+    text = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", libs[-1]],
+                          capture_output=True, text=True, check=True).stdout
+    loops = []
+    for fn in re.split(r"Function\s*:\s*", text)[1:]:
+        name = fn.split("\n", 1)[0].strip()
+        if not re.search(r"kernelIfLi2E", name):
+            continue
+        ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn)
+        addr = [int(a, 16) for a, _ in ins]
+        for i, (_, op) in enumerate(ins):
+            m = re.search(r"\bBRA\b[^;]*?0x([0-9a-f]+)", op)
+            if not m or int(m.group(1), 16) >= addr[i]:
+                continue
+            body = [o for a, (_, o) in zip(addr, ins) if int(m.group(1), 16) <= a <= addr[i]]
+            loops.append(dict(kernel=name, instructions=len(body),
+                              mufu=sum("MUFU" in o for o in body),
+                              shfl=sum("SHFL" in o for o in body)))
+    return regs, loops
+
+
+def package_times(root):
+    """``--times ROOT``: device times of the port's package found under ROOT
+    (a checkout's root), through calls that every version of the package
+    has, so two versions can be held side by side (``--turns``).  Float32,
+    ProjectionConfig(24, 4), CUDA events around CUDA-graph replays of
+    back-to-back calls, from a state of 20 fused iterations:
+
+    * the 100k network of phase 4: ``segment_sum`` on each bucket,
+      ``fused_step`` on each bucket, one whole fused iteration
+      (``AdmmSolver._iterate_fused``) and one stats-free classic iteration
+      (``AdmmSolver._iterate``, the body of the classic replayed block);
+    * ``fused_step(fold=)`` on each bucket and one whole folded iteration at
+      100k pools x 8 reserve scenarios (6b), 10k pools x 50 points (6c) and
+      1,000 pools x 1,024 points (6a);
+    * the build's registers and spills and SASS loops (:func:`build_report`).
+    """
+    import os
+
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import cfmm_routing_tpu_torch as pkg
+
+    where = os.path.dirname(os.path.abspath(pkg.__file__))
+    if not where.startswith(root + os.sep):
+        raise RuntimeError(f"--times {root}: imported the package from {where}")
+    from cfmm_routing_tpu_torch.ops import _build
+    from cfmm_routing_tpu_torch.ops.iteration_cuda import fused_step
+    from cfmm_routing_tpu_torch.ops.projection import ProjectionConfig
+    from cfmm_routing_tpu_torch.ops.segment import segment_sum
+    from cfmm_routing_tpu_torch.solver.admm import (
+        AdmmOptions, AdmmSolver, _reserve_buckets,
+    )
+    from cfmm_routing_tpu_torch.solver.compiler import compile_table
+    from cfmm_routing_tpu_torch.solver.fold import fold_compiled
+    from cfmm_routing_tpu_torch.solver.precondition import equilibrate
+    from cfmm_routing_tpu_torch.utils.synth import random_arbitrage_table
+
+    _build.build()
+    cfg = ProjectionConfig(24, 4)
+    opts = AdmmOptions(projection=cfg)
+    out = dict(package=where)
+
+    def case(label, solver, buckets, objective, T=1):
+        c, lo, hi = (solver._t(np.tile(x, T)) for x in (
+            objective.c, np.maximum(objective.lo, -F32_BIG),
+            np.minimum(objective.hi, F32_BIG)))
+        rho = solver._t(1.0)
+        s, wdef, nu = solver.fused_init(buckets)
+        for _ in range(20):
+            s, wdef, nu, _, _ = solver._iterate_fused(s, wdef, nu, rho, c, lo, hi,
+                                                      buckets=buckets)
+        v, _ = solver._fold_pack(wdef - nu)
+        row = dict(fused_step_ms={}, segment_sum_ms={})
+        for name, arrs in buckets.items():
+            kind, floor = solver._meta[name]
+            sD, sL = s[name]
+            row["fused_step_ms"][name] = graph_ms(lambda: fused_step(
+                sD, sL, v, arrs, kind, floor, 1.0, cfg=cfg, fold=solver._fold))
+            if T == 1:
+                val = ((sL - sD) * arrs["mask"]).contiguous()
+                row["segment_sum_ms"][name] = graph_ms(
+                    lambda: segment_sum(val, arrs["order"], arrs["seg"], v.shape[0]))
+        row["fused_iteration_ms"] = graph_ms(lambda: solver._iterate_fused(
+            s, wdef, nu, rho, c, lo, hi, buckets=buckets), n=5, reps=3)
+        if T == 1:
+            z = solver.fused_to_z(s, wdef, buckets)
+            row["classic_iteration_ms"] = graph_ms(lambda: solver._iterate(
+                z, nu, rho, c, lo, hi, with_stats=False, buckets=buckets), n=5, reps=3)
+        log(f"# {label}: fused_step per bucket {sum(row['fused_step_ms'].values()):.4f} ms, "
+            f"a whole fused iteration {row['fused_iteration_ms']:.4f} ms"
+            + (f", segment_sum per bucket {sum(row['segment_sum_ms'].values()):.4f} ms, a "
+               f"stats-free classic iteration {row['classic_iteration_ms']:.4f} ms"
+               if T == 1 else ""))
+        return row
+
+    table, obj = random_arbitrage_table(256, 100_000, seed=7)
+    eq = equilibrate(table, obj)
+    compiled = compile_table(eq.table, pad_pools_to=1024)
+    solver = AdmmSolver(compiled, dtype=torch.float32, options=opts)
+    out["100k"] = case("100k", solver, solver.buckets, eq.objective)
+    del solver
+    B = 8
+    scale = np.random.default_rng(3).uniform(0.7, 1.3, size=(B, compiled.n_pools))
+    fs = AdmmSolver(fold_compiled(compiled, B), dtype=torch.float32, options=opts,
+                    fold=(B, compiled.n_assets))
+    bd = _reserve_buckets(fs, fold_compiled(compiled, B, scale))
+    out["100k_x_8"] = case("100k x 8", fs, bd, eq.objective, B)
+    del fs, bd
+    for label, (n_assets, pools, pad, T) in (("10k_x_50", (64, 10_000, 1024, 50)),
+                                              ("1k_x_1024", (64, 1000, 128, 1024))):
+        tb, ob = random_arbitrage_table(n_assets, pools, seed=7)
+        eqb = equilibrate(tb, ob)
+        cb = compile_table(eqb.table, pad_pools_to=pad)
+        fsb = AdmmSolver(fold_compiled(cb, T), dtype=torch.float32, options=opts,
+                         fold=(T, cb.n_assets))
+        out[label] = case(label, fsb, fsb.buckets, eqb.objective, T)
+        del fsb
+        torch.cuda.empty_cache()
+    out["registers"], out["sass_loops"] = build_report(str(_build.BUILD_DIR))
+    return out
+
+
+def turns(dirs, out_path):
+    """``--turns DIR [DIR ...]``: :func:`package_times` of each DIR and of
+    this checkout, each in its own process, in turns on one card: the DIRs,
+    this checkout twice, the DIRs in reverse.  Prints the card and one
+    JSON object of every run."""
+    import os
+    import tempfile
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    here = os.path.dirname(os.path.abspath(__file__))
+    order = list(dirs) + [here, here] + list(reversed(dirs))
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, root in enumerate(order):
+            path = os.path.join(tmp, f"{i}.json")
+            log(f"# turn {i}: {root}")
+            subprocess.run([sys.executable, os.path.abspath(__file__), "--times", root,
+                            "--out", path], check=True, cwd=here)
+            with open(path) as fh:
+                runs.append(dict(root=root, **json.load(fh)))
+    report = dict(card=smi, order=order, runs=runs)
+    if out_path:
+        with open(out_path, "w") as fh:
+            json.dump(report, fh, indent=1)
+    print(json.dumps(report), flush=True)
+    print(smi, flush=True)
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
+    ap.add_argument("--turns", nargs="+", metavar="DIR",
+                    help="instead: time the kernels of the package under each DIR "
+                         "against this checkout's, in turns (package_times)")
+    ap.add_argument("--times", metavar="ROOT", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.turns:
+        return turns(args.turns, args.out)
+    if args.times:
+        report = package_times(args.times)
+        with open(args.out, "w") as fh:
+            json.dump(report, fh)
+        return 0
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -968,7 +1500,8 @@ def main(argv=None):
     from cfmm_routing_tpu_torch.ops import projection as plain
     from cfmm_routing_tpu_torch.ops.iteration_cuda import (
         fused_step, fused_step_delta, fused_step_delta_grouped,
-        fused_step_delta_grouped_plain, fused_step_plain,
+        fused_step_delta_grouped_plain, fused_step_grouped, fused_step_grouped_plain,
+        fused_step_plain,
     )
     from cfmm_routing_tpu_torch.ops.projection_cuda import (
         project_cs_cuda, project_cs_delta_cuda, project_delta_grouped,
@@ -979,6 +1512,7 @@ def main(argv=None):
     )
     from cfmm_routing_tpu_torch.ops.segment import segment_sum, segment_sum_plain
     from cfmm_routing_tpu_torch.solver import admm as admm_mod
+    from cfmm_routing_tpu_torch.solver import graphs
     from cfmm_routing_tpu_torch.solver import refine_device as rd_mod
     from cfmm_routing_tpu_torch.solver.admm import AdmmOptions, AdmmSolver
     from cfmm_routing_tpu_torch.solver.certify import certify
@@ -1018,7 +1552,7 @@ def main(argv=None):
     def plain_versions():
         """For the comparison runs only: the solver modules' kernel
         wrappers are replaced by their plain PyTorch versions."""
-        swaps = [(admm_mod, "fused_step", fused_step_plain),
+        swaps = [(admm_mod, "fused_step_grouped", fused_step_grouped_plain),
                  (admm_mod, "project_gm_cuda", plain.project_gm),
                  (admm_mod, "project_cs_cuda", plain.project_cs),
                  (admm_mod, "segment_sum", segment_sum_plain),
@@ -1028,7 +1562,8 @@ def main(argv=None):
         for mod, name, fn in swaps:
             setattr(mod, name, fn)
         try:
-            yield
+            with graphs.eager():  # the plain versions read sizes back: no capture
+                yield
         finally:
             for mod, name, fn in saved:
                 setattr(mod, name, fn)
@@ -1062,6 +1597,7 @@ def main(argv=None):
     solver64 = AdmmSolver(compiled, dtype=torch.float64)
     n_pad = v.shape[0]
     rows = {k: [] for k in SOURCES}
+    one_bucket_ms, seg_bucket_ms, cterm = {}, {}, {}
     for name, arrs in solver.buckets.items():
         kind, floor = solver._meta[name]
         K, m = arrs["mask"].shape
@@ -1096,53 +1632,92 @@ def main(argv=None):
                 f"{err:.3e}  kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.2f} ms  "
                 f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
         sD, sL = s[name]
+        # the per-bucket wrapper: the grouped kernel on a group of one
         ffn = lambda: fused_step(sD, sL, v, arrs, kind, floor, 1.0, cfg=cfg_main)  # noqa: E731
         fpl = lambda: fused_step_plain(sD, sL, v, arrs, kind, floor, 1.0, cfg=cfg_main)  # noqa: E731
         got, want = ffn(), fpl()
         torch.cuda.synchronize()
-        err = max_err(got, want)
-        check_fused(f"fused_step[{name}]", got, want, 2e-5)
-        y_rel = float(((got[4] - want[4]).abs() / want[4].abs().clamp_min(1.0)).max())
-        log(f"# fused_step {name:5s}: max|planes| err {max_err(got[:4], want[:4]):.3e}, "
-            f"y max|y| {float(want[4].abs().max()):.4g} max rel err {y_rel:.3e}")
-        row = dict(bucket=name, dtype="float32", K=K, m=m, cfg=list(cfg_main),
-                   max_abs_err=err, y_max_rel_err=y_rel, ms=graph_ms(ffn),
-                   plain_ms=eager_ms(fpl))
-        # sD sL R w s mask + asset ids + gamma logk0 k0 + v in;
-        # sD' sL' D L + the consensus-term plane out
-        fbytes = 4 * (11 * K * m + 3 * m + n_pad) + 4 * K * m
-        row["bound_ms"], row["bound_by"] = bound_ms(
-            fbytes, projection_flops(cfg_main, K, m), torch.float32)
-        rows["fused_step"].append(row)
-        log(f"# fused_step {name:5s} float32 K={K} m={m}: max|kernel-plain| {err:.3e}  "
-            f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.2f} ms  "
-            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        bitwise(f"fused_step[{name}] (a group of one)", got, want)
+        one_bucket_ms[name] = graph_ms(ffn)
+        log(f"# fused_step {name:5s} as a group of one: bitwise equal to plain; "
+            f"{one_bucket_ms[name]:.4f} ms with its segment sum")
         # the segment sum on this bucket's consensus terms (alpha = 1)
-        val = (want[3] - want[2]).contiguous()
-        order, seg = arrs["order"], arrs["seg"]
+        cterm[name] = val = (want[3] - want[2]).contiguous()
+        sfn = lambda: segment_sum(val, arrs["order"], arrs["seg"], n_pad)  # noqa: E731
+        got_y, want_y = sfn(), segment_sum_plain(val, arrs["order"], arrs["seg"], n_pad)
+        torch.cuda.synchronize()
+        if not torch.equal(got_y, want_y):
+            raise AssertionError(f"segment_sum[{name}] is not bitwise equal to "
+                                 f"its plain version ({max_err([got_y], [want_y]):.3e})")
+        seg_bucket_ms[name] = graph_ms(sfn)
+    log(f"# segment_sum per bucket: bitwise equal to plain; kernel ms "
+        f"{ {k: round(t, 5) for k, t in seg_bucket_ms.items()} } "
+        f"({sum(seg_bucket_ms.values()):.4f} ms for the five)")
+    report["segment_sum_per_bucket_ms"] = seg_bucket_ms
+    # the segment sum of one iteration: one per K-group, over the group's
+    # consensus-term planes one after another (classic and fused paths)
+    for g in solver._groups:
+        val = torch.cat([cterm[nm].reshape(-1) for nm in g["names"]])
+        order, seg = g["order"], g["seg"]
         sfn = lambda: segment_sum(val, order, seg, n_pad)  # noqa: E731
         spl = lambda: segment_sum_plain(val, order, seg, n_pad)  # noqa: E731
         got_y, want_y = sfn(), spl()
         torch.cuda.synchronize()
         if not torch.equal(got_y, want_y):
-            raise AssertionError(f"segment_sum[{name}] is not bitwise equal to "
+            raise AssertionError(f"segment_sum[K={g['K']}] is not bitwise equal to "
                                  f"its plain version ({max_err([got_y], [want_y]):.3e})")
         # the library call for the same sum: index_add_ over every slot's
         # asset id (padding slots add their zero), in no fixed order
-        ids, flat, y0 = arrs["asset"].reshape(-1).long(), val.reshape(-1), torch.zeros_like(v)
-        lfn = lambda: torch.index_add(y0, 0, ids, flat)  # noqa: E731
-        check_close(f"index_add_[{name}]", [lfn()], [want_y], 1e-4 * float(want_y.abs().max()),
-                    rtol=1e-4)
+        ids = torch.cat([solver.buckets[nm]["asset"].reshape(-1) for nm in g["names"]]).long()
+        y0 = torch.zeros_like(v)
+        lfn = lambda: torch.index_add(y0, 0, ids, val)  # noqa: E731
+        check_close(f"index_add_[K={g['K']}]", [lfn()], [want_y],
+                    1e-4 * float(want_y.abs().max()), rtol=1e-4)
         n_real = int(order.numel())
-        row = dict(bucket=name, dtype="float32", K=K, m=m, n_real=n_real,
+        row = dict(group=g["K"], buckets=g["names"], dtype="float32", n_real=n_real,
                    max_abs_err=0.0, ms=graph_ms(sfn), plain_ms=eager_ms(spl),
                    library_ms=graph_ms(lfn))
         row["bound_ms"], row["bound_by"] = bound_ms(
             segment_bytes(n_real, solver.n, n_pad, 4), n_real, torch.float32)
         rows["segment_sum"].append(row)
-        log(f"# segment_sum {name:5s} ({n_real} real slots): bitwise equal; kernel "
-            f"{row['ms']:.4f} ms  plain {row['plain_ms']:.2f} ms  index_add_ "
+        log(f"# segment_sum K={g['K']} {g['names']} ({n_real} real slots): bitwise equal; "
+            f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.2f} ms  index_add_ "
             f"{row['library_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    del cterm
+    # the grouped fused step: one launch + one segment sum per K-group
+    for g, g64 in zip(solver._groups, solver64._groups):
+        K = g["K"]
+        ms = [int(solver.buckets[nm]["mask"].shape[1]) for nm in g["names"]]
+        kfn = lambda: fused_step_grouped(s, v, solver.buckets, g, 1.0, cfg=cfg_main)  # noqa: E731
+        pfn = lambda: fused_step_grouped_plain(s, v, solver.buckets, g, 1.0, cfg=cfg_main)  # noqa: E731
+        got, again, want = kfn(), kfn(), pfn()
+        torch.cuda.synchronize()
+        bitwise(f"fused_step grouped[K={K}, float32]", grouped_leaves(got), grouped_leaves(want))
+        bitwise(f"fused_step grouped[K={K}] second launch", grouped_leaves(again),
+                grouped_leaves(got))
+        s64 = {nm: tuple(x.double() for x in s[nm]) for nm in g["names"]}
+        got = fused_step_grouped(s64, v.double(), solver64.buckets, g64, 1.0, cfg=cfg64)
+        want = fused_step_grouped_plain(s64, v.double(), solver64.buckets, g64, 1.0, cfg=cfg64)
+        torch.cuda.synchronize()
+        bitwise(f"fused_step grouped[K={K}, float64]", grouped_leaves(got), grouped_leaves(want))
+        row = dict(group=K, buckets=g["names"], dtype="float32", K=K, m=sum(ms),
+                   cfg=list(cfg_main), max_abs_err=0.0, ms=graph_ms(kfn), plain_ms=eager_ms(pfn))
+        # per bucket: sD sL R w s mask + asset ids + gamma logk0 k0 + v in;
+        # sD' sL' D L + the consensus-term plane out
+        row["bound_ms"], row["bound_by"] = group_bound([
+            bound_ms(4 * (11 * K * m + 3 * m + n_pad) + 4 * K * m,
+                     projection_flops(cfg_main, K, m), torch.float32) for m in ms])
+        rows["fused_step"].append(row)
+        log(f"# fused_step K={K} {g['names']} m={sum(ms)}: bitwise equal to plain in float32 "
+            f"(24, 4) and float64 (48, 6), and across launches; kernel {row['ms']:.4f} ms (1 "
+            f"launch + 1 segment sum)  plain {row['plain_ms']:.2f} ms  bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+        del got, again, want, s64
+    grouped_ms = sum(r["ms"] for r in rows["fused_step"])
+    log(f"# 2a fused_step per iteration: {len(solver._groups)} grouped launches + segment sums "
+        f"{grouped_ms:.4f} ms vs {len(one_bucket_ms)} groups of one "
+        f"{sum(one_bucket_ms.values()):.4f} ms")
+    report["fused_grouping"] = dict(grouped_ms=grouped_ms, per_bucket_ms=one_bucket_ms)
     del solver64
     log(f"# phase 2a (base kernels vs plain) done in {time.perf_counter() - t_phase:.1f} s")
 
@@ -1169,7 +1744,7 @@ def main(argv=None):
                 st, wd, dnu, _, _ = ds._iterate_fused(st, wd, dnu, rho_t, dc, dlo, dhi,
                                                       buckets=bdict)
         dv, _ = ds._fold_pack(wd - dnu)
-        groups = ds._delta_groups
+        groups = ds._groups
         if [g["names"] for g in groups] != [["cs2f", "gm2", "gm2f"], ["cs4f", "gm4"]]:
             raise AssertionError(f"unexpected delta groups {[g['names'] for g in groups]}")
         dname = str(dtype).split(".")[1]
@@ -1298,12 +1873,18 @@ def main(argv=None):
             got = fused_step(sD, sL, vw, arrs, kind, floor, 1.5, cfg=cfg_w)
             want = fused_step_plain(sD, sL, vw, arrs, kind, floor, 1.5, cfg=cfg_w)
             torch.cuda.synchronize()
-            check_fused(f"any-K fused_step[{name}, K={K}]", got, want, 2e-5)
-            worst = max(worst, max_err(got[:4], want[:4]))
+            bitwise(f"any-K fused_step[{name}, K={K}]", got, want)
             s_w[name] = (sD, sL)
             any_k.append(dict(pad_pow2=pad_pow2, bucket=name, K=K, m=m))
-        # the grouped delta kernels, one group per K (4, 8 or 16 lanes a pool)
-        for g in dsw._delta_groups:
+        # the grouped kernels, one group per K (4, 8 or 16 lanes a pool, or
+        # one thread at K = 40)
+        for g in sw._groups:
+            got = fused_step_grouped(s_w, vw, sw.buckets, g, 1.5, cfg=cfg_w)
+            want = fused_step_grouped_plain(s_w, vw, sw.buckets, g, 1.5, cfg=cfg_w)
+            torch.cuda.synchronize()
+            bitwise(f"any-K fused_step grouped[K={g['K']}]", grouped_leaves(got),
+                    grouped_leaves(want))
+        for g in dsw._groups:
             for label, kfn, pfn, gargs in (
                     ("fused_step_delta", fused_step_delta_grouped,
                      fused_step_delta_grouped_plain, (s_w, vw, bd_w, g, 1.5)),
@@ -1314,9 +1895,9 @@ def main(argv=None):
                 bitwise(f"any-K {label}[K={g['K']}]", grouped_leaves(got),
                         grouped_leaves(want))
         log(f"# any K (pad_pow2={pad_pow2}): buckets "
-            f"{[(n, b.width) for n, b in comp_w.buckets.items()]}; the base kernels match "
-            f"their plain versions (worst plane error {worst:.3e}), the grouped delta "
-            f"kernels bitwise")
+            f"{[(n, b.width) for n, b in comp_w.buckets.items()]}; the projections match "
+            f"their plain versions (worst error {worst:.3e}), the fused steps (per bucket "
+            f"and grouped) and the grouped delta kernels bitwise")
         # the run-time-K fused step's time on the widest bucket
         name = max(sw.buckets, key=lambda n: sw.buckets[n]["mask"].shape[0])
         arrs = sw.buckets[name]
@@ -1394,7 +1975,7 @@ def main(argv=None):
         torch.cuda.synchronize()
         fused_iters = out.iters - dsolver.chunks  # each chunk: k fused + 1 classic
         launches = _build.LAUNCHES["fused_step_delta"]
-        n_groups = len(dsolver._delta_groups)
+        n_groups = len(dsolver._groups)
         value = float(out.result.psi[4]) if label == "liquidation" else float(
             out.certificate.objective)
         rel = abs(value - pin) / abs(pin)
@@ -1436,7 +2017,7 @@ def main(argv=None):
                if launches4[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
-    expect_fused = 499 * len(compiled.buckets)
+    expect_fused = 499 * len(solver._groups)
     if launches4["fused_step"] != expect_fused:
         raise AssertionError(f"fused_step launches {launches4['fused_step']} != {expect_fused}")
     obj_k = float(res.objective)
@@ -1454,16 +2035,33 @@ def main(argv=None):
         leaves += [(a.lambdas[k], b.lambdas[k]) for k in a.lambdas]
         return all(torch.equal(x, y) for x, y in leaves)
 
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    res2 = solver.solve_fused(eq.objective, iters=499)
-    stop.record()
-    stop.synchronize()
-    fused_s = start.elapsed_time(stop) / 1e3
-    log(f"# fused kernel path: 500 iterations in {fused_s:.4f} s -> "
-        f"{500 / fused_s:.1f} it/s on {smi}; objective {obj_k:.6f}")
-    if not bitwise_equal(res, res2):
-        raise AssertionError("a second fused kernel run is not bitwise equal to the first")
+    secs = {"eager": [], "replayed": []}
+    turn_counts = []
+    for mode in ("eager", "replayed", "replayed", "eager"):  # in turns
+        ctx = graphs.eager() if mode == "eager" else contextlib.nullcontext()
+        with ctx:
+            _build.reset_launch_counts()
+            start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            res2 = solver.solve_fused(eq.objective, iters=499)
+            stop.record()
+            stop.synchronize()
+        secs[mode].append(start.elapsed_time(stop) / 1e3)
+        turn_counts.append((mode, dict(_build.LAUNCHES)))
+        if not bitwise_equal(res, res2):
+            raise AssertionError(f"a {mode} fused kernel run is not bitwise equal to the "
+                                 "first (replayed) one")
+        if turn_counts[-1][1] != turn_counts[0][1]:
+            raise AssertionError(f"launches of a {mode} run {turn_counts[-1][1]} != those "
+                                 f"of the first eager run {turn_counts[0][1]}")
+        if turn_counts[-1][1]["fused_step"] != expect_fused:
+            raise AssertionError(f"{mode} run: fused_step launches "
+                                 f"{turn_counts[-1][1]['fused_step']} != {expect_fused}")
+    fused_s, eager_s = min(secs["replayed"]), min(secs["eager"])
+    log(f"# fused kernel path: 500 iterations replayed {secs['replayed']} s -> "
+        f"{500 / fused_s:.1f} it/s, eager {secs['eager']} s -> {500 / eager_s:.1f} it/s "
+        f"(in turns) on {smi}; objective {obj_k:.6f}; every run bitwise equal, with "
+        f"equal launch counts {turn_counts[0][1]}")
     classic50 = AdmmSolver(compiled, dtype=torch.float32, options=dataclasses.replace(
         opts, max_iters=50))
     if not bitwise_equal(classic50.solve(eq.objective), classic50.solve(eq.objective)):
@@ -1480,9 +2078,11 @@ def main(argv=None):
         lambda: solver._iterate_fused(*st, rho, c, lo, hi), n=10, reps=5)
     iter_wall_ms = 1e3 * fused_s / 500
     idle = 1.0 - iter_dev_ms / iter_wall_ms
+    idle_eager = 1.0 - iter_dev_ms / (1e3 * eager_s / 500)
     log(f"# one fused iteration: {iter_dev_ms:.4f} ms on the device (CUDA graph) vs "
-        f"{iter_wall_ms:.4f} ms per iteration in the eager loop: the card idles "
-        f"{100 * idle:.1f}% of the loop")
+        f"{iter_wall_ms:.4f} ms per iteration replayed ({1e3 * eager_s / 500:.4f} eager): "
+        f"the card idles {100 * idle:.1f}% of the replayed loop, {100 * idle_eager:.1f}% "
+        f"of the eager one")
 
     t0 = time.perf_counter()
     res_c = solver.solve(eq.objective)
@@ -1506,6 +2106,7 @@ def main(argv=None):
         raise AssertionError(f"objective mismatch: classic {rel_c:.2e}, plain {rel_p:.2e}")
     report["main_path"] = dict(
         launches=launches4, objective=obj_k, fused_iters_per_s=500 / fused_s,
+        fused_eager_iters_per_s=500 / eager_s, fused_s=secs, idle_share_eager=idle_eager,
         classic_iters_per_s=int(res_c.iters) / classic_s,
         plain_iters_per_s=500 / plain_s, rel_classic=rel_c, rel_plain=rel_p,
         iteration_device_ms=iter_dev_ms, iteration_wall_ms=iter_wall_ms,
@@ -1531,64 +2132,83 @@ def main(argv=None):
     rd_log.addHandler(Fallbacks())
     chunk_log = logging.StreamHandler(sys.stdout)
     chunk_log.setFormatter(logging.Formatter("# %(message)s"))
-    rd_log.addHandler(chunk_log)
 
-    _build.reset_launch_counts()
     t_start = time.perf_counter()
     table, obj = random_arbitrage_table(256, 100_000, seed=7)
     eq = equilibrate(table, obj)
     compiled = compile_table(eq.table, pad_pools_to=1024)
     cert_compiled = compile_table(table, pad_pools_to=1024)
-    base_solver = AdmmSolver(compiled, dtype=torch.float32, options=AdmmOptions(
-        max_iters=3000, eps_abs=1e-7, eps_rel=1e-7, check_every=25,
-        projection=cfg_main))
-    t_base0 = time.perf_counter()
-    res = base_solver.solve(eq.objective)
-    torch.cuda.synchronize()
-    base_s = time.perf_counter() - t_base0
-    base_iters = int(res.iters)
-    log(f"# certified route: base solve {base_iters} classic iterations in "
-        f"{base_s:.3f} s (converged {bool(res.converged)})")
+    setup_s = time.perf_counter() - t_start
 
     def unscale(r):
         return unscale_result(r, eq.d, compiled)
 
-    r0 = unscale(to_host(res))
-    entry = certify(cert_compiled, obj, r0.deltas, r0.lambdas, r0.prices,
-                    psi_claimed=r0.psi)
+    def certified_route(mode):
+        """The route from the base solve's start to the accepted certificate,
+        eager or replayed; launch counts reset just before, read just after."""
+        ctx = graphs.eager() if mode == "eager" else contextlib.nullcontext()
+        with ctx:
+            _build.reset_launch_counts()
+            base_solver = AdmmSolver(compiled, dtype=torch.float32, options=AdmmOptions(
+                max_iters=3000, eps_abs=1e-7, eps_rel=1e-7, check_every=25,
+                projection=cfg_main))
+            torch.cuda.synchronize()
+            t_base0 = time.perf_counter()
+            res = base_solver.solve(eq.objective)
+            torch.cuda.synchronize()
+            base_s = time.perf_counter() - t_base0
+            r0 = unscale(to_host(res))
+            entry = certify(cert_compiled, obj, r0.deltas, r0.lambdas, r0.prices,
+                            psi_claimed=r0.psi)
+            dsolver = CountingDeltaSolver(compiled, options=refine_opts)
+            t0 = time.perf_counter()
+            out = refine_device(compiled, eq.objective, res, target_gap=1e-6,
+                                cert_space=(cert_compiled, obj, unscale), entry_cert=entry,
+                                solver=dsolver)
+            torch.cuda.synchronize()
+            t_end = time.perf_counter()
+        return dict(res=r0, base_iters=int(res.iters), converged=bool(res.converged),
+                    base_s=base_s, entry=entry, out=out, chunks=dsolver.chunks,
+                    groups=[g["names"] for g in dsolver._groups], refine_s=t_end - t0,
+                    wall_s=t_end - t_base0, launches=dict(_build.LAUNCHES))
+
+    route_eager = certified_route("eager")
+    rd_log.addHandler(chunk_log)
+    rt = certified_route("replayed")
+    rd_log.removeHandler(chunk_log)
+    for mode, r in (("eager", route_eager), ("replayed", rt)):
+        log(f"# certified route ({mode}): base {r['base_iters']} classic iterations in "
+            f"{r['base_s']:.3f} s (converged {r['converged']}); refinement {r['out'].iters} "
+            f"iterations ({r['chunks']} chunks) in {r['refine_s']:.3f} s; "
+            f"{r['wall_s']:.3f} s from the base solve's start to the accepted certificate "
+            f"(host clock; network set-up before it {setup_s:.3f} s)")
+    same = [np.array_equal(np.asarray(route_eager["res"].psi), np.asarray(rt["res"].psi)),
+            np.array_equal(np.asarray(route_eager["res"].prices), np.asarray(rt["res"].prices)),
+            route_eager["out"].certificate.gap_rel == rt["out"].certificate.gap_rel,
+            route_eager["launches"] == rt["launches"]]
+    if not all(same):
+        raise AssertionError(f"certified route: the replayed run differs from the eager "
+                             f"one (base psi, prices, final gap, launches): {same}")
+    log("# certified route: the replayed base is bitwise equal to the eager one, the "
+        "refinement ends at the same certificate with the same launches")
+    entry, out, launches5 = rt["entry"], rt["out"], rt["launches"]
     log(f"# certified route: entry certificate {entry.summary()} "
         f"feasibility_rel {entry.feasibility_rel:.3e}")
-    dsolver = CountingDeltaSolver(compiled, options=refine_opts)
-    t0 = time.perf_counter()
-    out = refine_device(compiled, eq.objective, res, target_gap=1e-6,
-                        cert_space=(cert_compiled, obj, unscale), entry_cert=entry,
-                        solver=dsolver)
-    torch.cuda.synchronize()
-    t_end = time.perf_counter()
-    refine_s = t_end - t0
-    wall_s = t_end - t_base0
-    launches5 = dict(_build.LAUNCHES)
-    rd_log.removeHandler(chunk_log)
     fc = out.certificate
-    fused_iters = out.iters - dsolver.chunks
-    log(f"# certified route: refinement {out.iters} iterations ({dsolver.chunks} "
-        f"chunks, {fused_iters} fused) in {refine_s:.3f} s")
+    fused_iters = out.iters - rt["chunks"]
     log(f"# certified route: final gap_rel {fc.gap_rel:.3e} feasibility_rel "
-        f"{fc.feasibility_rel:.3e}; target 1e-6 achieved: {bool(out.achieved)}")
-    log(f"# certified route: wall clock from the start of the base solve to the "
-        f"accepted certificate {wall_s:.3f} s (network set-up before it: "
-        f"{t_base0 - t_start:.3f} s)")
-    log(f"# certified route: launches {launches5} (K-groups "
-        f"{[g['names'] for g in dsolver._delta_groups]})")
-    n_groups = len(dsolver._delta_groups)
+        f"{fc.feasibility_rel:.3e}; target 1e-6 achieved: {bool(out.achieved)}; "
+        f"{fused_iters} fused delta iterations")
+    log(f"# certified route: launches {launches5} (K-groups {rt['groups']})")
+    n_groups = len(rt["groups"])
     if launches5["fused_step_delta"] == 0:
         raise AssertionError("fused_step_delta was never launched on the certified route")
     if n_groups != 2 or launches5["fused_step_delta"] != n_groups * fused_iters:
         raise AssertionError(f"fused_step_delta launches {launches5['fused_step_delta']} "
                              f"!= {n_groups} K-groups x {fused_iters} fused iterations")
-    if launches5["project_delta"] != n_groups * dsolver.chunks:
+    if launches5["project_delta"] != n_groups * rt["chunks"]:
         raise AssertionError(f"project_delta launches {launches5['project_delta']} != "
-                             f"{n_groups} K-groups x {dsolver.chunks} classic delta iterations")
+                             f"{n_groups} K-groups x {rt['chunks']} classic delta iterations")
     missing = [k for k in ("project_gm", "project_cs", "project_delta", "segment_sum")
                if launches5[k] == 0]
     if missing:
@@ -1603,15 +2223,17 @@ def main(argv=None):
         raise AssertionError(f"refinement made the certificate worse: "
                              f"{score(fc):.3e} > {score(entry):.3e}")
     report["certified_route"] = dict(
-        base_iters=base_iters, base_s=base_s, refine_iters=int(out.iters),
-        refine_chunks=dsolver.chunks, fused_iters=fused_iters, refine_s=refine_s,
-        wall_s=wall_s, achieved=bool(out.achieved), launches=launches5,
+        base_iters=rt["base_iters"], base_s=rt["base_s"], refine_iters=int(out.iters),
+        refine_chunks=rt["chunks"], fused_iters=fused_iters, refine_s=rt["refine_s"],
+        wall_s=rt["wall_s"], achieved=bool(out.achieved), launches=launches5,
+        eager=dict(base_s=route_eager["base_s"], refine_s=route_eager["refine_s"],
+                   wall_s=route_eager["wall_s"]),
         entry=dict(gap_rel=entry.gap_rel, feasibility_rel=entry.feasibility_rel),
         final=dict(objective=fc.objective, dual_bound=fc.dual_bound,
                    gap_rel=fc.gap_rel, feasibility_rel=fc.feasibility_rel),
     )
     log(f"# phase 5 (certified route) done in {time.perf_counter() - t_phase:.1f} s")
-    del base_solver, dsolver, res, out
+    del route_eager, rt, out
 
     # ---- 6. sweeps and batches ------------------------------------------------
     phase6 = sweep_phase(report, rows, card=smi, cfg_main=cfg_main, cfg64=cfg64)
@@ -1621,6 +2243,9 @@ def main(argv=None):
                                   counting_solver=CountingDeltaSolver,
                                   refine_opts=refine_opts)
     main_launches = [launches4, launches5] + phase6 + phase7
+
+    # ---- 8. CUDA-graph replays against eager runs -----------------------------
+    replay_phase(report, card=smi, cfg_main=cfg_main, cfg64=cfg64)
 
     # ---- report -------------------------------------------------------------
     kernels = []

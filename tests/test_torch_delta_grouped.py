@@ -93,7 +93,7 @@ def _check_group_step(solver, bdict, s, v, fold=None):
     """Each K-group: the grouped plain step against the per-bucket plain
     steps (planes bitwise, y to 1e-12), and the wrapper on CPU tensors is
     the grouped plain version."""
-    for g in solver._delta_groups:
+    for g in solver._groups:
         s_new, w, y = fused_step_delta_grouped_plain(s, v, bdict, g, 1.5, cfg=CFG,
                                                      fold=fold)
         y_sum = torch.zeros_like(v)
@@ -110,8 +110,8 @@ def _check_group_step(solver, bdict, s, v, fold=None):
 
 def test_grouped_fused_step_matches_per_bucket(case):
     ds = _solver(case, F64)
-    assert [g["names"] for g in ds._delta_groups] == GROUPS
-    assert [g["K"] for g in ds._delta_groups] == [2, 4]
+    assert [g["names"] for g in ds._groups] == GROUPS
+    assert [g["K"] for g in ds._groups] == [2, 4]
     bdict, min_x0 = ds.delta_buckets(case["base"], EPS, nu0=case["nu0f"])
     assert min_x0 > 0
     s, v = _state(bdict, F64, seed=1)
@@ -122,7 +122,7 @@ def test_grouped_projection_matches_per_bucket(case):
     ds = _solver(case, F64)
     bdict, _ = ds.delta_buckets(case["base"], EPS, nu0=case["nu0f"])
     s, _ = _state(bdict, F64, seed=2)
-    for g in ds._delta_groups:
+    for g in ds._groups:
         got = project_delta_grouped_plain(s, bdict, g, cfg=CFG)
         assert project_delta_grouped(s, bdict, g, cfg=CFG).keys() == got.keys()
         for name, (kind, floor) in zip(g["names"], g["kinds"]):
@@ -152,7 +152,7 @@ def test_grouped_fold_step_matches_per_bucket(case):
                                           rng.uniform(0.5, 2.0, (T, n)))
     assert (min_x0 > 0).all()
     assert all(a["mask"].shape[1] == T * 128 for a in bdict.values())
-    assert [g["names"] for g in ds._delta_groups] == GROUPS
+    assert [g["names"] for g in ds._groups] == GROUPS
     s, v = _state(bdict, F64, seed=4)
     _check_group_step(ds, bdict, s, v, fold=ds._fold)
 
@@ -163,7 +163,7 @@ def test_group_slot_order_covers_every_real_slot_once(case, fold):
     ds = (DeltaAdmmSolver(fold_compiled(compiled, 2), device="cpu",
                           fold=(2, compiled.n_assets)) if fold
           else DeltaAdmmSolver(compiled, device="cpu"))
-    for g in ds._delta_groups:
+    for g in ds._groups:
         asset = np.concatenate([ds.buckets[nm]["asset"].numpy().reshape(-1)
                                 for nm in g["names"]])
         mask = np.concatenate([ds.buckets[nm]["mask"].numpy().reshape(-1)

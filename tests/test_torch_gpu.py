@@ -23,13 +23,14 @@ import pytest
 import torch
 
 from cfmm_routing_tpu_torch.models.reference_instances import arbitrage_instance
-from cfmm_routing_tpu_torch.models.utility import ConcaveUtility
+from cfmm_routing_tpu_torch.models.utility import ConcaveUtility, Objective
 from cfmm_routing_tpu_torch.ops import _build
 from cfmm_routing_tpu_torch.ops import projection as plain
 from cfmm_routing_tpu_torch.ops.iteration_cuda import (
     fused_step, fused_step_delta, fused_step_delta_grouped,
-    fused_step_delta_grouped_plain, fused_step_delta_plain, fused_step_merged,
-    fused_step_merged_plain, fused_step_plain,
+    fused_step_delta_grouped_plain, fused_step_delta_plain, fused_step_grouped,
+    fused_step_grouped_plain, fused_step_merged, fused_step_merged_plain,
+    fused_step_plain,
 )
 from cfmm_routing_tpu_torch.ops.projection_cuda import (
     project_cs_cuda, project_cs_delta_cuda, project_delta_grouped,
@@ -38,7 +39,12 @@ from cfmm_routing_tpu_torch.ops.projection_cuda import (
 from cfmm_routing_tpu_torch.ops.projection_delta import (
     project_cs_delta, project_gm_delta,
 )
+from cfmm_routing_tpu_torch.ops.segment import (
+    segment_sum, segment_sum_plain, slot_order,
+)
+from cfmm_routing_tpu_torch.solver import graphs
 from cfmm_routing_tpu_torch.solver.admm import AdmmOptions, AdmmSolver
+from cfmm_routing_tpu_torch.solver.driver import ChunkedDriver
 from cfmm_routing_tpu_torch.solver.compiler import compile_spec, compile_table
 from cfmm_routing_tpu_torch.solver.fold import (
     fold_compiled, solve_batch_folded, solve_batch_reserves_folded,
@@ -133,7 +139,7 @@ def test_fused_trajectory_card_matches_cpu(cuda_device):
     on_cpu = AdmmSolver(compiled, options=opts, device="cpu")
     _build.reset_launch_counts()
     res_card = on_card.solve_fused(obj, iters=20)
-    assert _build.LAUNCHES["fused_step"] == 20 * len(compiled.buckets)
+    assert _build.LAUNCHES["fused_step"] == 20 * len(on_card._groups)
     res_cpu = on_cpu.solve_fused(obj, iters=20)
     np.testing.assert_allclose(res_card.psi.cpu().numpy(), res_cpu.psi.numpy(),
                                atol=2e-4, rtol=0)
@@ -355,7 +361,8 @@ def test_folded_solves_twice_are_bitwise_equal(cuda_device):
                                                      n_iters=59))):
         _build.reset_launch_counts()
         a = run()
-        assert _build.LAUNCHES["fused_step_fold"] == fused_iters * len(compiled.buckets)
+        n_groups = len({b.width for b in compiled.buckets.values()})
+        assert _build.LAUNCHES["fused_step_fold"] == fused_iters * n_groups
         b = run()
         for x, y in zip((a.objective, a.psi, a.prices), (b.objective, b.psi, b.prices)):
             assert np.array_equal(x, y)
@@ -409,11 +416,11 @@ def test_merged_solve_matches_unmerged_on_card(cuda_device):
 
 
 def _check_grouped(solver, bdict, s, v, fold=None):
-    """Every group of ``solver._delta_groups``: the grouped fused delta step
+    """Every group of ``solver._groups``: the grouped fused delta step
     and the grouped delta projection bitwise equal to their plain versions,
     and a second launch bitwise equal to the first.  Returns the number of
     groups."""
-    groups = solver._delta_groups
+    groups = solver._groups
     for g in groups:
         runs = [fused_step_delta_grouped(s, v, bdict, g, 1.5, cfg=CFG, fold=fold)
                 for _ in range(2)]
@@ -443,7 +450,7 @@ def test_grouped_delta_kernels_match_plain_bitwise(cuda_device, dtype):
     table, obj = random_arbitrage_table(16, 300, seed=4, reserve_scale=1.0)
     compiled = compile_table(table, pad_pools_to=128)
     solver, bdict, s, v = _delta_state(compiled, obj, dtype, cuda_device, seed=7)
-    assert [g["names"] for g in solver._delta_groups] == [["cs2f", "gm2", "gm2f"],
+    assert [g["names"] for g in solver._groups] == [["cs2f", "gm2", "gm2f"],
                                                            ["cs4f", "gm4"]]
     _build.reset_launch_counts()
     n = _check_grouped(solver, bdict, s, v)
@@ -481,5 +488,199 @@ def test_lanes_per_slot_any_k_bitwise(cuda_device, widths, pad_pow2):
     compiled = compile_spec(spec, pad_pow2=pad_pow2, pad_pools_to=128)
     solver, bdict, s, v = _delta_state(compiled, obj, torch.float32, cuda_device, seed=9)
     want_k = sorted({K if not pad_pow2 else 1 << (K - 1).bit_length() for K in widths})
-    assert [g["K"] for g in solver._delta_groups] == want_k
+    assert [g["K"] for g in solver._groups] == want_k
     _check_grouped(solver, bdict, s, v)
+
+
+# ---- slice 6: the chunked segment sum, the grouped base step, graph replays --
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_segment_sum_kernel_matches_plain_bitwise(cuda_device, dtype):
+    """The chunked kernel bitwise equal to its plain version: a random
+    bucket with an empty asset and a crowded one, on a skewed network where
+    one asset sits in every pool."""
+    rng = np.random.default_rng(3)
+    K, m, n = 4, 5000, 300
+    asset = rng.integers(0, n, (K, m)).astype(np.int32)
+    asset[asset == 7] = 8  # asset 7 has no slot
+    asset[0] = 5  # asset 5 in every pool
+    mask = (rng.uniform(size=(K, m)) > 0.2).astype(np.float64)
+    mask[0] = 1.0
+    asset = np.where(mask > 0, asset, 0).astype(np.int32)
+    order, seg = (torch.as_tensor(a, device=cuda_device)
+                  for a in slot_order(asset, mask, n))
+    vals = torch.as_tensor(rng.normal(size=(K, m)) * mask, dtype=dtype,
+                           device=cuda_device)
+    _build.reset_launch_counts()
+    got = segment_sum(vals, order, seg, 384)
+    again = segment_sum(vals, order, seg, 384)
+    want = segment_sum_plain(vals, order, seg, 384)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(again, got)
+    assert _build.LAUNCHES["segment_sum"] == 2
+
+
+def test_classic_iteration_sums_once_per_k_group(cuda_device):
+    """The classic iteration reduces each K-group's consensus terms with one
+    segment sum over the group's slot order: as many launches as K-groups,
+    and the iterate equal to the CPU's (index_add_ bucket by bucket) to
+    1e-10 in float64."""
+    table, obj = random_arbitrage_table(16, 300, seed=4, reserve_scale=1.0)
+    compiled = compile_table(table, pad_pools_to=128)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        solver = AdmmSolver(compiled, dtype=torch.float64, device=dev,
+                            options=AdmmOptions(projection=CFG))
+        c, lo, hi = solver._objective_arrays(obj)
+        z = {name: (0.1 * a["mask"], -0.2 * a["mask"]) for name, a in solver.buckets.items()}
+        nu = solver._t(np.linspace(-1.0, 1.0, solver.n))
+        _build.reset_launch_counts()
+        out[str(dev)] = solver._iterate(z, nu, solver._t(1.0), c, lo, hi)
+    assert [g["names"] for g in solver._groups] == [["cs2f", "gm2", "gm2f"],
+                                                    ["cs4f", "gm4"]]
+    assert _build.LAUNCHES["segment_sum"] == 2
+    (zc, nuc, psic, _, _), (zg, nug, psig, _, _) = out["cpu"], out[str(cuda_device)]
+    for a, b in [(psig, psic), (nug, nuc)] + [(zg[n][i], zc[n][i]) for n in zc for i in (0, 1)]:
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0, atol=1e-10)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_grouped_fused_step_matches_plain_bitwise(cuda_device, dtype):
+    """One grouped fused_step launch per K-group, unfolded and on a T=2
+    fold: planes and y bitwise equal to fused_step_grouped_plain, and the
+    per-bucket wrapper (a group of one) bitwise equal to fused_step_plain."""
+    table, _ = random_arbitrage_table(16, 300, seed=4, reserve_scale=1.0)
+    compiled = compile_table(table, pad_pools_to=128)
+    for solver, fold in (
+            (AdmmSolver(compiled, dtype=dtype, device=cuda_device), None),
+            (AdmmSolver(fold_compiled(compiled, 2), dtype=dtype, device=cuda_device,
+                        fold=(2, compiled.n_assets)), (2, compiled.n_assets))):
+        rng = np.random.default_rng(5)
+        s = {name: tuple(torch.as_tensor(x, dtype=dtype, device=cuda_device) * a["mask"]
+                         for x in rng.uniform(-2.0, 2.0, (2,) + tuple(a["mask"].shape)))
+             for name, a in solver.buckets.items()}
+        v = torch.as_tensor(rng.normal(size=128), dtype=dtype, device=cuda_device)
+        _build.reset_launch_counts()
+        for g in solver._groups:
+            got = fused_step_grouped(s, v, solver.buckets, g, 1.5, cfg=CFG, fold=fold)
+            want = fused_step_grouped_plain(s, v, solver.buckets, g, 1.5, cfg=CFG,
+                                            fold=fold)
+            torch.cuda.synchronize()
+            for name in g["names"]:
+                for i in range(2):
+                    assert torch.equal(got[0][name][i], want[0][name][i]), name
+                    assert torch.equal(got[1][name][i], want[1][name][i]), name
+            assert torch.equal(got[2], want[2]), g["names"]
+        key = "fused_step" if fold is None else "fused_step_fold"
+        assert _build.LAUNCHES[key] == len(solver._groups)
+        for name, arrs in solver.buckets.items():
+            kind, floor = solver._meta[name]
+            got = fused_step(*s[name], v, arrs, kind, floor, 1.5, cfg=CFG, fold=fold)
+            want = fused_step_plain(*s[name], v, arrs, kind, floor, 1.5, cfg=CFG,
+                                    fold=fold)
+            for x, y in zip(got, want):
+                assert torch.equal(x, y), name
+
+
+@pytest.mark.parametrize("widths,pad_pow2", [((3, 5, 12), False), ((3, 5, 12), True),
+                                             ((40,), False)],
+                         ids=["K3-5-12", "K4-8-16", "K40"])
+def test_grouped_fused_step_any_k_bitwise(cuda_device, widths, pad_pow2):
+    """Lanes per slot at K = 3, 5, 12 (idle lanes masked) and 4, 8, 16, one
+    thread per pool at K = 40: the grouped base step bitwise equal to its
+    plain version."""
+    spec, _ = mixed_width_arbitrage(widths=widths, n_assets=48 if 40 in widths else 16,
+                                    seed=2)
+    solver, s, v = _state(compile_spec(spec, pad_pow2=pad_pow2, pad_pools_to=128),
+                          torch.float32, cuda_device, seed=9)
+    for g in solver._groups:
+        got = fused_step_grouped(s, v, solver.buckets, g, 1.5, cfg=CFG)
+        want = fused_step_grouped_plain(s, v, solver.buckets, g, 1.5, cfg=CFG)
+        torch.cuda.synchronize()
+        assert all(torch.equal(got[j][name][i], want[j][name][i])
+                   for j in (0, 1) for name in g["names"] for i in (0, 1)), g["K"]
+        assert torch.equal(got[2], want[2]), g["K"]
+
+
+def _leaves(res):
+    """A RouteResult's arrays in a fixed order, as tensors."""
+    out = [res.objective, res.psi, res.prices, res.iters, res.r_norm, res.s_norm,
+           res.rho_final]
+    out += [res.deltas[k] for k in sorted(res.deltas)]
+    out += [res.lambdas[k] for k in sorted(res.lambdas)]
+    return [torch.as_tensor(np.asarray(x)) if not isinstance(x, torch.Tensor) else x
+            for x in out]
+
+
+def _replay_paths(dtype, device):
+    """name -> zero-argument run of every path whose loop is replayed."""
+    table, obj = random_arbitrage_table(16, 300, seed=4, reserve_scale=1.0)
+    compiled = compile_table(table, pad_pools_to=128)
+    fixed = AdmmOptions(max_iters=100, eps_abs=0.0, eps_rel=0.0, check_every=25,
+                        projection=CFG)
+    solver = AdmmSolver(compiled, dtype=dtype, device=device, options=fixed)
+    util = ConcaveUtility.linear(obj.c, lo=obj.lo, hi=obj.hi).with_log(1, c=1.0, b=2.0)
+    base = to_host(AdmmSolver(compiled, device=device, options=AdmmOptions(
+        max_iters=200, check_every=25)).solve(obj))
+    dsolver = DeltaAdmmSolver(compiled, dtype=dtype, device=device, options=AdmmOptions(
+        max_iters=60, eps_abs=0.0, eps_rel=0.0, check_every=25, adapt_rho=False,
+        projection=CFG))
+    nu0 = base.prices.astype(np.float32).astype(np.float64)
+    bdict, _ = dsolver.delta_buckets(base, 1e-3, nu0=nu0)
+    dobj = Objective(obj.c, lo=np.full(compiled.n_assets, -1e3),
+                     hi=np.full(compiled.n_assets, 1e3))
+    rng = np.random.default_rng(2)
+    c3 = np.asarray(obj.c)[None, :] * np.array([[0.9], [1.0], [1.1]])
+    lo3 = np.tile(np.maximum(obj.lo, -3e38), (3, 1))
+    scale = rng.uniform(0.7, 1.3, (2, compiled.n_pools))
+    return {
+        "classic": lambda: solver.solve(obj),
+        "classic utility": lambda: solver.solve(util),
+        "fused": lambda: solver.solve_fused(obj, iters=60),
+        "fused utility": lambda: solver.solve_fused(util, iters=60),
+        "merged": lambda: solver.solve_fused(obj, iters=60, merged=True),
+        "fused delta": lambda: dsolver.solve_delta(dobj, bdict, nu0, 1.0, 60, fused=True),
+        "classic delta": lambda: dsolver.solve_delta(dobj, bdict, nu0, 1.0, 60),
+        "fold": lambda: solve_batch_reserves_folded(compiled, obj, scale, options=fixed,
+                                                    dtype=dtype, n_iters=59,
+                                                    device=device),
+        "batch": lambda: solver.solve_batch(c3, lo3, np.full_like(c3, 3e38)),
+        "driver": lambda: ChunkedDriver(solver, chunk=30).solve(obj, max_iters=60)[0],
+        "driver fused": lambda: ChunkedDriver(solver, chunk=30, fused=True).solve(
+            obj, max_iters=60)[0],
+    }
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_graph_replay_matches_eager_bitwise(cuda_device, dtype):
+    """Every replayed path (classic, fused, merged, fused and classic delta,
+    fold, batch per point, ChunkedDriver classic and fused), with a linear
+    objective and with a concave utility where the path takes one: the
+    replayed run bitwise equal to the eager one, with the same launch
+    counts, and a second replayed run equal again."""
+    for name, run in _replay_paths(dtype, cuda_device).items():
+        with graphs.eager():
+            _build.reset_launch_counts()
+            want = _leaves(run())
+            eager_counts = dict(_build.LAUNCHES)
+        _build.reset_launch_counts()
+        got = _leaves(run())
+        torch.cuda.synchronize()
+        assert dict(_build.LAUNCHES) == eager_counts, name
+        again = _leaves(run())
+        for a, b, c in zip(got, want, again):
+            assert torch.equal(a.cpu(), b.cpu()) and torch.equal(c.cpu(), a.cpu()), name
+
+
+def test_failed_capture_raises(cuda_device):
+    """A block that reads a value back to the host cannot be captured: the
+    capture raises, and nothing runs the block eagerly instead."""
+    table, _ = random_arbitrage_table(16, 300, seed=4, reserve_scale=1.0)
+    solver = AdmmSolver(compile_table(table, pad_pools_to=128), device=cuda_device)
+    x = torch.ones(4, device=cuda_device)
+
+    def step(state, k):
+        return state * float(state.sum())  # a device-to-host copy
+
+    with pytest.raises(RuntimeError):
+        graphs.run_block(solver, "sync", step, 3, 1, x, ())
