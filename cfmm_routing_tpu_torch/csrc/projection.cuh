@@ -5,26 +5,27 @@
 // (cfmm_routing_tpu/ops/projection_pallas.py: _inner_gm, _solve_theta_linear,
 // the gm and cs brackets, _eval_gm_channels / _eval_cs_channels and
 // _root_find_body).  The same header serves the standalone projection
-// kernels (projection.cu) and the fused ADMM step (fused_step.cu); the
+// kernel (projection.cu) and the fused ADMM step (fused_step.cu); the
 // delta projection of the refinement stage (projection_delta.cuh) reuses
 // its root-find and helpers.
 //
-// Layout: every bucket is slot-major (K, m); a thread owns one pool, so
-// loads of one slot plane are coalesced across the warp.  Two
-// instantiations per kernel:
-//   * KC in {2, 4, 8, 16} (a template constant): the pool's K slots, with
-//     their mu-free terms, live in registers for the whole root-find;
-//   * KC == 0 (any K, given at run time): no K-long register arrays; every
-//     evaluation of h(mu) walks the slots again, reading them from global
-//     memory (L1/L2-resident after the first pass) and recomputing their
-//     mu-free terms.  The values are the same as the register path's.
-// A kernel hands project_pool a loader load(c) -> SlotIn (the slot's raw
-// inputs) and a store(c, D, L) callback, so the fused step can gather its
-// input and write its outputs in place.  The standalone projections and the
-// merged fused step run project_pool; the grouped fused step runs
-// project_slot (the lanes-per-slot section below): LANES lanes own one
-// pool, one slot each, and gather h(mu)'s slot terms by shuffles in slot
-// order, so a thread keeps one prepared slot (15 values) instead of K.
+// Layout: every bucket is slot-major (K, m).  Two forms:
+//   * project_slot (the lanes-per-slot section below), which the grouped
+//     kernels run (the standalone projection and the fused step, K <= 32):
+//     LANES lanes own one pool, one slot each, and gather h(mu)'s slot
+//     terms by shuffles in slot order, so a thread keeps one prepared slot
+//     (15 values) instead of K;
+//   * project_pool: a thread owns one pool, so loads of one slot plane are
+//     coalesced across the warp.  The merged fused step runs it, and the
+//     grouped kernels above K = 32.  KC in {2, 4, 8, 16} (a template
+//     constant) keeps the pool's K prepared slots in registers for the
+//     whole root-find; KC == 0 (any K, given at run time) walks the slots
+//     again at every evaluation of h(mu), reading them from global memory
+//     (L1/L2-resident after the first pass) and recomputing their mu-free
+//     terms, with the same values.  A kernel hands project_pool a loader
+//     load(c) -> SlotIn (the slot's raw inputs) and a store(c, D, L)
+//     callback, so the fused step can gather its input and write its
+//     outputs in place.
 //
 // Bound: compute.  Each pool evaluates h(mu) n_bisect + n_polish + 2 times;
 // every evaluation costs per slot a square root, a logarithm (geo-mean) or a
@@ -467,36 +468,6 @@ __device__ __forceinline__ void project_slot(const SlotIn<T>& in, int K, T g,
 }
 
 }  // namespace cfmm
-
-// Dispatch a templated launch over (dtype, K, kind).  K in {2, 4, 8, 16}
-// takes the register instantiation; any other K >= 1 the run-time one
-// (KC == 0).  Unknown kinds or dtypes set cudaErrorInvalidValue.
-#define CFMM_DISPATCH_KIND(T, KK, kind, LAUNCH)                              \
-  switch (kind) {                                                            \
-    case cfmm::KIND_GM: LAUNCH(T, KK, cfmm::KIND_GM); break;                  \
-    case cfmm::KIND_GM_FLOOR: LAUNCH(T, KK, cfmm::KIND_GM_FLOOR); break;      \
-    case cfmm::KIND_CS: LAUNCH(T, KK, cfmm::KIND_CS); break;                  \
-    default: return (int)cudaErrorInvalidValue;                              \
-  }
-
-#define CFMM_DISPATCH_K(T, K, kind, LAUNCH)                                  \
-  switch (K) {                                                               \
-    case 2: CFMM_DISPATCH_KIND(T, 2, kind, LAUNCH); break;                    \
-    case 4: CFMM_DISPATCH_KIND(T, 4, kind, LAUNCH); break;                    \
-    case 8: CFMM_DISPATCH_KIND(T, 8, kind, LAUNCH); break;                    \
-    case 16: CFMM_DISPATCH_KIND(T, 16, kind, LAUNCH); break;                  \
-    default:                                                                 \
-      if (K < 1) return (int)cudaErrorInvalidValue;                          \
-      CFMM_DISPATCH_KIND(T, 0, kind, LAUNCH);                                 \
-      break;                                                                 \
-  }
-
-#define CFMM_DISPATCH(dtype, K, kind, LAUNCH)                                \
-  switch (dtype) {                                                           \
-    case 0: CFMM_DISPATCH_K(float, K, kind, LAUNCH); break;                   \
-    case 1: CFMM_DISPATCH_K(double, K, kind, LAUNCH); break;                  \
-    default: return (int)cudaErrorInvalidValue;                              \
-  }
 
 // Call CALL(T, LANES) with the dtype's type and lanes_for(K); each CALL
 // returns.  Unknown dtypes and K < 1 give cudaErrorInvalidValue.

@@ -10,10 +10,11 @@ A failed build raises: there is no fallback.
 Every kernel wrapper adds one to its entry in :data:`LAUNCHES` where it
 launches its kernel, so a run can show which kernels it went through (the
 folded launches of the fused steps count under ``*_fold``, the merged
-K-group launches under ``fused_step_merged``).  The delta kernels launch
+K-group launches under ``fused_step_merged``).  The grouped kernels launch
 once per group of buckets with the same slot count: one launch of
-``fused_step_delta`` (or ``fused_step_delta_fold``) or ``project_delta``
-covers every bucket of its group, geo-mean and constant-sum alike.
+``project``, ``project_delta``, ``fused_step`` or ``fused_step_delta``
+(or their ``*_fold`` forms) covers every bucket of its group, geo-mean and
+constant-sum alike.
 """
 from __future__ import annotations
 
@@ -50,7 +51,7 @@ _D = ctypes.c_double
 _LIBS = {
     "projection": (
         "projection.cu",
-        {"cfmm_project": [_C, _C, _C, _C] + [_P] * 11 + [_C, _C, _P]},
+        {"cfmm_project": [_C, _C, _C, _P, _P, _C, _C, _P]},
     ),
     "projection_delta": (
         "projection_delta.cu",
@@ -74,8 +75,7 @@ _LIBS = {
 }
 _HEADERS = ("projection.cuh", "projection_delta.cuh")
 
-LAUNCHES: Dict[str, int] = {"project_gm": 0, "project_cs": 0,
-                            "project_delta": 0,
+LAUNCHES: Dict[str, int] = {"project": 0, "project_delta": 0,
                             "fused_step": 0, "fused_step_delta": 0,
                             "fused_step_fold": 0, "fused_step_delta_fold": 0,
                             "fused_step_merged": 0, "segment_sum": 0}

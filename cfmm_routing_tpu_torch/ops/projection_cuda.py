@@ -12,13 +12,11 @@ classic iteration, which the JAX package leaves to XLA
 ``csrc/projection_delta.cu`` over ``csrc/projection_delta.cuh``.  Bound
 by arithmetic and latency (see the headers).
 
-``project_gm``/``project_cs`` run one thread per pool; K in {2, 4, 8, 16}
-runs a register instantiation, any other K one that reads its slots from
-memory inside the root-find (``csrc/projection.cuh``).  The delta
-projection runs one lane per slot (K <= 32; one thread per pool above) and
-one launch per group of buckets with the same K
-(:func:`project_delta_grouped`); ``project_gm_delta_cuda`` /
-``project_cs_delta_cuda`` launch it on one bucket.
+Both kernels run one lane per slot (K <= 32; one thread per pool above)
+and one launch per group of buckets with the same K, geo-mean and
+constant-sum alike (:func:`project_grouped`, :func:`project_delta_grouped`);
+``project_gm_cuda`` / ``project_cs_cuda`` and ``project_gm_delta_cuda`` /
+``project_cs_delta_cuda`` launch them on one bucket.
 
 On a CPU tensor the wrappers run the plain PyTorch version
 (``ops/projection.py``, ``ops/projection_delta.py``); on a CUDA tensor
@@ -34,12 +32,13 @@ from . import _build
 from .projection import ProjectionConfig, project_cs, project_gm
 from .projection_delta import project_cs_delta, project_gm_delta
 
-__all__ = ["project_gm_cuda", "project_cs_cuda", "project_gm_delta_cuda",
+__all__ = ["project_gm_cuda", "project_cs_cuda", "project_grouped",
+           "project_grouped_plain", "project_gm_delta_cuda",
            "project_cs_delta_cuda", "project_delta_grouped",
            "project_delta_grouped_plain", "dtype_code", "MAX_GROUP"]
 
 _KIND = {("gm", False): 0, ("gm", True): 1, ("cs", True): 2, ("cs", False): 2}
-MAX_GROUP = 8  # buckets per grouped delta launch (the kernels' table size)
+MAX_GROUP = 8  # buckets per grouped launch (the kernels' table size)
 
 
 def dtype_code(dtype: torch.dtype) -> int:
@@ -80,54 +79,6 @@ def check_cuda_args(planes, vectors, what: str):
     return K, m
 
 
-def _launch(kind_code, p, q, R, w, s, mask, gamma, logk0, k0, cfg, what):
-    D = torch.empty_like(p)
-    L = torch.empty_like(p)
-    K, m = p.shape
-    lib = _build.library("projection")
-    with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream(p.device).cuda_stream
-        rc = lib.cfmm_project(
-            dtype_code(p.dtype), kind_code, K, m,
-            p.data_ptr(), q.data_ptr(), R.data_ptr(), w.data_ptr(),
-            None if s is None else s.data_ptr(), mask.data_ptr(),
-            gamma.data_ptr(), None if logk0 is None else logk0.data_ptr(),
-            k0.data_ptr(), D.data_ptr(), L.data_ptr(),
-            int(cfg.n_bisect), int(cfg.n_polish), stream,
-        )
-    _build.check_launch(rc, what)
-    _build.LAUNCHES[what] += 1
-    return D, L
-
-
-def project_gm_cuda(
-    p, q, R, w, s, gamma, logk0, k0, mask,
-    needs_floor: bool = False,
-    cfg: ProjectionConfig = ProjectionConfig(),
-):
-    """Project (p, q) onto geo-mean trading sets (``ops/projection.py``'s
-    :func:`~.projection.project_gm`).  Returns (D, L) (K, m)."""
-    if p.device.type == "cpu":
-        return project_gm(p, q, R, w, s, gamma, logk0, k0, mask,
-                          needs_floor=needs_floor, cfg=cfg)
-    check_cuda_args((p, q, R, w, s, mask), (gamma, logk0, k0), "project_gm")
-    return _launch(_KIND[("gm", bool(needs_floor))], p, q, R, w, s, mask,
-                   gamma, logk0, k0, cfg, "project_gm")
-
-
-def project_cs_cuda(
-    p, q, R, gamma, w, k0, mask,
-    cfg: ProjectionConfig = ProjectionConfig(),
-):
-    """Project (p, q) onto (weighted) constant-sum trading sets with the
-    reserve floor (:func:`~.projection.project_cs`).  Returns (D, L)."""
-    if p.device.type == "cpu":
-        return project_cs(p, q, R, gamma, w, k0, mask, cfg=cfg)
-    check_cuda_args((p, q, R, w, mask), (gamma, k0), "project_cs")
-    return _launch(_KIND[("cs", True)], p, q, R, w, None, mask, gamma, None,
-                   k0, cfg, "project_cs")
-
-
 def _check_group(group, what):
     if not 1 <= len(group["names"]) <= MAX_GROUP:
         raise ValueError(
@@ -162,6 +113,101 @@ def launch_table(dims, ptrs):
     """The ctypes arrays a grouped C launcher reads its descriptor table
     from: int dims and device pointers (None for a null pointer)."""
     return (ctypes.c_int * len(dims))(*dims), (ctypes.c_void_p * len(ptrs))(*ptrs)
+
+
+def _launch_grouped(lib, entry, what, ref, names, dims, sizes, args, cfg):
+    """One grouped launch of the C entry ``entry`` of library ``lib`` from
+    the validated per-bucket ``dims``, ``sizes`` and input tensors ``args``
+    (None for a null pointer): returns name -> (out0, out1), per-bucket
+    (K, m) views of one allocation, and counts the launch under ``what``."""
+    _, views = group_outputs(ref, sizes, 2)
+    ptrs = []
+    for ins, outs in zip(args, views):
+        ptrs += [None if t is None else t.data_ptr() for t in ins]
+        ptrs += [t.data_ptr() for t in outs]
+    c_dims, c_ptrs = launch_table(dims, ptrs)
+    fn = getattr(_build.library(lib), entry)
+    with torch.cuda.device(ref.device):
+        stream = torch.cuda.current_stream(ref.device).cuda_stream
+        rc = fn(dtype_code(ref.dtype), ref.shape[0], len(names), c_dims, c_ptrs,
+                int(cfg.n_bisect), int(cfg.n_polish), stream)
+    _build.check_launch(rc, what)
+    _build.LAUNCHES[what] += 1
+    return {name: tuple(outs) for name, outs in zip(names, views)}
+
+
+def project_grouped_plain(inputs, buckets, group,
+                          cfg: ProjectionConfig = ProjectionConfig()):
+    """The plain version of :func:`project_grouped`: each bucket's plain
+    projection, on any device."""
+    out = {}
+    for name, (kind, floor) in zip(group["names"], group["kinds"]):
+        p, q = inputs[name]
+        a = buckets[name]
+        if kind == "gm":
+            out[name] = project_gm(p, q, a["R"], a["w"], a["s"], a["gamma"],
+                                   a["logk0"], a["k0"], a["mask"],
+                                   needs_floor=floor, cfg=cfg)
+        else:
+            out[name] = project_cs(p, q, a["R"], a["gamma"], a["w"], a["k0"],
+                                   a["mask"], cfg=cfg)
+    return out
+
+
+def project_grouped(inputs, buckets, group,
+                    cfg: ProjectionConfig = ProjectionConfig()):
+    """The projection of a group of buckets with the same slot count K, in
+    one launch (``csrc/projection.cu``).
+
+    ``inputs``: bucket name -> (p, q) (K, m) planes;  ``buckets``: name ->
+    bucket dict (R w s mask gamma logk0 k0; s and logk0 may be absent for
+    a constant-sum bucket);  ``group``: ``names`` (at most
+    :data:`MAX_GROUP`) and ``kinds`` ((kind, needs_floor) per name).
+    Returns name -> (D, L).  CPU tensors run :func:`project_grouped_plain`."""
+    names = group["names"]
+    ref = inputs[names[0]][0]
+    if ref.device.type == "cpu":
+        return project_grouped_plain(inputs, buckets, group, cfg)
+    _check_group(group, "project")
+    dims, sizes, args = [], [], []
+    for name, (kind, floor) in zip(names, group["kinds"]):
+        p, q = inputs[name]
+        a = buckets[name]
+        gm = kind == "gm"
+        s, logk0 = (a["s"], a["logk0"]) if gm else (None, None)
+        K, m = check_cuda_args(
+            (p, q, a["R"], a["w"], a["mask"]) + ((s,) if gm else ()),
+            (a["gamma"], a["k0"]) + ((logk0,) if gm else ()), "project")
+        _check_like(p, ref, "project")
+        dims += [m, _KIND[(kind, bool(floor))]]
+        sizes.append((K, m))
+        args.append((p, q, a["R"], a["w"], s, a["mask"], a["gamma"], logk0,
+                     a["k0"]))
+    return _launch_grouped("projection", "cfmm_project", "project", ref, names,
+                           dims, sizes, args, cfg)
+
+
+def project_gm_cuda(
+    p, q, R, w, s, gamma, logk0, k0, mask,
+    needs_floor: bool = False,
+    cfg: ProjectionConfig = ProjectionConfig(),
+):
+    """Project (p, q) onto geo-mean trading sets (``ops/projection.py``'s
+    :func:`~.projection.project_gm`) through :func:`project_grouped` on a
+    group of one.  Returns (D, L) (K, m)."""
+    arrs = dict(R=R, w=w, s=s, gamma=gamma, logk0=logk0, k0=k0, mask=mask)
+    return _one(project_grouped, ("gm", bool(needs_floor)), p, q, arrs, cfg)
+
+
+def project_cs_cuda(
+    p, q, R, gamma, w, k0, mask,
+    cfg: ProjectionConfig = ProjectionConfig(),
+):
+    """Project (p, q) onto (weighted) constant-sum trading sets with the
+    reserve floor (:func:`~.projection.project_cs`) through
+    :func:`project_grouped` on a group of one.  Returns (D, L)."""
+    arrs = dict(R=R, w=w, gamma=gamma, k0=k0, mask=mask)
+    return _one(project_grouped, ("cs", True), p, q, arrs, cfg)
 
 
 def project_delta_grouped_plain(inputs, buckets, group,
@@ -212,29 +258,14 @@ def project_delta_grouped(inputs, buckets, group,
         sizes.append((K, m))
         args.append((p, q, a["X0"], a["w"], sS, a["aD"], a["aL"], a["mask"],
                      a["gamma"], a["nsig"]))
-    _, views = group_outputs(ref, sizes, 2)
-    ptrs = []
-    for ins, outs in zip(args, views):
-        ptrs += [None if t is None else t.data_ptr() for t in ins]
-        ptrs += [t.data_ptr() for t in outs]
-    c_dims, c_ptrs = launch_table(dims, ptrs)
-    lib = _build.library("projection_delta")
-    with torch.cuda.device(ref.device):
-        stream = torch.cuda.current_stream(ref.device).cuda_stream
-        rc = lib.cfmm_project_delta(
-            dtype_code(ref.dtype), ref.shape[0], len(names), c_dims, c_ptrs,
-            int(cfg.n_bisect), int(cfg.n_polish), stream,
-        )
-    _build.check_launch(rc, "project_delta")
-    _build.LAUNCHES["project_delta"] += 1
-    return {name: tuple(outs) for name, outs in zip(names, views)}
+    return _launch_grouped("projection_delta", "cfmm_project_delta",
+                           "project_delta", ref, names, dims, sizes, args, cfg)
 
 
-def _project_one(kind, p, q, arrs, cfg):
-    """One bucket through the grouped kernel (a group of one)."""
+def _one(grouped, kind, p, q, arrs, cfg):
+    """One bucket through a grouped projection (a group of one)."""
     group = dict(names=["bucket"], kinds=[kind])
-    return project_delta_grouped({"bucket": (p, q)}, {"bucket": arrs}, group,
-                                 cfg)["bucket"]
+    return grouped({"bucket": (p, q)}, {"bucket": arrs}, group, cfg)["bucket"]
 
 
 def project_gm_delta_cuda(
@@ -249,7 +280,7 @@ def project_gm_delta_cuda(
         return project_gm_delta(p, q, X0, w, sS, gamma, nsig, aD, aL, mask,
                                 needs_floor=needs_floor, cfg=cfg)
     arrs = dict(X0=X0, w=w, sS=sS, gamma=gamma, nsig=nsig, aD=aD, aL=aL, mask=mask)
-    return _project_one(("gm", bool(needs_floor)), p, q, arrs, cfg)
+    return _one(project_delta_grouped, ("gm", bool(needs_floor)), p, q, arrs, cfg)
 
 
 def project_cs_delta_cuda(
@@ -262,4 +293,4 @@ def project_cs_delta_cuda(
     if p.device.type == "cpu":
         return project_cs_delta(p, q, X0, gamma, w, tgt, aD, aL, mask, cfg=cfg)
     arrs = dict(X0=X0, w=w, gamma=gamma, nsig=tgt, aD=aD, aL=aL, mask=mask)
-    return _project_one(("cs", True), p, q, arrs, cfg)
+    return _one(project_delta_grouped, ("cs", True), p, q, arrs, cfg)

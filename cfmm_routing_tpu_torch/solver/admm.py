@@ -1,7 +1,8 @@
 """Consensus-ADMM driver.
 
 An operator-splitting method whose per-iteration work is exactly: one
-batched trading-set projection per bucket (``ops/projection.py``), one
+batched trading-set projection per bucket (``ops/projection.py``; on the
+card one launch per group of buckets with the same channel count), one
 scatter-add over edges, and O(n) vector arithmetic — no factorizations and
 no sparse matrices.
 
@@ -72,9 +73,7 @@ from .._device import host, resolve_device
 from ..models.utility import ConcaveUtility, Objective
 from ..ops.iteration_cuda import fused_step_grouped, fused_step_merged
 from ..ops.projection import ProjectionConfig
-from ..ops.projection_cuda import (
-    _KIND, MAX_GROUP, project_cs_cuda, project_gm_cuda,
-)
+from ..ops.projection_cuda import _KIND, MAX_GROUP, project_grouped
 from ..ops.prox import psi_prox, utility_prox, utility_value
 from ..ops.segment import segment_sum, slot_order
 from .compiler import CompiledProblem
@@ -201,12 +200,13 @@ def _reserve_buckets(solver, compiled_scaled):
 
 def bucket_groups(solver):
     """A solver's buckets grouped by channel count K for the grouped kernels
-    (``fused_step_grouped``, ``fused_step_delta_grouped``,
-    ``project_delta_grouped``): groups in ascending K, buckets in
-    sorted-name order inside a group, at most ``MAX_GROUP`` buckets each.  A
-    group holds its ``K``, its ``names``, their ``kinds`` ((kind,
-    needs_floor)) and its own fixed slot order (``order``/``seg``) over the
-    buckets' consensus-term planes flattened one after another."""
+    (``project_grouped``, ``fused_step_grouped``,
+    ``fused_step_delta_grouped``, ``project_delta_grouped``): groups in
+    ascending K, buckets in sorted-name order inside a group, at most
+    ``MAX_GROUP`` buckets each.  A group holds its ``K``, its ``names``,
+    their ``kinds`` ((kind, needs_floor)) and its own fixed slot order
+    (``order``/``seg``) over the buckets' consensus-term planes flattened
+    one after another."""
     by_k = {}
     for name in sorted(solver.buckets):
         by_k.setdefault(solver.buckets[name]["mask"].shape[0], []).append(name)
@@ -357,19 +357,21 @@ class AdmmSolver:
 
     # ---- single iteration ---------------------------------------------------
 
-    def _project(self, name, arrs, pD, pL):
-        kind, floor = self._meta[name]
-        cfg = self.options.projection
-        if kind == "gm":
-            return project_gm_cuda(
-                pD, pL, arrs["R"], arrs["w"], arrs["s"], arrs["gamma"],
-                arrs["logk0"], arrs["k0"], arrs["mask"],
-                needs_floor=floor, cfg=cfg,
-            )
-        return project_cs_cuda(
-            pD, pL, arrs["R"], arrs["gamma"], arrs["w"], arrs["k0"],
-            arrs["mask"], cfg=cfg,
-        )
+    def _project_groups(self, inputs, buckets):
+        """Project every bucket's (p, q) = ``inputs[name]`` onto its trading
+        sets, one :func:`project_grouped` launch per K-group
+        (:attr:`_groups`) on the card, each bucket's plain projection on
+        the CPU.  ``buckets``: the arrays to project with (the solver's own,
+        or an override with the same names).  Returns name -> (D, L)."""
+        out = {}
+        for g in self._groups:
+            missing = [nm for nm in g["names"] if nm not in buckets]
+            if missing:
+                raise KeyError(f"the bucket arrays lack {missing}, which the "
+                               f"solver's K = {g['K']} group projects")
+            out.update(project_grouped(inputs, buckets, g,
+                                       cfg=self.options.projection))
+        return out
 
     def _prox(self, s, c, lo, hi, rho, util=None):
         """The consensus prox: linear (``util=None``) or separable concave."""
@@ -392,13 +394,18 @@ class AdmmSolver:
         prox from the linear closed form to the separable-concave one."""
         buckets = self.buckets if buckets is None else buckets
         alpha = self._alpha
+        inputs = {}
+        for name in buckets:
+            nu_e = self._bcast_nu(nu, name, buckets)
+            zD, zL = z[name]
+            inputs[name] = (zD - nu_e, zL + nu_e)
+        proj = self._project_groups(inputs, buckets)
         w_hat = {}
         cterm = {}
         w_norm2 = self._zeros()
-        for name, arrs in buckets.items():
-            nu_e = self._bcast_nu(nu, name, buckets)
+        for name in buckets:
             zD, zL = z[name]
-            D, L = self._project(name, arrs, zD - nu_e, zL + nu_e)
+            D, L = proj[name]
             if with_stats:
                 w_norm2 = w_norm2 + (self._plane_sum(D * D) + self._plane_sum(L * L))
             hD = alpha * D + (1.0 - alpha) * zD

@@ -250,12 +250,14 @@ class ChunkedDriver:
                 status = "infeasible"
                 log.infeasibility = cert
 
-        # final projection pass for exactly-feasible primal variables
-        w_out = {}
-        for name, arrs in sol.buckets.items():
+        # final projection pass for exactly-feasible primal variables, one
+        # launch per K-group on the card
+        inputs = {}
+        for name in sol.buckets:
             nu_e = sol._bcast_nu(nu, name)
             zD, zL = z[name]
-            w_out[name] = sol._project(name, arrs, zD - nu_e, zL + nu_e)
+            inputs[name] = (zD - nu_e, zL + nu_e)
+        w_out = sol._project_groups(inputs, sol.buckets)
 
         result = RouteResult(
             objective=sol._t(obj),

@@ -11,9 +11,14 @@ Phases (any failure raises and the script exits nonzero):
    build of every CUDA kernel from ``cfmm_routing_tpu_torch/csrc``.
 2. Each kernel against its plain PyTorch version on the card.
    a. At the five bucket shapes of the 100k-pool network, from a mid-solve
-      state (20 plain fused iterations): ``project_gm`` (gm2, gm2f, gm4)
-      and ``project_cs`` (cs2f, cs4f) in float32 at the main path's
-      ProjectionConfig(24, 4) and in float64 at the default (48, 6);
+      state (20 plain fused iterations): the grouped projection
+      ``project_grouped`` (``project_gm`` + ``project_cs``, one launch per
+      K-group: K=2: cs2f gm2 gm2f, K=4: cs4f gm4) and, launched per bucket
+      as groups of one, ``project_gm_cuda`` (gm2, gm2f, gm4) and
+      ``project_cs_cuda`` (cs2f, cs4f), in float32 at the main path's
+      ProjectionConfig(24, 4) and in float64 at the default (48, 6), bitwise
+      equal to their plain versions (and to a second launch), with the
+      projection library's registers and spills;
       ``segment_sum`` on every bucket and on each K-group's slot order;
       ``fused_step`` on every bucket (a group of one) and grouped, one
       launch + one segment sum per K-group (K=2: cs2f gm2 gm2f, K=4: cs4f
@@ -32,12 +37,11 @@ Phases (any failure raises and the script exits nonzero):
       ``pad_pow2=False`` (the run-time-K kernels; 4, 8 and 16 lanes per
       delta pool) and ``pad_pow2=True`` (K = 4, 8, 16), and one of
       40-asset pools (one thread per pool): every kernel in float32, the
-      fused steps (per bucket and grouped) and the grouped delta kernels
-      bitwise.
-   Tolerances: projections atol 5e-5 (float32) / 1e-10 (float64); the
-   segment sum, the fused steps and the grouped delta kernels must be
-   bitwise equal to their plain versions, whose order of additions they
-   share.
+      projections (per bucket and grouped, the grouped one in float64 too),
+      the fused steps (per bucket and grouped) and the grouped delta
+      kernels bitwise.
+   Every kernel must be bitwise equal to its plain version, whose
+   arithmetic and order of additions it shares.
 3. The reference optima on the card: in float64 through ``api.arbitrage`` /
    ``api.liquidate`` / ``api.route(certify=True)``, each pin to 1e-6; in
    float32 through the same calls with ``refine_to=1e-7`` (bench.py's base
@@ -166,10 +170,9 @@ EXPECTED_BUCKETS = {"gm2": (73728, 2), "gm2f": (10240, 2), "gm4": (7168, 4),
 PINS = (("arbitrage", 21.499805), ("liquidation", 15.883010),
         ("two-asset t=25", 31.005495))
 SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
-    "project_gm": ("cfmm_routing_tpu_torch/csrc/projection.cu",
-                   "cfmm_routing_tpu/ops/projection_pallas.py:303"),
-    "project_cs": ("cfmm_routing_tpu_torch/csrc/projection.cu",
-                   "cfmm_routing_tpu/ops/projection_pallas.py:319"),
+    # project_gm_pallas and project_cs_pallas: one grouped launch per K-group
+    "project": ("cfmm_routing_tpu_torch/csrc/projection.cu",
+                "cfmm_routing_tpu/ops/projection_pallas.py:303,319"),
     # the refinement's classic projections (project_gm_delta and
     # project_cs_delta, one grouped launch): plain jnp on the TPU, no Pallas
     "project_delta": ("cfmm_routing_tpu_torch/csrc/projection_delta.cu",
@@ -338,6 +341,7 @@ def count_plain_calls(counter):
                (iteration_cuda, "fused_step_delta_grouped_plain"),
                (iteration_cuda, "fused_step_merged_plain"),
                (projection_cuda, "project_gm"), (projection_cuda, "project_cs"),
+               (projection_cuda, "project_grouped_plain"),
                (projection_cuda, "project_gm_delta"),
                (projection_cuda, "project_cs_delta"),
                (projection_cuda, "project_delta_grouped_plain"),
@@ -1013,7 +1017,7 @@ def merged_utility_phase(report, rows, card, cfg_main, cfg64, counting_solver, r
     if plain7 or not (route.converged and abs(ac.gap_rel) <= 1e-6
                       and ac.feasibility_rel <= 1e-6):
         raise AssertionError(f"7c api: {ac.summary()} plain versions {plain7}")
-    missing = [k for k in ("project_gm", "project_cs", "segment_sum") if counts[k] == 0]
+    missing = [k for k in ("project", "segment_sum") if counts[k] == 0]
     if missing:
         raise AssertionError(f"7c api: kernels never launched: {missing}")
     out["path2"] = dict(refine_device=route_c, api=dict(
@@ -1051,7 +1055,7 @@ def merged_utility_phase(report, rows, card, cfg_main, cfg64, counting_solver, r
         flav[flavour] = dict(card=got.objective, cpu=want.objective, worst=worst,
                              gap_rel=got.certificate.gap_rel)
     launches.append(dict(_build.LAUNCHES))
-    if launches[-1]["project_gm"] == 0 or launches[-1]["segment_sum"] == 0:
+    if launches[-1]["project"] == 0 or launches[-1]["segment_sum"] == 0:
         raise AssertionError(f"7d: the card runs launched no kernel: {launches[-1]}")
     out["flavours"] = flav
     report["merged_utility"] = out
@@ -1290,8 +1294,9 @@ def build_report(build_dir):
     beside the built libraries ({library: {kernel: [registers, spill
     stores, spill loads]}}), and the root-find loops of the float32 kernels
     instantiated for 2 (slots or lanes a pool: the 100k network's K = 2) in
-    the fused-step library, from ``cuobjdump -sass``: each backward branch's
-    loop, its instructions and its MUFU and shuffle operations."""
+    the fused-step and projection libraries, from ``cuobjdump -sass``: each
+    backward branch's loop, its instructions and its MUFU and shuffle
+    operations."""
     import glob
     import os
     import re
@@ -1311,27 +1316,29 @@ def build_report(build_dir):
             if m and name:
                 kernels.setdefault(name, [0, 0, 0])[0] = int(m.group(1))
         regs[lib] = kernels
-    libs = sorted(glob.glob(os.path.join(build_dir, "libfused_step_*.so")))
-    libs = [p for p in libs if re.search(r"libfused_step_[0-9a-f]{16}\.so$", p)]
-    if not libs:
-        raise RuntimeError(f"no built fused-step library in {build_dir}")
-    text = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", libs[-1]],
-                          capture_output=True, text=True, check=True).stdout
     loops = []
-    for fn in re.split(r"Function\s*:\s*", text)[1:]:
-        name = fn.split("\n", 1)[0].strip()
-        if not re.search(r"kernelIfLi2E", name):
-            continue
-        ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn)
-        addr = [int(a, 16) for a, _ in ins]
-        for i, (_, op) in enumerate(ins):
-            m = re.search(r"\bBRA\b[^;]*?0x([0-9a-f]+)", op)
-            if not m or int(m.group(1), 16) >= addr[i]:
+    for lib in ("fused_step", "projection"):
+        libs = sorted(p for p in glob.glob(os.path.join(build_dir, f"lib{lib}_*.so"))
+                      if re.search(rf"lib{lib}_[0-9a-f]{{16}}\.so$", p))
+        if not libs:
+            raise RuntimeError(f"no built {lib} library in {build_dir}")
+        text = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", libs[-1]],
+                              capture_output=True, text=True, check=True).stdout
+        for fn in re.split(r"Function\s*:\s*", text)[1:]:
+            name = fn.split("\n", 1)[0].strip()
+            if not re.search(r"kernelIfLi2E", name):
                 continue
-            body = [o for a, (_, o) in zip(addr, ins) if int(m.group(1), 16) <= a <= addr[i]]
-            loops.append(dict(kernel=name, instructions=len(body),
-                              mufu=sum("MUFU" in o for o in body),
-                              shfl=sum("SHFL" in o for o in body)))
+            ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn)
+            addr = [int(a, 16) for a, _ in ins]
+            for i, (_, op) in enumerate(ins):
+                m = re.search(r"\bBRA\b[^;]*?0x([0-9a-f]+)", op)
+                if not m or int(m.group(1), 16) >= addr[i]:
+                    continue
+                body = [o for a, (_, o) in zip(addr, ins)
+                        if int(m.group(1), 16) <= a <= addr[i]]
+                loops.append(dict(library=lib, kernel=name, instructions=len(body),
+                                  mufu=sum("MUFU" in o for o in body),
+                                  shfl=sum("SHFL" in o for o in body)))
     return regs, loops
 
 
@@ -1343,9 +1350,12 @@ def package_times(root):
     back-to-back calls, from a state of 20 fused iterations:
 
     * the 100k network of phase 4: ``segment_sum`` on each bucket,
-      ``fused_step`` on each bucket, one whole fused iteration
-      (``AdmmSolver._iterate_fused``) and one stats-free classic iteration
-      (``AdmmSolver._iterate``, the body of the classic replayed block);
+      ``fused_step`` on each bucket, ``project_gm_cuda`` /
+      ``project_cs_cuda`` on each bucket at the classic iteration's input,
+      one whole fused iteration (``AdmmSolver._iterate_fused``) and one
+      stats-free classic iteration (``AdmmSolver._iterate``, the body of
+      the classic replayed block); where the package has it,
+      ``project_grouped`` on each K-group;
     * ``fused_step(fold=)`` on each bucket and one whole folded iteration at
       100k pools x 8 reserve scenarios (6b), 10k pools x 50 points (6c) and
       1,000 pools x 1,024 points (6a);
@@ -1360,7 +1370,7 @@ def package_times(root):
     where = os.path.dirname(os.path.abspath(pkg.__file__))
     if not where.startswith(root + os.sep):
         raise RuntimeError(f"--times {root}: imported the package from {where}")
-    from cfmm_routing_tpu_torch.ops import _build
+    from cfmm_routing_tpu_torch.ops import _build, projection_cuda
     from cfmm_routing_tpu_torch.ops.iteration_cuda import fused_step
     from cfmm_routing_tpu_torch.ops.projection import ProjectionConfig
     from cfmm_routing_tpu_torch.ops.segment import segment_sum
@@ -1403,6 +1413,28 @@ def package_times(root):
             z = solver.fused_to_z(s, wdef, buckets)
             row["classic_iteration_ms"] = graph_ms(lambda: solver._iterate(
                 z, nu, rho, c, lo, hi, with_stats=False, buckets=buckets), n=5, reps=3)
+            pin = {}
+            row["project_ms"] = {}
+            for name, arrs in buckets.items():
+                kind, floor = solver._meta[name]
+                nu_e = solver._bcast_nu(nu, name, buckets)
+                pin[name] = p, q = z[name][0] - nu_e, z[name][1] + nu_e
+                if kind == "gm":
+                    pfn = lambda: projection_cuda.project_gm_cuda(  # noqa: E731
+                        p, q, arrs["R"], arrs["w"], arrs["s"], arrs["gamma"],
+                        arrs["logk0"], arrs["k0"], arrs["mask"], needs_floor=floor,
+                        cfg=cfg)
+                else:
+                    pfn = lambda: projection_cuda.project_cs_cuda(  # noqa: E731
+                        p, q, arrs["R"], arrs["gamma"], arrs["w"], arrs["k0"],
+                        arrs["mask"], cfg=cfg)
+                row["project_ms"][name] = graph_ms(pfn)
+            if hasattr(projection_cuda, "project_grouped"):
+                row["project_grouped_ms"] = {
+                    str(g["names"]): graph_ms(lambda: projection_cuda.project_grouped(
+                        pin, buckets, g, cfg=cfg)) for g in solver._groups}
+            log(f"# {label}: projection per bucket {sum(row['project_ms'].values()):.4f} "
+                f"ms {row['project_ms']}; grouped {row.get('project_grouped_ms')}")
         log(f"# {label}: fused_step per bucket {sum(row['fused_step_ms'].values()):.4f} ms, "
             f"a whole fused iteration {row['fused_iteration_ms']:.4f} ms"
             + (f", segment_sum per bucket {sum(row['segment_sum_ms'].values()):.4f} ms, a "
@@ -1506,6 +1538,7 @@ def main(argv=None):
     from cfmm_routing_tpu_torch.ops.projection_cuda import (
         project_cs_cuda, project_cs_delta_cuda, project_delta_grouped,
         project_delta_grouped_plain, project_gm_cuda, project_gm_delta_cuda,
+        project_grouped, project_grouped_plain,
     )
     from cfmm_routing_tpu_torch.ops.projection_delta import (
         project_cs_delta, project_gm_delta,
@@ -1553,8 +1586,7 @@ def main(argv=None):
         """For the comparison runs only: the solver modules' kernel
         wrappers are replaced by their plain PyTorch versions."""
         swaps = [(admm_mod, "fused_step_grouped", fused_step_grouped_plain),
-                 (admm_mod, "project_gm_cuda", plain.project_gm),
-                 (admm_mod, "project_cs_cuda", plain.project_cs),
+                 (admm_mod, "project_grouped", project_grouped_plain),
                  (admm_mod, "segment_sum", segment_sum_plain),
                  (rd_mod, "fused_step_delta_grouped", fused_step_delta_grouped_plain),
                  (rd_mod, "project_delta_grouped", project_delta_grouped_plain)]
@@ -1598,16 +1630,18 @@ def main(argv=None):
     n_pad = v.shape[0]
     rows = {k: [] for k in SOURCES}
     one_bucket_ms, seg_bucket_ms, cterm = {}, {}, {}
+    pin, per_bucket = {}, []  # the classic projection's input; its rows per bucket
     for name, arrs in solver.buckets.items():
         kind, floor = solver._meta[name]
         K, m = arrs["mask"].shape
         nu_e = solver._bcast_nu(nu, name)
-        p, q = z[name][0] - nu_e, z[name][1] + nu_e
+        pin[name] = p, q = z[name][0] - nu_e, z[name][1] + nu_e
         kname = "project_gm" if kind == "gm" else "project_cs"
-        for dtype, slv, cfg, atol in ((torch.float32, solver, cfg_main, 5e-5),
-                                      (torch.float64, solver64, cfg64, 1e-10)):
+        for dtype, slv, cfg in ((torch.float32, solver, cfg_main),
+                                (torch.float64, solver64, cfg64)):
             a = slv.buckets[name]
             pp, qq = p.to(dtype), q.to(dtype)
+            # the per-bucket wrappers: the grouped kernel on a group of one
             if kind == "gm":
                 largs = (pp, qq, a["R"], a["w"], a["s"], a["gamma"], a["logk0"],
                          a["k0"], a["mask"])
@@ -1617,20 +1651,20 @@ def main(argv=None):
                 largs = (pp, qq, a["R"], a["gamma"], a["w"], a["k0"], a["mask"])
                 kfn = lambda: project_cs_cuda(*largs, cfg=cfg)  # noqa: E731
                 pfn = lambda: plain.project_cs(*largs, cfg=cfg)  # noqa: E731
-            got, want = kfn(), pfn()
+            got, again, want = kfn(), kfn(), pfn()
             torch.cuda.synchronize()
-            err = max_err(got, want)
-            check_close(f"{kname}[{name}, {dtype}]", got, want, atol)
-            row = dict(bucket=name, dtype=str(dtype).split(".")[1], K=K, m=m,
-                       cfg=list(cfg), max_abs_err=err,
+            bitwise(f"{kname}[{name}, {dtype}] (a group of one)", got, want)
+            bitwise(f"{kname}[{name}, {dtype}] second launch", again, got)
+            row = dict(kernel=kname, bucket=name, dtype=str(dtype).split(".")[1], K=K,
+                       m=m, cfg=list(cfg), max_abs_err=0.0,
                        ms=graph_ms(kfn), plain_ms=graph_ms(pfn, n=2, reps=3))
             es = 4 if dtype == torch.float32 else 8
             row["bound_ms"], row["bound_by"] = bound_ms(
                 gm_or_cs_bytes(kind, K, m, es), projection_flops(cfg, K, m), dtype)
-            rows[kname].append(row)
-            log(f"# {kname:10s} {name:5s} {row['dtype']} K={K} m={m}: max|kernel-plain| "
-                f"{err:.3e}  kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.2f} ms  "
-                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+            per_bucket.append(row)
+            log(f"# {kname:10s} {name:5s} {row['dtype']} K={K} m={m} (a group of one): "
+                f"bitwise equal to plain; kernel {row['ms']:.4f} ms  plain "
+                f"{row['plain_ms']:.2f} ms  bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
         sD, sL = s[name]
         # the per-bucket wrapper: the grouped kernel on a group of one
         ffn = lambda: fused_step(sD, sL, v, arrs, kind, floor, 1.0, cfg=cfg_main)  # noqa: E731
@@ -1684,6 +1718,50 @@ def main(argv=None):
             f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.2f} ms  index_add_ "
             f"{row['library_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     del cterm
+    # the grouped projection (the classic iteration's): one launch per K-group
+    for g, g64 in zip(solver._groups, solver64._groups):
+        K = g["K"]
+        ms = [int(solver.buckets[nm]["mask"].shape[1]) for nm in g["names"]]
+        for dtype, slv, grp, cfg in ((torch.float32, solver, g, cfg_main),
+                                     (torch.float64, solver64, g64, cfg64)):
+            dname = str(dtype).split(".")[1]
+            inp = {nm: tuple(x.to(dtype) for x in pin[nm]) for nm in g["names"]}
+            kfn = lambda: project_grouped(inp, slv.buckets, grp, cfg=cfg)  # noqa: E731
+            pfn = lambda: project_grouped_plain(inp, slv.buckets, grp, cfg=cfg)  # noqa: E731
+            got, again, want = kfn(), kfn(), pfn()
+            torch.cuda.synchronize()
+            bitwise(f"project grouped[K={K}, {dname}]", grouped_leaves(got),
+                    grouped_leaves(want))
+            bitwise(f"project grouped[K={K}, {dname}] second launch", grouped_leaves(again),
+                    grouped_leaves(got))
+            es = 4 if dtype == torch.float32 else 8
+            row = dict(group=K, buckets=g["names"], dtype=dname, K=K, m=sum(ms),
+                       cfg=list(cfg), max_abs_err=0.0, ms=graph_ms(kfn),
+                       plain_ms=graph_ms(pfn, n=2, reps=3))
+            row["bound_ms"], row["bound_by"] = group_bound([
+                bound_ms(gm_or_cs_bytes(kind, K, m, es), projection_flops(cfg, K, m), dtype)
+                for (kind, _), m in zip(g["kinds"], ms)])
+            rows["project"].append(row)
+            log(f"# project K={K} {g['names']} {dname} m={sum(ms)}: bitwise equal to plain "
+                f"and across launches; kernel {row['ms']:.4f} ms  plain "
+                f"{row['plain_ms']:.2f} ms  bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    del pin
+    proj = {d: (sum(r["ms"] for r in rows["project"] if r["dtype"] == d),
+                sum(r["ms"] for r in per_bucket if r["dtype"] == d))
+            for d in ("float32", "float64")}
+    regs, loops = build_report(str(_build.BUILD_DIR))
+    proj_regs = regs.get("projection", {})
+    log(f"# 2a projection per classic iteration: {len(solver._groups)} grouped launches "
+        f"{proj['float32'][0]:.4f} ms vs {len(per_bucket) // 2} groups of one "
+        f"{proj['float32'][1]:.4f} ms (float32, (24, 4)); float64 (48, 6) "
+        f"{proj['float64'][0]:.4f} vs {proj['float64'][1]:.4f} ms")
+    log(f"# 2a projection library: registers, spill stores, spill loads {proj_regs}; "
+        f"root-find loops at 2 lanes "
+        f"{[lp for lp in loops if lp['library'] == 'projection']}")
+    report["projection_grouping"] = dict(
+        grouped_ms={d: t[0] for d, t in proj.items()},
+        per_bucket_ms={d: t[1] for d, t in proj.items()}, per_bucket=per_bucket,
+        registers=proj_regs, sass_loops=[lp for lp in loops if lp["library"] == "projection"])
     # the grouped fused step: one launch + one segment sum per K-group
     for g, g64 in zip(solver._groups, solver64._groups):
         K = g["K"]
@@ -1850,7 +1928,6 @@ def main(argv=None):
             raise AssertionError(f"mixed-width base point has min x0 = {min_x0}")
         rng = np.random.default_rng(5)
         vw = torch.as_tensor(rng.normal(size=128), dtype=torch.float32, device="cuda")
-        worst = 0.0
         s_w = {}
         for name, arrs in sw.buckets.items():
             kind, floor = sw._meta[name]
@@ -1868,8 +1945,7 @@ def main(argv=None):
                 got = project_cs_cuda(*largs, cfg=cfg_w)
                 want = plain.project_cs(*largs, cfg=cfg_w)
             torch.cuda.synchronize()
-            check_close(f"any-K projection[{name}, K={K}]", got, want, 5e-5)
-            worst = max(worst, max_err(got, want))
+            bitwise(f"any-K projection[{name}, K={K}] (a group of one)", got, want)
             got = fused_step(sD, sL, vw, arrs, kind, floor, 1.5, cfg=cfg_w)
             want = fused_step_plain(sD, sL, vw, arrs, kind, floor, 1.5, cfg=cfg_w)
             torch.cuda.synchronize()
@@ -1877,7 +1953,17 @@ def main(argv=None):
             s_w[name] = (sD, sL)
             any_k.append(dict(pad_pow2=pad_pow2, bucket=name, K=K, m=m))
         # the grouped kernels, one group per K (4, 8 or 16 lanes a pool, or
-        # one thread at K = 40)
+        # one thread at K = 40); the projection in float64 too
+        sw64 = AdmmSolver(comp_w, dtype=torch.float64, options=sw.options)
+        s_w64 = {nm: tuple(x.double() for x in st_) for nm, st_ in s_w.items()}
+        for g in sw._groups:
+            for slv, inp, dname in ((sw, s_w, "float32"), (sw64, s_w64, "float64")):
+                got = project_grouped(inp, slv.buckets, g, cfg=cfg_w)
+                want = project_grouped_plain(inp, slv.buckets, g, cfg=cfg_w)
+                torch.cuda.synchronize()
+                bitwise(f"any-K project grouped[K={g['K']}, {dname}]", grouped_leaves(got),
+                        grouped_leaves(want))
+        del sw64, s_w64
         for g in sw._groups:
             got = fused_step_grouped(s_w, vw, sw.buckets, g, 1.5, cfg=cfg_w)
             want = fused_step_grouped_plain(s_w, vw, sw.buckets, g, 1.5, cfg=cfg_w)
@@ -1895,9 +1981,9 @@ def main(argv=None):
                 bitwise(f"any-K {label}[K={g['K']}]", grouped_leaves(got),
                         grouped_leaves(want))
         log(f"# any K (pad_pow2={pad_pow2}): buckets "
-            f"{[(n, b.width) for n, b in comp_w.buckets.items()]}; the projections match "
-            f"their plain versions (worst error {worst:.3e}), the fused steps (per bucket "
-            f"and grouped) and the grouped delta kernels bitwise")
+            f"{[(n, b.width) for n, b in comp_w.buckets.items()]}; the projections (per "
+            f"bucket, and grouped in float32 and float64), the fused steps (per bucket "
+            f"and grouped) and the grouped delta kernels bitwise equal to plain")
         # the run-time-K fused step's time on the widest bucket
         name = max(sw.buckets, key=lambda n: sw.buckets[n]["mask"].shape[0])
         arrs = sw.buckets[name]
@@ -2013,10 +2099,12 @@ def main(argv=None):
     launches4 = dict(_build.LAUNCHES)
     log(f"# main path (fused base): launches {launches4} "
         f"({time.perf_counter() - t_phase:.1f} s with the host set-up)")
-    missing = [k for k in ("project_gm", "project_cs", "fused_step", "segment_sum")
-               if launches4[k] == 0]
+    missing = [k for k in ("project", "fused_step", "segment_sum") if launches4[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
+    if launches4["project"] != len(solver._groups):  # the one classic iteration
+        raise AssertionError(f"project launches {launches4['project']} != "
+                             f"{len(solver._groups)} K-groups x 1 classic iteration")
     expect_fused = 499 * len(solver._groups)
     if launches4["fused_step"] != expect_fused:
         raise AssertionError(f"fused_step launches {launches4['fused_step']} != {expect_fused}")
@@ -2157,6 +2245,7 @@ def main(argv=None):
             res = base_solver.solve(eq.objective)
             torch.cuda.synchronize()
             base_s = time.perf_counter() - t_base0
+            base_project = _build.LAUNCHES["project"]
             r0 = unscale(to_host(res))
             entry = certify(cert_compiled, obj, r0.deltas, r0.lambdas, r0.prices,
                             psi_claimed=r0.psi)
@@ -2168,8 +2257,10 @@ def main(argv=None):
             torch.cuda.synchronize()
             t_end = time.perf_counter()
         return dict(res=r0, base_iters=int(res.iters), converged=bool(res.converged),
-                    base_s=base_s, entry=entry, out=out, chunks=dsolver.chunks,
-                    groups=[g["names"] for g in dsolver._groups], refine_s=t_end - t0,
+                    base_s=base_s, base_project=base_project,
+                    base_groups=len(base_solver._groups), entry=entry, out=out,
+                    chunks=dsolver.chunks, groups=[g["names"] for g in dsolver._groups],
+                    refine_s=t_end - t0,
                     wall_s=t_end - t_base0, launches=dict(_build.LAUNCHES))
 
     route_eager = certified_route("eager")
@@ -2178,7 +2269,8 @@ def main(argv=None):
     rd_log.removeHandler(chunk_log)
     for mode, r in (("eager", route_eager), ("replayed", rt)):
         log(f"# certified route ({mode}): base {r['base_iters']} classic iterations in "
-            f"{r['base_s']:.3f} s (converged {r['converged']}); refinement {r['out'].iters} "
+            f"{r['base_s']:.3f} s (converged {r['converged']}; {r['base_project']} project "
+            f"launches, one per K-group an iteration); refinement {r['out'].iters} "
             f"iterations ({r['chunks']} chunks) in {r['refine_s']:.3f} s; "
             f"{r['wall_s']:.3f} s from the base solve's start to the accepted certificate "
             f"(host clock; network set-up before it {setup_s:.3f} s)")
@@ -2209,8 +2301,11 @@ def main(argv=None):
     if launches5["project_delta"] != n_groups * rt["chunks"]:
         raise AssertionError(f"project_delta launches {launches5['project_delta']} != "
                              f"{n_groups} K-groups x {rt['chunks']} classic delta iterations")
-    missing = [k for k in ("project_gm", "project_cs", "project_delta", "segment_sum")
-               if launches5[k] == 0]
+    if rt["base_project"] != rt["base_groups"] * rt["base_iters"]:
+        raise AssertionError(f"the base made {rt['base_project']} project launches, not "
+                             f"{rt['base_groups']} K-groups x {rt['base_iters']} classic "
+                             "iterations")
+    missing = [k for k in ("project", "project_delta", "segment_sum") if launches5[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the certified route: {missing}")
     if fallbacks:

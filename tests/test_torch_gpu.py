@@ -12,11 +12,11 @@ delta), 2e-4 for a 20-step fused trajectory; y also gets rtol 1e-5.  The
 fused steps' y is the same fixed-order segment sum in the kernel path and
 the plain version, so with equal planes it is equal too.  The scenario-fold
 variants (``fold=``), the merged K-group step (``fused_step_merged``) and
-the grouped delta kernels (``fused_step_delta_grouped``,
-``project_delta_grouped``: one launch per group of buckets with the same
-K, one lane per slot up to K = 32, one thread per pool above) must equal
-their plain versions bit for bit, and a folded, merged or refined solve
-run twice must give bitwise-equal results.
+the grouped kernels (``project_grouped``, ``fused_step_grouped``,
+``fused_step_delta_grouped``, ``project_delta_grouped``: one launch per
+group of buckets with the same K, one lane per slot up to K = 32, one
+thread per pool above) must equal their plain versions bit for bit, and a
+folded, merged or refined solve run twice must give bitwise-equal results.
 """
 import numpy as np
 import pytest
@@ -35,6 +35,7 @@ from cfmm_routing_tpu_torch.ops.iteration_cuda import (
 from cfmm_routing_tpu_torch.ops.projection_cuda import (
     project_cs_cuda, project_cs_delta_cuda, project_delta_grouped,
     project_delta_grouped_plain, project_gm_cuda, project_gm_delta_cuda,
+    project_grouped, project_grouped_plain,
 )
 from cfmm_routing_tpu_torch.ops.projection_delta import (
     project_cs_delta, project_gm_delta,
@@ -88,6 +89,8 @@ def _state(compiled, dtype, device, seed):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_projection_kernels_match_plain(cuda_device, dtype):
+    """The per-bucket wrappers, each a grouped launch on a group of one:
+    bitwise equal to the plain version, one ``project`` launch a bucket."""
     table, _ = random_arbitrage_table(16, 600, seed=4)
     solver, s, v = _state(compile_table(table, pad_pools_to=128), dtype,
                           cuda_device, seed=1)
@@ -106,10 +109,8 @@ def test_projection_kernels_match_plain(cuda_device, dtype):
             want = plain.project_cs(sD, sL, *cs, cfg=CFG)
         torch.cuda.synchronize()
         for a, b in zip(got, want):
-            torch.testing.assert_close(a, b, atol=ATOL[dtype], rtol=0)
-    n_gm = sum(k == "gm" for k, _ in solver._meta.values())
-    assert _build.LAUNCHES["project_gm"] - before["project_gm"] == n_gm
-    assert _build.LAUNCHES["project_cs"] - before["project_cs"] == len(solver._meta) - n_gm
+            assert torch.equal(a, b), name
+    assert _build.LAUNCHES["project"] - before["project"] == len(solver._meta)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -670,6 +671,78 @@ def test_graph_replay_matches_eager_bitwise(cuda_device, dtype):
         again = _leaves(run())
         for a, b, c in zip(got, want, again):
             assert torch.equal(a.cpu(), b.cpu()) and torch.equal(c.cpu(), a.cpu()), name
+
+
+# ---- slice 7: the grouped base projection ------------------------------------
+
+def _check_project_grouped(solver, inputs):
+    """Each K-group through ``project_grouped`` (twice) against
+    ``project_grouped_plain``: bitwise.  Returns the number of groups."""
+    for g in solver._groups:
+        got = project_grouped(inputs, solver.buckets, g, cfg=CFG)
+        again = project_grouped(inputs, solver.buckets, g, cfg=CFG)
+        want = project_grouped_plain(inputs, solver.buckets, g, cfg=CFG)
+        torch.cuda.synchronize()
+        assert list(got) == list(want) == g["names"]
+        for name in g["names"]:
+            for i in range(2):
+                assert torch.equal(got[name][i], want[name][i]), (g["K"], name)
+                assert torch.equal(again[name][i], got[name][i]), (g["K"], name)
+    return len(solver._groups)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_grouped_projection_matches_plain_bitwise(cuda_device, dtype):
+    """K=2 (cs2f, gm2, gm2f) and K=4 (cs4f, gm4): one ``project`` launch
+    per group, bitwise equal to the plain grouped version and to itself."""
+    table, _ = random_arbitrage_table(16, 300, seed=4, reserve_scale=1.0)
+    solver, s, _ = _state(compile_table(table, pad_pools_to=128), dtype, cuda_device,
+                          seed=11)
+    assert [g["names"] for g in solver._groups] == [["cs2f", "gm2", "gm2f"],
+                                                    ["cs4f", "gm4"]]
+    _build.reset_launch_counts()
+    n = _check_project_grouped(solver, s)
+    assert _build.LAUNCHES["project"] == 2 * n
+
+
+@pytest.mark.parametrize("widths,pad_pow2", [((3, 5, 8, 16), False), ((40,), False)],
+                         ids=["K3-5-8-16", "K40"])
+def test_grouped_projection_any_k_bitwise(cuda_device, widths, pad_pow2):
+    """Lanes per slot at K = 3, 5 (idle lanes masked), 8 and 16, one thread
+    per pool at K = 40: the grouped projection bitwise equal to its plain
+    version in float32 and float64."""
+    spec, _ = mixed_width_arbitrage(widths=widths, n_assets=48 if 40 in widths else 16,
+                                    seed=2)
+    compiled = compile_spec(spec, pad_pow2=pad_pow2, pad_pools_to=128)
+    for dtype in (torch.float32, torch.float64):
+        solver, s, _ = _state(compiled, dtype, cuda_device, seed=12)
+        assert [g["K"] for g in solver._groups] == sorted(widths)
+        _check_project_grouped(solver, s)
+
+
+def test_classic_iteration_projects_once_per_k_group(cuda_device):
+    """A classic iteration makes one ``project`` launch per K-group, and its
+    trades equal the plain projection of the same inputs bit for bit."""
+    table, obj = random_arbitrage_table(16, 300, seed=4, reserve_scale=1.0)
+    solver = AdmmSolver(compile_table(table, pad_pools_to=128), device=cuda_device,
+                        options=AdmmOptions(projection=CFG))
+    c, lo, hi = solver._objective_arrays(obj)
+    z = {name: (0.1 * a["mask"], -0.2 * a["mask"]) for name, a in solver.buckets.items()}
+    nu = solver._t(np.linspace(-1.0, 1.0, solver.n))
+    _ = solver._groups  # built before the count
+    _build.reset_launch_counts()
+    _, _, _, w, _ = solver._iterate(z, nu, solver._t(1.0), c, lo, hi)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["project"] == len(solver._groups) == 2
+    inputs = {}
+    for name in solver.buckets:
+        nu_e = solver._bcast_nu(nu, name)
+        inputs[name] = (z[name][0] - nu_e, z[name][1] + nu_e)
+    for g in solver._groups:
+        want = project_grouped_plain(inputs, solver.buckets, g, cfg=CFG)
+        for name in g["names"]:
+            for i in range(2):
+                assert torch.equal(w[name][i], want[name][i]), name
 
 
 def test_failed_capture_raises(cuda_device):

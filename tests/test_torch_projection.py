@@ -104,7 +104,7 @@ def test_wrappers_run_plain_version_on_cpu_tensors():
     for a, b in zip(project_cs_cuda(*cs, cfg=CFG), port_proj.project_cs(*cs, cfg=CFG)):
         assert torch.equal(a, b)
     assert set(_build.LAUNCHES) == {
-        "project_gm", "project_cs", "project_delta",
+        "project", "project_delta",
         "fused_step", "fused_step_delta", "fused_step_fold",
         "fused_step_delta_fold", "fused_step_merged", "segment_sum"}
     assert all(n == 0 for n in _build.LAUNCHES.values())
