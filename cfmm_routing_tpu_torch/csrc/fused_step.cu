@@ -30,13 +30,13 @@
 //   same fixed-trip root-find, so the planes are bitwise equal to the plain
 //   version's.  K > 32 keeps one thread per pool (project_pool, run-time K).
 // * One launch per K-group: a by-value (__grid_constant__) table of bucket
-//   descriptors (planes, m, kind, fold_m / fold_n, first block), built on
-//   the host from arrays of pointers; a block finds its bucket from
-//   blockIdx.x and switches on its kind, uniform within the block.  Each
-//   bucket writes its consensus terms into its slice of the group's
-//   buffer, which one segment sum reduces over the group's slot order.
-//   The 100k network's five buckets take two launches and two segment
-//   sums (K = 2, K = 4), folded or not.
+//   descriptors (planes, m, kind, fold_m / fold_n, plane stride ld, first
+//   block), built on the host from arrays of pointers; a block finds its
+//   bucket from blockIdx.x and switches on its kind, uniform within the
+//   block.  Each bucket writes its consensus terms into its slice of the
+//   group's buffer, which one segment sum reduces over the group's slot
+//   order.  The 100k network's five buckets take two launches and two
+//   segment sums (K = 2, K = 4), folded or not.
 //
 // Folded (fold_m > 0): the bucket holds T scenario points one after another
 // on the pool axis, fold_m pools each (a multiple of 128, so no block
@@ -46,12 +46,16 @@
 // T is.  An id outside the block's point (a padding slot) reads 0 before
 // the mask; the folded ids and the segment sum keep the points apart.
 //
-// Merged (cfmm_fused_step_merged): one launch covers every bucket of one
-// channel count K concatenated on the pool axis, one thread per pool; an
-// int32 class per 128-pool block (0 gm, 1 floored gm, 2 cs), built on the
-// host from the bucket boundaries, selects the block's projection.  The
-// TPU kernel's scalar-prefetched tile table, 8-row tile rule and one-hot
-// exchange have no counterpart here.
+// Merged (cfmm_fused_step_merged): every bucket of one channel count K laid
+// end to end on one pool axis, (K, M) planes.  The launch is the grouped
+// kernel over one descriptor per class span (a run of pools of one kind,
+// starting at a multiple of 128 pools): the span's pointers are the merged
+// planes advanced by its first pool, its m the span's pool count and its
+// plane stride ld = M, so slot (c, i) of the span is element c * M + i of
+// the merged plane.  Its outputs go into the group's own (K, M) planes,
+// which the group's segment sum reduces.  The TPU kernel's scalar-prefetched
+// tile table and 8-row tile rule have no counterpart here; the class of each
+// pool is read on the host, once per group.
 #include "projection.cuh"
 
 namespace {
@@ -60,7 +64,7 @@ constexpr int kThreads = 128;
 
 constexpr int kMaxBuckets = 8;
 constexpr int kPtrs = 15;  // pointers per bucket in the C interface
-constexpr int kDims = 4;   // ints per bucket: m, kind, fold_m, fold_n
+constexpr int kDims = 5;   // ints per bucket: m, kind, fold_m, fold_n, ld
 
 template <typename T> struct Bucket {
   const T* sD;
@@ -78,7 +82,7 @@ template <typename T> struct Bucket {
   T* D;
   T* L;
   T* val;
-  int m, kind, fold_m, fold_n, first_block;
+  int m, kind, fold_m, fold_n, ld, first_block;  // slot (c, i): c * ld + i
 };
 
 template <typename T> struct Table {
@@ -129,20 +133,20 @@ __device__ __forceinline__ void run_block(const Bucket<T>& d, const T* v_sh,
     if (i >= d.m) return;
     auto load = [&](int c) {
       T sd, sl;
-      return load_slot(d, v_sh, base, n_sh, (size_t)c * d.m + i, sd, sl);
+      return load_slot(d, v_sh, base, n_sh, (size_t)c * d.ld + i, sd, sl);
     };
     auto store = [&](int c, T D, T L) {
-      const size_t e = (size_t)c * d.m + i;
+      const size_t e = (size_t)c * d.ld + i;
       store_slot(d, e, alpha, beta, d.sD[e], d.sL[e], D, L);
     };
-    cfmm::project_pool<T, 0, KIND>(load, K, d.gamma[i], d.logk0[i], d.k0[i],
-                                   n_bisect, n_total, store);
+    cfmm::project_pool<T, KIND>(load, K, d.gamma[i], d.logk0[i], d.k0[i],
+                                n_bisect, n_total, store);
   } else {
     const int i = first + (int)threadIdx.x / LANES;
     const int c = (int)threadIdx.x % LANES;
     const bool pool = i < d.m;
     const bool live = pool && c < K;
-    const size_t e = (size_t)c * d.m + i;
+    const size_t e = (size_t)c * d.ld + i;
     cfmm::SlotIn<T> in = cfmm::idle_in<T>();
     T sd = T(0), sl = T(0);
     if (live) in = load_slot(d, v_sh, base, n_sh, e, sd, sl);
@@ -186,40 +190,40 @@ grouped_kernel(const __grid_constant__ Table<T> tab, const T* __restrict__ v,
   }
 }
 
+// Point descriptor b at 15 device pointers (sD sL asset R w s mask gamma
+// logk0 k0, then the outputs sDn sLn D L val), each advanced by off
+// elements.
+template <typename T>
+void set_pointers(Bucket<T>& b, const void* const* p, size_t off) {
+  b.sD = (const T*)p[0] + off;
+  b.sL = (const T*)p[1] + off;
+  b.asset = (const int*)p[2] + off;
+  b.R = (const T*)p[3] + off;
+  b.w = (const T*)p[4] + off;
+  b.s = (const T*)p[5] + off;
+  b.mask = (const T*)p[6] + off;
+  b.gamma = (const T*)p[7] + off;
+  b.logk0 = (const T*)p[8] + off;
+  b.k0 = (const T*)p[9] + off;
+  b.sDn = (T*)p[10] + off;
+  b.sLn = (T*)p[11] + off;
+  b.D = (T*)p[12] + off;
+  b.L = (T*)p[13] + off;
+  b.val = (T*)p[14] + off;
+}
+
+// Check the table's descriptors, number their blocks and launch.
 template <typename T, int LANES>
-int launch_grouped(int K, int nb, int n_pad, double alpha, double beta,
-                   const int* dims, const void* const* ptrs, const void* v,
-                   int n_bisect, int n_total, cudaStream_t st) {
+int launch_table(Table<T>& tab, int K, int n_pad, double alpha, double beta,
+                 const void* v, int n_bisect, int n_total, cudaStream_t st) {
   constexpr int kPools = LANES > 0 ? kThreads / LANES : kThreads;
   static cfmm::SmemGuard smem_guard;
-  Table<T> tab = {};
-  tab.n = nb;
   int blocks = 0;
   int n_sh = 0;
-  for (int j = 0; j < nb; ++j) {
+  for (int j = 0; j < tab.n; ++j) {
     Bucket<T>& b = tab.b[j];
-    const void* const* p = ptrs + (size_t)kPtrs * j;
-    b.sD = (const T*)p[0];
-    b.sL = (const T*)p[1];
-    b.asset = (const int*)p[2];
-    b.R = (const T*)p[3];
-    b.w = (const T*)p[4];
-    b.s = (const T*)p[5];
-    b.mask = (const T*)p[6];
-    b.gamma = (const T*)p[7];
-    b.logk0 = (const T*)p[8];
-    b.k0 = (const T*)p[9];
-    b.sDn = (T*)p[10];
-    b.sLn = (T*)p[11];
-    b.D = (T*)p[12];
-    b.L = (T*)p[13];
-    b.val = (T*)p[14];
-    const int* dm = dims + kDims * j;
-    b.m = dm[0];
-    b.kind = dm[1];
-    b.fold_m = dm[2];
-    b.fold_n = dm[3];
-    if (b.m < 0 || b.kind < 0 || b.kind > 2) return (int)cudaErrorInvalidValue;
+    if (b.m < 0 || b.ld < b.m || b.kind < 0 || b.kind > 2)
+      return (int)cudaErrorInvalidValue;
     if (b.fold_m > 0 &&
         (b.fold_m % kThreads != 0 || b.m % b.fold_m != 0 ||
          (size_t)(b.m / b.fold_m) * b.fold_n > (size_t)n_pad))
@@ -238,89 +242,64 @@ int launch_grouped(int K, int nb, int n_pad, double alpha, double beta,
   return (int)cudaGetLastError();
 }
 
-// The merged step's pool i (one thread per pool, the pool's K prepared
-// slots in registers for K in {2, 4, 8, 16}).
-template <typename T, int KC, int KIND>
-__device__ __forceinline__ void fused_pool(
-    int i, const T* __restrict__ sD, const T* __restrict__ sL,
-    const int* __restrict__ asset, const T* __restrict__ R,
-    const T* __restrict__ w, const T* __restrict__ s,
-    const T* __restrict__ mask, const T* __restrict__ gamma,
-    const T* __restrict__ logk0, const T* __restrict__ k0, const T* v_sh,
-    T alpha, T beta, T* __restrict__ sDn, T* __restrict__ sLn,
-    T* __restrict__ Dout, T* __restrict__ Lout, T* __restrict__ val, int K,
-    int m, int n_pad, int n_bisect, int n_total) {
-  auto load = [&](int c) {
-    const size_t e = (size_t)c * m + i;
-    cfmm::SlotIn<T> in;
-    in.mask = mask[e];
-    const int id = asset[e];
-    const T ve = (id >= 0 && id < n_pad ? v_sh[id] : T(0)) * in.mask;
-    in.p = sD[e] + ve;
-    in.q = sL[e] - ve;
-    in.R = R[e];
-    in.w = w[e];
-    in.s = s[e];
-    return in;
-  };
-  auto store = [&](int c, T D, T L) {
-    const size_t e = (size_t)c * m + i;
-    const T sd = sD[e];
-    const T sl = sL[e];
-    sDn[e] = alpha * D + beta * sd;
-    sLn[e] = alpha * L + beta * sl;
-    Dout[e] = D;
-    Lout[e] = L;
-    val[e] = alpha * (L - D) + beta * (sl - sd);
-  };
-  cfmm::project_pool<T, KC, KIND>(load, K, gamma[i], logk0[i], k0[i],
-                                  n_bisect, n_total, store);
+template <typename T, int LANES>
+int launch_grouped(int K, int nb, int n_pad, double alpha, double beta,
+                   const int* dims, const void* const* ptrs, const void* v,
+                   int n_bisect, int n_total, cudaStream_t st) {
+  Table<T> tab = {};
+  tab.n = nb;
+  for (int j = 0; j < nb; ++j) {
+    Bucket<T>& b = tab.b[j];
+    set_pointers(b, ptrs + (size_t)kPtrs * j, 0);
+    const int* dm = dims + kDims * j;
+    b.m = dm[0];
+    b.kind = dm[1];
+    b.fold_m = dm[2];
+    b.fold_n = dm[3];
+    b.ld = dm[4];
+  }
+  return launch_table<T, LANES>(tab, K, n_pad, alpha, beta, v, n_bisect,
+                                n_total, st);
 }
 
-// The merged step: block b projects with the kind cls[b] (2 and any other
-// value: constant sum; the solver builds the table from the bucket kinds).
-template <typename T, int KC>
-__global__ void __launch_bounds__(kThreads)
-merged_kernel(const int* __restrict__ cls, const T* __restrict__ sD,
-              const T* __restrict__ sL, const int* __restrict__ asset,
-              const T* __restrict__ R, const T* __restrict__ w,
-              const T* __restrict__ s, const T* __restrict__ mask,
-              const T* __restrict__ gamma, const T* __restrict__ logk0,
-              const T* __restrict__ k0, const T* __restrict__ v, int n_pad,
-              T alpha, T beta, T* __restrict__ sDn, T* __restrict__ sLn,
-              T* __restrict__ Dout, T* __restrict__ Lout, T* __restrict__ val,
-              int K, int m, int n_bisect, int n_total) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* v_sh = reinterpret_cast<T*>(smem_raw);
-  for (int j = threadIdx.x; j < n_pad; j += blockDim.x) v_sh[j] = v[j];
-  __syncthreads();
-
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= m) return;
-#define CFMM_MERGED_POOL(KD)                                                   \
-  fused_pool<T, KC, KD>(i, sD, sL, asset, R, w, s, mask, gamma, logk0, k0,     \
-                        v_sh, alpha, beta, sDn, sLn, Dout, Lout, val, K, m,     \
-                        n_pad, n_bisect, n_total)
-  switch (cls[blockIdx.x]) {
-    case cfmm::KIND_GM: CFMM_MERGED_POOL(cfmm::KIND_GM); break;
-    case cfmm::KIND_GM_FLOOR: CFMM_MERGED_POOL(cfmm::KIND_GM_FLOOR); break;
-    default: CFMM_MERGED_POOL(cfmm::KIND_CS); break;
+// One descriptor per class span of a merged group of M pools: the spans
+// must tile [0, M) in order, each starting at a multiple of 128 pools.
+template <typename T, int LANES>
+int launch_merged(int K, int M, int ns, int n_pad, double alpha, double beta,
+                  const int* spans, const void* const* ptrs, const void* v,
+                  int n_bisect, int n_total, cudaStream_t st) {
+  Table<T> tab = {};
+  tab.n = ns;
+  int next = 0;
+  for (int j = 0; j < ns; ++j) {
+    const int start = spans[3 * j], stop = spans[3 * j + 1];
+    if (start != next || start % kThreads != 0 || stop <= start || stop > M)
+      return (int)cudaErrorInvalidValue;
+    Bucket<T>& b = tab.b[j];
+    set_pointers(b, ptrs, (size_t)start);
+    b.m = stop - start;
+    b.kind = spans[3 * j + 2];
+    b.ld = M;
+    next = stop;
   }
-#undef CFMM_MERGED_POOL
+  if (next != M) return (int)cudaErrorInvalidValue;
+  return launch_table<T, LANES>(tab, K, n_pad, alpha, beta, v, n_bisect,
+                                n_total, st);
 }
 
 }  // namespace
 
 // One fused half-iteration over nb <= 8 buckets of K slots each, in one
-// launch.  dims: nb x (m, kind, fold_m, fold_n) ints (kind 0 geo-mean, 1
-// geo-mean with reserve floor, 2 constant sum; fold_m / fold_n: pools and
+// launch.  dims: nb x (m, kind, fold_m, fold_n, ld) ints (kind 0 geo-mean,
+// 1 geo-mean with reserve floor, 2 constant sum; fold_m / fold_n: pools and
 // prices per scenario point of a folded bucket, fold_m a multiple of 128
-// dividing m and (m / fold_m) * fold_n <= n_pad, or 0 / 0 unfolded).
-// ptrs: nb x 15 device pointers (sD sL asset R w s mask gamma logk0 k0,
-// then the outputs sDn sLn D L val), planes contiguous (K, m), gamma,
-// logk0 and k0 (m,), asset int32 ids in [0, n_pad).  v: (n_pad,) price
-// vector.  alpha and beta = 1 - alpha are passed separately so the card
-// and the plain version use the same rounded coefficients.  dtype: 0
+// dividing m and (m / fold_m) * fold_n <= n_pad, or 0 / 0 unfolded; ld >= m
+// the plane stride, m for a bucket's own planes).  ptrs: nb x 15 device
+// pointers (sD sL asset R w s mask gamma logk0 k0, then the outputs sDn sLn
+// D L val), planes (K, ld) of which the first m columns are the bucket's,
+// gamma, logk0 and k0 (m,), asset int32 ids in [0, n_pad).  v: (n_pad,)
+// price vector.  alpha and beta = 1 - alpha are passed separately so the
+// card and the plain version use the same rounded coefficients.  dtype: 0
 // float, 1 double.  Returns the launch's cudaError_t.
 extern "C" int cfmm_fused_step(int dtype, int K, int nb, int n_pad,
                                double alpha, double beta, const int* dims,
@@ -336,53 +315,24 @@ extern "C" int cfmm_fused_step(int dtype, int K, int nb, int n_pad,
 #undef CFMM_LAUNCH_GROUPED
 }
 
-// One merged fused half-iteration over a K-group of m pools (m a multiple
-// of 128): cls holds one int32 class per 128-pool block (0 gm, 1 floored gm,
-// 2 cs); the other arguments as in cfmm_fused_step, unfolded.  Returns the
-// launch's cudaError_t.
-extern "C" int cfmm_fused_step_merged(int dtype, int K, int m, int n_pad,
-                                      double alpha, double beta,
-                                      const void* cls, const void* sD,
-                                      const void* sL, const void* asset,
-                                      const void* R, const void* w,
-                                      const void* s, const void* mask,
-                                      const void* gamma, const void* logk0,
-                                      const void* k0, const void* v,
-                                      void* sDn, void* sLn, void* D, void* L,
-                                      void* val, int n_bisect, int n_polish,
+// One merged fused half-iteration over a K-group of M pools, in one launch
+// of the grouped kernel.  spans: ns <= 8 x (start, stop, kind) ints, the
+// group's runs of one kind in order, tiling [0, M), each start a multiple
+// of 128.  ptrs: the 15 pointers of cfmm_fused_step for the whole group,
+// planes (K, M), gamma, logk0 and k0 (M,).  The other arguments as in
+// cfmm_fused_step, unfolded.  Returns the launch's cudaError_t.
+extern "C" int cfmm_fused_step_merged(int dtype, int K, int M, int ns,
+                                      int n_pad, double alpha, double beta,
+                                      const int* spans,
+                                      const void* const* ptrs, const void* v,
+                                      int n_bisect, int n_polish,
                                       void* stream) {
-  if (m <= 0) return 0;
-  if (m % kThreads != 0 || K < 1) return (int)cudaErrorInvalidValue;
-  const dim3 grid(m / kThreads);
+  if (ns < 1 || ns > kMaxBuckets) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaSuccess;
-#define CFMM_LAUNCH_MERGED(TT, KK)                                             \
-  {                                                                            \
-    static cfmm::SmemGuard smem_guard;                                         \
-    const size_t smem = (size_t)n_pad * sizeof(TT);                            \
-    err = smem_guard.allow(merged_kernel<TT, KK>, smem);                       \
-    if (err != cudaSuccess) return (int)err;                                   \
-    merged_kernel<TT, KK><<<grid, kThreads, smem, st>>>(                       \
-        (const int*)cls, (const TT*)sD, (const TT*)sL, (const int*)asset,      \
-        (const TT*)R, (const TT*)w, (const TT*)s, (const TT*)mask,             \
-        (const TT*)gamma, (const TT*)logk0, (const TT*)k0, (const TT*)v,       \
-        n_pad, (TT)alpha, (TT)beta, (TT*)sDn, (TT*)sLn, (TT*)D, (TT*)L,        \
-        (TT*)val, K, m, n_bisect, n_bisect + n_polish);                        \
-  }
-#define CFMM_MERGED_K(TT)                                                      \
-  switch (K) {                                                                 \
-    case 2: CFMM_LAUNCH_MERGED(TT, 2); break;                                  \
-    case 4: CFMM_LAUNCH_MERGED(TT, 4); break;                                  \
-    case 8: CFMM_LAUNCH_MERGED(TT, 8); break;                                  \
-    case 16: CFMM_LAUNCH_MERGED(TT, 16); break;                                \
-    default: CFMM_LAUNCH_MERGED(TT, 0); break;                                 \
-  }
-  switch (dtype) {
-    case 0: CFMM_MERGED_K(float); break;
-    case 1: CFMM_MERGED_K(double); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef CFMM_MERGED_K
+  const int n_total = n_bisect + n_polish;
+#define CFMM_LAUNCH_MERGED(TT, LL)                                         \
+  launch_merged<TT, LL>(K, M, ns, n_pad, alpha, beta, spans, ptrs, v,     \
+                        n_bisect, n_total, st)
+  CFMM_DISPATCH_LANES(dtype, K, CFMM_LAUNCH_MERGED)
 #undef CFMM_LAUNCH_MERGED
-  return (int)cudaGetLastError();
 }

@@ -86,8 +86,8 @@ __device__ __forceinline__ void run_block(const Bucket<T>& d, int first, int K,
       d.L[e] = L;
     };
     const T lk = KIND == cfmm::KIND_CS ? T(0) : d.logk0[i];
-    cfmm::project_pool<T, 0, KIND>(load, K, d.gamma[i], lk, d.k0[i], n_bisect,
-                                   n_total, store);
+    cfmm::project_pool<T, KIND>(load, K, d.gamma[i], lk, d.k0[i], n_bisect,
+                                n_total, store);
   } else {
     const int i = first + (int)threadIdx.x / LANES;
     const int c = (int)threadIdx.x % LANES;

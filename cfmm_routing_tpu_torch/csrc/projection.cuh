@@ -16,16 +16,13 @@
 //     terms by shuffles in slot order, so a thread keeps one prepared slot
 //     (15 values) instead of K;
 //   * project_pool: a thread owns one pool, so loads of one slot plane are
-//     coalesced across the warp.  The merged fused step runs it, and the
-//     grouped kernels above K = 32.  KC in {2, 4, 8, 16} (a template
-//     constant) keeps the pool's K prepared slots in registers for the
-//     whole root-find; KC == 0 (any K, given at run time) walks the slots
-//     again at every evaluation of h(mu), reading them from global memory
-//     (L1/L2-resident after the first pass) and recomputing their mu-free
-//     terms, with the same values.  A kernel hands project_pool a loader
-//     load(c) -> SlotIn (the slot's raw inputs) and a store(c, D, L)
-//     callback, so the fused step can gather its input and write its
-//     outputs in place.
+//     coalesced across the warp; the grouped kernels run it above K = 32
+//     (K given at run time).  Every evaluation of h(mu) walks the pool's
+//     slots again, reading them from global memory (L1/L2-resident after
+//     the first pass) and recomputing their mu-free terms.  A kernel hands
+//     project_pool a loader load(c) -> SlotIn (the slot's raw inputs) and a
+//     store(c, D, L) callback, so the fused step can gather its input and
+//     write its outputs in place.
 //
 // Bound: compute.  Each pool evaluates h(mu) n_bisect + n_polish + 2 times;
 // every evaluation costs per slot a square root, a logarithm (geo-mean) or a
@@ -248,36 +245,24 @@ __device__ __forceinline__ T root_find(const H& h_of_mu, T mu_hi, T target,
   return feasible0 ? T(0) : hi;
 }
 
-// Slot access for the two instantiations: KC > 0 keeps the prepared slots
-// in a register array; KC == 0 re-reads and re-prepares slot c on demand.
-template <typename S, int KC> struct SlotCache {
-  S reg[KC > 0 ? KC : 1];
-};
-
-// Project one pool's (p, q) onto its trading set.  load(c) returns slot c's
-// SlotIn; store(c, D, L) receives the projected trades.  k is the slot
-// count when KC == 0 (ignored otherwise).
-template <typename T, int KC, int KIND, class Load, class Store>
-__device__ __forceinline__ void project_pool(const Load& load, int k, T g,
+// Project one pool's K slots (p, q) onto its trading set.  load(c) returns
+// slot c's SlotIn, and is called again at every evaluation of h(mu);
+// store(c, D, L) receives the projected trades.
+template <typename T, int KIND, class Load, class Store>
+__device__ __forceinline__ void project_pool(const Load& load, int K, T g,
                                              T logk0, T k0, int n_bisect,
                                              int n_total, const Store& store) {
-  const int K = KC > 0 ? KC : k;
   if constexpr (KIND == KIND_CS) {
-    SlotCache<CsSlot<T>, KC> cache;
     T mu_hi = T(0);
 #pragma unroll
     for (int c = 0; c < K; ++c) {
       const SlotIn<T> in = load(c);
-      if constexpr (KC > 0) cache.reg[c] = cs_prep(in, g);
       const T w_safe = in.mask > T(0) ? in.w : T(1);
       const T cand = relu(in.q) * in.mask / w_safe;
       mu_hi = c == 0 ? cand : tmax(mu_hi, cand);
     }
     mu_hi = mu_hi + T(1);
-    auto get = [&](int c) -> CsSlot<T> {
-      if constexpr (KC > 0) return cache.reg[c];
-      else return cs_prep(load(c), g);
-    };
+    auto get = [&](int c) { return cs_prep(load(c), g); };
     auto h_of_mu = [&](T mu) {
       T h = T(0);
 #pragma unroll
@@ -299,12 +284,10 @@ __device__ __forceinline__ void project_pool(const Load& load, int k, T g,
     }
   } else {
     constexpr bool FLOOR = KIND == KIND_GM_FLOOR;
-    SlotCache<GmSlot<T>, KC> cache;
     T mu_hi = T(0);
 #pragma unroll
     for (int c = 0; c < K; ++c) {
       const SlotIn<T> in = load(c);
-      if constexpr (KC > 0) cache.reg[c] = gm_prep(in, g, FLOOR);
       const T Rp = in.R + in.s;
       const T qp = relu(in.q) + T(1e-3);
       const T need_t = tmax(T(2) * qp * (Rp + g * relu(in.p)),
@@ -316,10 +299,7 @@ __device__ __forceinline__ void project_pool(const Load& load, int k, T g,
       mu_hi = c == 0 ? cand : tmax(mu_hi, cand);
     }
     mu_hi = T(4) * mu_hi + T(1);
-    auto get = [&](int c) -> GmSlot<T> {
-      if constexpr (KC > 0) return cache.reg[c];
-      else return gm_prep(load(c), g, FLOOR);
-    };
+    auto get = [&](int c) { return gm_prep(load(c), g, FLOOR); };
     auto h_of_mu = [&](T mu) {
       T h = T(0);
 #pragma unroll

@@ -60,7 +60,7 @@ _LIBS = {
     "fused_step": (
         "fused_step.cu",
         {"cfmm_fused_step": [_C] * 4 + [_D, _D] + [_P] * 3 + [_C, _C, _P],
-         "cfmm_fused_step_merged": [_C] * 4 + [_D, _D] + [_P] * 17
+         "cfmm_fused_step_merged": [_C] * 5 + [_D, _D] + [_P] * 3
                                    + [_C, _C, _P]},
     ),
     "fused_step_delta": (

@@ -34,10 +34,12 @@ the group's own slot order; :func:`fused_step_delta` is a group of one.
 
 :func:`fused_step_merged` runs the base step on one merged K-group
 (``AdmmSolver._merged_groups``): every bucket with the same channel count
-K on one concatenated pool axis, with an int32 class per 128-pool block
-(0 gm, 1 floored gm, 2 cs) that selects the block's projection.  One launch
-per K-group instead of one per bucket; the group carries its own fixed slot
-order for the segment sum.
+K on one concatenated pool axis, (K, M) planes.  It is the grouped kernel
+over one descriptor per class span of the group (a run of pools of one
+kind, computed once on the host when the group is built): the span's
+planes are the merged planes from its first pool on, with plane stride M.
+One launch per K-group; the group carries its own fixed slot order for the
+segment sum.
 
 :func:`fused_step_grouped` runs the base step on a group of buckets with the
 same channel count K in one launch (one lane per slot) and one segment sum
@@ -70,7 +72,7 @@ import torch
 from . import _build
 from .projection import ProjectionConfig, project_cs, project_gm
 from .projection_cuda import (
-    _KIND, _check_group, _check_like, check_cuda_args, dtype_code,
+    _KIND, MAX_GROUP, _check_group, _check_like, check_cuda_args, dtype_code,
     group_outputs, launch_table,
 )
 from .projection_delta import project_cs_delta, project_gm_delta
@@ -80,7 +82,7 @@ __all__ = ["fused_step", "fused_step_plain", "fused_step_grouped",
            "fused_step_grouped_plain", "fused_step_delta",
            "fused_step_delta_plain", "fused_step_delta_grouped",
            "fused_step_delta_grouped_plain", "fused_step_merged",
-           "fused_step_merged_plain"]
+           "fused_step_merged_plain", "class_spans"]
 
 _CLASS_KIND = {code: kind for kind, code in _KIND.items()}  # 2 -> ("cs", False)
 
@@ -255,7 +257,7 @@ def fused_step_grouped(s, v, buckets, group, alpha: float,
                                         arrs["k0"]), "fused_step")
         _check_like(sD, ref, "fused_step")
         _check_ids_and_v(sD, v, arrs, "fused_step")
-        dims += [m, _KIND[(kind, bool(floor))], *_fold_args(m, fold)]
+        dims += [m, _KIND[(kind, bool(floor))], *_fold_args(m, fold), m]
         sizes.append((K, m))
         args.append((sD, sL, arrs["asset"], arrs["R"], arrs["w"], arrs["s"],
                      arrs["mask"], arrs["gamma"], arrs["logk0"], arrs["k0"]))
@@ -287,10 +289,11 @@ def fused_step(sD, sL, v, arrs, kind, needs_floor, alpha: float,
     return (*s_new["bucket"], *w["bucket"], y)
 
 
-def _class_spans(cls):
+def class_spans(cls):
     """[(start_pool, stop_pool, kind, needs_floor)] of the runs of equal
-    class in a merged group's per-128-pool-block class table."""
-    codes = cls.cpu().tolist()
+    class in a merged group's per-128-pool-block class table ``cls`` (a
+    host sequence of ints: 0 gm, 1 floored gm, 2 cs)."""
+    codes = [int(x) for x in cls]
     spans = []
     start = 0
     for i in range(1, len(codes) + 1):
@@ -300,26 +303,31 @@ def _class_spans(cls):
     return spans
 
 
-def _check_classes(cls, m, what):
-    if (cls.dtype != torch.int32 or cls.dim() != 1 or 128 * cls.numel() != m
-            or not cls.is_contiguous()):
-        raise ValueError(f"{what}: the class table must be a contiguous int32 "
-                         f"vector of one entry per 128 pools ({m} pools)")
+def _check_spans(g, m, what):
+    """The merged group's class spans, or raise unless they tile [0, m) in
+    order, each starting at a multiple of 128 pools."""
+    spans = g["spans"]
+    stops = [0] + [b for _, b, _, _ in spans]
+    if (not spans or stops[-1] != m
+            or any(a != prev or a % 128 != 0 or b <= a
+                   for (a, b, _, _), prev in zip(spans, stops))):
+        raise ValueError(f"{what}: the class spans {spans} do not tile the "
+                         f"group's {m} pools from multiples of 128")
+    return spans
 
 
 def fused_step_merged_plain(sD, sL, v, g, alpha: float,
                             cfg: ProjectionConfig = ProjectionConfig()):
     """The merged fused half-iteration in plain PyTorch, on any device: the
-    gather, the plain projection of each run of equal class, and the update
-    with the group's fixed-order segment sum.  Returns (sD', sL', D, L,
+    gather, the plain projection of each class span, and the update with the
+    group's fixed-order segment sum.  Returns (sD', sL', D, L,
     y(n_pad,))."""
     K, m = sD.shape
-    _check_classes(g["cls"], m, "fused_step_merged")
     ve = _gather(v, g, K, m)
     p = sD + ve
     q = sL - ve
     Ds, Ls = [], []
-    for a, b, kind, floor in _class_spans(g["cls"]):
+    for a, b, kind, floor in _check_spans(g, m, "fused_step_merged"):
         sl = {k: g[k][..., a:b] for k in ("R", "w", "s", "mask", "gamma",
                                            "logk0", "k0")}
         if kind == "gm":
@@ -337,45 +345,43 @@ def fused_step_merged_plain(sD, sL, v, g, alpha: float,
 
 def fused_step_merged(sD, sL, v, g, alpha: float,
                       cfg: ProjectionConfig = ProjectionConfig()):
-    """One fused half-iteration for one merged K-group, one launch.
+    """One fused half-iteration for one merged K-group: one launch of the
+    grouped kernel over the group's class spans (module docstring), and one
+    segment sum.
 
     sD/sL: (K, M) merged state planes;  v: (n_pad,) combined broadcast
     vector;  g: the group's arrays from ``AdmmSolver._merged_groups``
-    (concatenated planes, the class table ``cls``, the group's slot order).
-    Returns (sD', sL', D, L, y(n_pad,))."""
+    (concatenated planes, the class spans ``spans``, at most
+    ``MAX_GROUP``, the group's slot order).  Returns (sD', sL', D, L,
+    y(n_pad,))."""
     if sD.device.type == "cpu":
         return fused_step_merged_plain(sD, sL, v, g, alpha, cfg)
     planes = (sD, sL, g["R"], g["w"], g["s"], g["mask"])
     K, m = check_cuda_args(planes, (g["gamma"], g["logk0"], g["k0"]),
                            "fused_step_merged")
     _check_ids_and_v(sD, v, g, "fused_step_merged")
-    cls = g["cls"]
-    _check_classes(cls, m, "fused_step_merged")
-    if cls.device != sD.device:
-        raise ValueError(f"fused_step_merged: the class table is on {cls.device}")
+    spans = _check_spans(g, m, "fused_step_merged")
+    if len(spans) > MAX_GROUP:
+        raise ValueError(f"fused_step_merged: {len(spans)} class spans, more "
+                         f"than the kernel's table of {MAX_GROUP}")
     n_pad = v.shape[0]
-    sDn = torch.empty_like(sD)
-    sLn = torch.empty_like(sD)
-    D = torch.empty_like(sD)
-    L = torch.empty_like(sD)
-    val = torch.empty_like(sD)
+    out = torch.empty((5, K, m), dtype=sD.dtype, device=sD.device)
+    ins = (sD, sL, g["asset"], g["R"], g["w"], g["s"], g["mask"], g["gamma"],
+           g["logk0"], g["k0"])
+    c_spans, c_ptrs = launch_table(
+        [x for a, b, kind, floor in spans for x in (a, b, _KIND[(kind, floor)])],
+        [t.data_ptr() for t in ins] + [o.data_ptr() for o in out])
     a = float(alpha)
-    lib = _build.library("fused_step")
+    entry = _build.library("fused_step").cfmm_fused_step_merged
     with torch.cuda.device(sD.device):
         stream = torch.cuda.current_stream(sD.device).cuda_stream
-        rc = lib.cfmm_fused_step_merged(
-            dtype_code(sD.dtype), K, m, n_pad, a, 1.0 - a, cls.data_ptr(),
-            sD.data_ptr(), sL.data_ptr(), g["asset"].data_ptr(),
-            g["R"].data_ptr(), g["w"].data_ptr(), g["s"].data_ptr(),
-            g["mask"].data_ptr(), g["gamma"].data_ptr(), g["logk0"].data_ptr(),
-            g["k0"].data_ptr(), v.data_ptr(), sDn.data_ptr(), sLn.data_ptr(),
-            D.data_ptr(), L.data_ptr(), val.data_ptr(), int(cfg.n_bisect),
-            int(cfg.n_polish), stream,
-        )
+        rc = entry(dtype_code(sD.dtype), K, m, len(spans), n_pad, a, 1.0 - a,
+                   c_spans, c_ptrs, v.data_ptr(), int(cfg.n_bisect),
+                   int(cfg.n_polish), stream)
     _build.check_launch(rc, "fused_step_merged")
     _build.LAUNCHES["fused_step_merged"] += 1
-    y = segment_sum(val, g["order"], g["seg"], n_pad)
-    return sDn, sLn, D, L, y
+    y = segment_sum(out[4], g["order"], g["seg"], n_pad)
+    return out[0], out[1], out[2], out[3], y
 
 
 def _fold_args(m, fold):

@@ -71,7 +71,9 @@ import torch
 
 from .._device import host, resolve_device
 from ..models.utility import ConcaveUtility, Objective
-from ..ops.iteration_cuda import fused_step_grouped, fused_step_merged
+from ..ops.iteration_cuda import (
+    class_spans, fused_step_grouped, fused_step_merged,
+)
 from ..ops.projection import ProjectionConfig
 from ..ops.projection_cuda import _KIND, MAX_GROUP, project_grouped
 from ..ops.prox import psi_prox, utility_prox, utility_value
@@ -508,10 +510,13 @@ class AdmmSolver:
         sorted-name order inside a group (the JAX package's order, so the
         merged state is the same concatenation).  A group holds its
         concatenated planes (R w s mask asset gamma logk0 k0), ``cls``: the
-        int32 class of every 128-pool block (0 gm, 1 floored gm, 2 cs) that
-        ``fused_step_merged`` dispatches on, and its own fixed slot order
-        (``order``/``seg``) over the concatenated planes.  Built once and
-        cached; every bucket's pool count must be a multiple of 128."""
+        int32 class of every 128-pool block (0 gm, 1 floored gm, 2 cs), on
+        the host; ``spans``: its runs of one class as a host list of
+        (start, stop, kind, needs_floor), one descriptor each of
+        ``fused_step_merged``'s launch (at most ``MAX_GROUP``, else
+        ``ValueError``); and its own fixed slot order (``order``/``seg``)
+        over the concatenated planes.  Built once and cached; every bucket's
+        pool count must be a multiple of 128."""
         if self._merged is not None:
             return self._merged
         by_k = {}
@@ -527,9 +532,16 @@ class AdmmSolver:
                 np.full(a["mask"].shape[1] // 128, _KIND[self._meta[nm]], np.int32)
                 for nm, a in zip(names, parts)
             ])
+            spans = class_spans(cls)
+            if len(spans) > MAX_GROUP:
+                raise ValueError(
+                    f"merged K-group K={K} ({names}): {len(spans)} runs of one "
+                    f"pool kind, more than the merged kernel's table of "
+                    f"{MAX_GROUP}")
             order, seg = slot_order(host(arrs["asset"]), host(arrs["mask"]), self.n)
             arrs.update(
-                cls=torch.as_tensor(cls, device=self.device),
+                cls=torch.as_tensor(cls),
+                spans=spans,
                 order=torch.as_tensor(order, device=self.device),
                 seg=torch.as_tensor(seg, device=self.device),
             )

@@ -106,9 +106,13 @@ Phases (any failure raises and the script exits nonzero):
    a. ``fused_step_merged`` against its plain version at the two merged
       groups of the 100k network (K=2: cs2f + gm2 + gm2f, K=4: cs4f + gm4),
       from a mid-solve state, in float32 at (24, 4) and float64 at (48, 6):
-      bitwise equal, and two launches bitwise equal.  Device times of the
-      two merged launches (with their segment sums) against the five
-      unmerged ``fused_step`` launches, from CUDA graphs.
+      bitwise equal, and two launches bitwise equal; then merged groups at
+      the any-K shapes of 2c (K = 3, 5, 12; 4, 8, 16; 40), float32 and
+      float64 at (48, 6), likewise.  The fused-step library's registers,
+      spills and SASS root-find loops (the merged step is its grouped
+      kernel over the group's class spans).  Device times of the two merged
+      launches (with their segment sums) against the five unmerged
+      ``fused_step`` launches, from CUDA graphs.
    b. Path 1: ``solve_fused(iters=499, merged=True)`` on the phase-4
       network, exactly 2 x 499 merged launches, against ``merged=False`` in
       the same run (objective to 1e-4 relative, psi to 1e-3 of max|psi|;
@@ -775,7 +779,9 @@ def merged_utility_phase(report, rows, card, cfg_main, cfg64, counting_solver, r
     from cfmm_routing_tpu_torch.solver.precondition import equilibrate, unscale_result
     from cfmm_routing_tpu_torch.solver.refine import to_host
     from cfmm_routing_tpu_torch.solver.refine_device import refine_device
-    from cfmm_routing_tpu_torch.utils.synth import random_arbitrage, random_arbitrage_table
+    from cfmm_routing_tpu_torch.utils.synth import (
+        mixed_width_arbitrage, random_arbitrage, random_arbitrage_table,
+    )
 
     out = {}
     t_phase = time.perf_counter()
@@ -833,6 +839,46 @@ def merged_utility_phase(report, rows, card, cfg_main, cfg64, counting_solver, r
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
         del got, again, want
     del groups64
+    # the merged step is the grouped kernel over the group's class spans:
+    # its instantiations at 2 and 4 lanes a pool (float and double)
+    regs, loops = build_report(str(_build.BUILD_DIR))
+    fs_regs = regs.get("fused_step", {})
+    fs_loops = [lp for lp in loops if lp["library"] == "fused_step"]
+    log(f"# 7a fused_step library (merged and grouped launches alike): registers, spill "
+        f"stores, spill loads {fs_regs}; root-find loops at 2 lanes {fs_loops}")
+    out["registers"], out["sass_loops"] = fs_regs, fs_loops
+    # merged groups at the any-K shapes of phase 2c: K = 3, 5, 12 (4, 8, 16
+    # lanes, idle lanes masked), 4, 8, 16 and 40 (one thread per pool), each
+    # group three class spans (gm, floored gm, cs)
+    any_k = []
+    for widths, pad_pow2, want_k in (((3, 5, 12), False, [3, 5, 12]),
+                                     ((3, 5, 12), True, [4, 8, 16]),
+                                     ((40,), False, [40])):
+        spec_w, _ = mixed_width_arbitrage(widths=widths, n_assets=48 if 40 in widths else 16,
+                                          seed=2)
+        comp_w = compile_spec(spec_w, pad_pow2=pad_pow2, pad_pools_to=128)
+        rng = np.random.default_rng(5)
+        for dtype in (torch.float32, torch.float64):
+            gw = AdmmSolver(comp_w, dtype=dtype)._merged_groups()
+            if [g["K"] for g in gw] != want_k:
+                raise AssertionError(f"merged any-K groups {[g['K'] for g in gw]} != {want_k}")
+            vw = torch.as_tensor(rng.normal(size=128), dtype=dtype, device="cuda")
+            for g in gw:
+                mask = g["arrs"]["mask"]
+                sD, sL = (torch.as_tensor(rng.uniform(-2, 2, tuple(mask.shape)), dtype=dtype,
+                                          device="cuda") * mask for _ in range(2))
+                got = fused_step_merged(sD, sL, vw, g["arrs"], 1.5, cfg=cfg64)
+                again = fused_step_merged(sD, sL, vw, g["arrs"], 1.5, cfg=cfg64)
+                want = fused_step_merged_plain(sD, sL, vw, g["arrs"], 1.5, cfg=cfg64)
+                torch.cuda.synchronize()
+                label = f"any-K fused_step_merged[K={g['K']}, {str(dtype)[6:]}]"
+                bitwise(label, got, want)
+                bitwise(f"{label} second launch", again, got)
+                any_k.append(dict(K=g["K"], dtype=str(dtype)[6:], m=int(mask.shape[1]),
+                                  spans=[list(sp) for sp in g["arrs"]["spans"]]))
+    log(f"# 7a any K: merged groups {[(r['K'], r['dtype'], r['m'], len(r['spans'])) for r in any_k]}"
+        f" (K, dtype, pools, class spans) bitwise equal to plain at (48, 6), and across launches")
+    out["any_k"] = any_k
     s = solver._split_state(sm, groups)
     unmerged_ms = 0.0
     for name, arrs in solver.buckets.items():
@@ -1354,12 +1400,15 @@ def package_times(root):
       ``project_cs_cuda`` on each bucket at the classic iteration's input,
       one whole fused iteration (``AdmmSolver._iterate_fused``) and one
       stats-free classic iteration (``AdmmSolver._iterate``, the body of
-      the classic replayed block); where the package has it,
+      the classic replayed block), ``fused_step_merged`` on each merged
+      K-group and one whole merged fused iteration
+      (``AdmmSolver._iterate_fused_merged``); where the package has it,
       ``project_grouped`` on each K-group;
     * ``fused_step(fold=)`` on each bucket and one whole folded iteration at
       100k pools x 8 reserve scenarios (6b), 10k pools x 50 points (6c) and
       1,000 pools x 1,024 points (6a);
-    * the build's registers and spills and SASS loops (:func:`build_report`).
+    * the build's seconds (0.0 for a library found built), registers and
+      spills and SASS loops (:func:`build_report`).
     """
     import os
 
@@ -1371,7 +1420,7 @@ def package_times(root):
     if not where.startswith(root + os.sep):
         raise RuntimeError(f"--times {root}: imported the package from {where}")
     from cfmm_routing_tpu_torch.ops import _build, projection_cuda
-    from cfmm_routing_tpu_torch.ops.iteration_cuda import fused_step
+    from cfmm_routing_tpu_torch.ops.iteration_cuda import fused_step, fused_step_merged
     from cfmm_routing_tpu_torch.ops.projection import ProjectionConfig
     from cfmm_routing_tpu_torch.ops.segment import segment_sum
     from cfmm_routing_tpu_torch.solver.admm import (
@@ -1382,10 +1431,12 @@ def package_times(root):
     from cfmm_routing_tpu_torch.solver.precondition import equilibrate
     from cfmm_routing_tpu_torch.utils.synth import random_arbitrage_table
 
-    _build.build()
+    t0 = time.perf_counter()
+    build_s = _build.build()
     cfg = ProjectionConfig(24, 4)
     opts = AdmmOptions(projection=cfg)
-    out = dict(package=where)
+    out = dict(package=where, build_s=build_s, build_wall_s=time.perf_counter() - t0)
+    log(f"# {where}: kernels built in {out['build_wall_s']:.1f} s (per library: {build_s})")
 
     def case(label, solver, buckets, objective, T=1):
         c, lo, hi = (solver._t(np.tile(x, T)) for x in (
@@ -1410,6 +1461,17 @@ def package_times(root):
         row["fused_iteration_ms"] = graph_ms(lambda: solver._iterate_fused(
             s, wdef, nu, rho, c, lo, hi, buckets=buckets), n=5, reps=3)
         if T == 1:
+            groups = solver._merged_groups()
+            sm = solver._merge_state(s, groups)
+            row["fused_step_merged_ms"] = {
+                str(g["names"]): graph_ms(lambda: fused_step_merged(
+                    sD, sL, v, g["arrs"], 1.0, cfg=cfg)) for g, (sD, sL) in zip(groups, sm)}
+            row["fused_iteration_merged_ms"] = graph_ms(lambda: solver._iterate_fused_merged(
+                sm, wdef, nu, rho, c, lo, hi, groups), n=5, reps=3)
+            log(f"# {label}: fused_step_merged per K-group "
+                f"{sum(row['fused_step_merged_ms'].values()):.4f} ms "
+                f"{row['fused_step_merged_ms']}, a whole merged fused iteration "
+                f"{row['fused_iteration_merged_ms']:.4f} ms")
             z = solver.fused_to_z(s, wdef, buckets)
             row["classic_iteration_ms"] = graph_ms(lambda: solver._iterate(
                 z, nu, rho, c, lo, hi, with_stats=False, buckets=buckets), n=5, reps=3)

@@ -375,22 +375,31 @@ def test_folded_solves_twice_are_bitwise_equal(cuda_device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_merged_kernel_matches_plain_bitwise(cuda_device, dtype):
     """One launch per K-group (K=2: cs2f+gm2+gm2f, K=4: cs4f+gm4), bitwise
-    equal to the plain version, and twice the same."""
+    equal to the plain version, and twice the same; then merged groups at
+    K = 3, 5, 12 (4, 8, 16 lanes, idle lanes masked), 4, 8, 16 and 40 (one
+    thread per pool), each of three class spans."""
     table, _ = random_arbitrage_table(16, 300, seed=4, reserve_scale=1.0)
-    solver, s, v = _state(compile_table(table, pad_pools_to=1024), dtype,
-                          cuda_device, seed=3)
-    groups = solver._merged_groups()
-    assert [g["K"] for g in groups] == [2, 4]
-    sm = solver._merge_state(s, groups)
-    _build.reset_launch_counts()
-    for g, (sD, sL) in zip(groups, sm):
-        got = fused_step_merged(sD, sL, v, g["arrs"], 1.5, cfg=CFG)
-        again = fused_step_merged(sD, sL, v, g["arrs"], 1.5, cfg=CFG)
-        want = fused_step_merged_plain(sD, sL, v, g["arrs"], 1.5, cfg=CFG)
-        for x, y, z in zip(got, again, want):
-            assert torch.equal(x, y) and torch.equal(x, z), g["names"]
-    assert _build.LAUNCHES["fused_step_merged"] == 2 * len(groups)
-    assert _build.LAUNCHES["fused_step"] == 0
+    networks = [(compile_table(table, pad_pools_to=1024), [2, 4])]
+    for widths, pad_pow2, want_k in (((3, 5, 12), False, [3, 5, 12]),
+                                     ((3, 5, 12), True, [4, 8, 16]),
+                                     ((40,), False, [40])):
+        spec, _ = mixed_width_arbitrage(widths=widths, n_assets=48 if 40 in widths else 16,
+                                        seed=2)
+        networks.append((compile_spec(spec, pad_pow2=pad_pow2, pad_pools_to=128), want_k))
+    for compiled, want_k in networks:
+        solver, s, v = _state(compiled, dtype, cuda_device, seed=3)
+        groups = solver._merged_groups()
+        assert [g["K"] for g in groups] == want_k
+        sm = solver._merge_state(s, groups)
+        _build.reset_launch_counts()
+        for g, (sD, sL) in zip(groups, sm):
+            got = fused_step_merged(sD, sL, v, g["arrs"], 1.5, cfg=CFG)
+            again = fused_step_merged(sD, sL, v, g["arrs"], 1.5, cfg=CFG)
+            want = fused_step_merged_plain(sD, sL, v, g["arrs"], 1.5, cfg=CFG)
+            for x, y, z in zip(got, again, want):
+                assert torch.equal(x, y) and torch.equal(x, z), (g["K"], g["names"])
+        assert _build.LAUNCHES["fused_step_merged"] == 2 * len(groups)
+        assert _build.LAUNCHES["fused_step"] == 0
 
 
 def test_merged_solve_matches_unmerged_on_card(cuda_device):

@@ -16,6 +16,11 @@
   linear objective and with a concave utility.
 * ``merged=True`` on a scenario fold or on a bucket whose pool count is not
   a multiple of 128 raises ``ValueError``.
+* Each group's class spans (the merged kernel's descriptors) are built once
+  on the host: they tile the group's pools in order, equal the runs of its
+  class table, and carry each bucket's kind; a group of more than
+  ``MAX_GROUP`` spans raises ``ValueError``; the plain merged step walking
+  them is bitwise equal to the per-bucket plain step on the same state.
 
 The network is the 300-pool / 16-asset instance at ``pad_pools_to=1024``,
 unit-scale reserves: groups K=2 (cs2f + gm2 + gm2f, 3072 pools) and K=4
@@ -38,8 +43,12 @@ from cfmm_routing_tpu.solver.compiler import compile_table as ref_compile_table
 from cfmm_routing_tpu.utils.synth import random_arbitrage_table as ref_table
 from cfmm_routing_tpu_torch.models.utility import ConcaveUtility, Objective
 from cfmm_routing_tpu_torch.ops import _build
-from cfmm_routing_tpu_torch.ops.iteration_cuda import fused_step_merged_plain
+from cfmm_routing_tpu_torch.ops.iteration_cuda import (
+    class_spans, fused_step_merged_plain, fused_step_plain,
+)
 from cfmm_routing_tpu_torch.ops.projection import ProjectionConfig
+from cfmm_routing_tpu_torch.ops.projection_cuda import _KIND, MAX_GROUP
+from cfmm_routing_tpu_torch.ops.segment import segment_sum_plain
 from cfmm_routing_tpu_torch.solver.admm import AdmmOptions, AdmmSolver
 from cfmm_routing_tpu_torch.solver.compiler import compile_table
 from cfmm_routing_tpu_torch.solver.fold import fold_compiled
@@ -174,3 +183,54 @@ def test_merged_rejects_folds_and_unaligned_buckets():
     with pytest.raises(ValueError, match="scenario fold"):
         folded.solve_fused(tiled, iters=3, merged=True)
     folded.solve_fused(tiled, iters=3)  # the fold kernels take it unmerged
+
+
+def test_merged_spans_tile_the_group_with_bucket_kinds():
+    _, _, compiled, _, _, _ = _CASE
+    port = AdmmSolver(compiled, dtype=torch.float32, device="cpu")
+    for g in port._merged_groups():
+        spans = g["arrs"]["spans"]
+        assert isinstance(spans, list)
+        assert spans == class_spans(g["arrs"]["cls"].numpy())
+        M = g["arrs"]["mask"].shape[1]
+        assert [a for a, _, _, _ in spans] == [0] + [b for _, b, _, _ in spans[:-1]]
+        assert spans[-1][1] == M and all(a % 128 == 0 for a, _, _, _ in spans)
+        off = 0
+        for name, m in zip(g["names"], g["ms"]):  # every pool's span has its bucket's kind
+            for a, b, kind, floor in spans:
+                if a < off + m and off < b:  # constant sum floors either way
+                    assert _KIND[(kind, floor)] == _KIND[port._meta[name]], (name, spans)
+            off += m
+
+
+def test_merged_groups_reject_more_spans_than_the_table():
+    _, _, compiled, _, _, _ = _CASE
+    port = AdmmSolver(compiled, dtype=torch.float32, device="cpu")
+    n = MAX_GROUP + 1  # alternating kinds: one span per bucket
+    port.buckets = {f"b{i}": port.buckets["gm2" if i % 2 else "cs2f"] for i in range(n)}
+    port._meta = {f"b{i}": ("gm", False) if i % 2 else ("cs", True) for i in range(n)}
+    with pytest.raises(ValueError, match=f"{n} runs of one pool kind"):
+        port._merged_groups()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_merged_plain_over_spans_matches_per_bucket_bitwise(dtype):
+    _, _, compiled, _, _, _ = _CASE
+    cfg = ProjectionConfig(24, 4) if dtype == torch.float32 else ProjectionConfig(48, 6)
+    port = AdmmSolver(compiled, dtype=dtype, device="cpu")
+    rng = np.random.default_rng(7)
+    s = {name: tuple(torch.as_tensor(x, dtype=dtype) * a["mask"]
+                     for x in rng.uniform(-2.0, 2.0, (2,) + tuple(a["mask"].shape)))
+         for name, a in port.buckets.items()}
+    v = torch.as_tensor(rng.normal(size=128), dtype=dtype)
+    groups = port._merged_groups()
+    for g, (sD, sL) in zip(groups, port._merge_state(s, groups)):
+        got = fused_step_merged_plain(sD, sL, v, g["arrs"], 1.5, cfg=cfg)
+        parts = [fused_step_plain(*s[nm], v, port.buckets[nm], *port._meta[nm], 1.5,
+                                  cfg=cfg) for nm in g["names"]]
+        want = [torch.cat([p[j] for p in parts], dim=1) for j in range(4)]
+        for j, label in enumerate(("sD'", "sL'", "D", "L")):
+            assert torch.equal(got[j], want[j]), (g["names"], label)
+        val = 1.5 * (want[3] - want[2]) + (1.0 - 1.5) * (sL - sD)
+        y = segment_sum_plain(val, g["arrs"]["order"], g["arrs"]["seg"], 128)
+        assert torch.equal(got[4], y), g["names"]
