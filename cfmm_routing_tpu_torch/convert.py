@@ -16,7 +16,7 @@ from ._device import resolve_device
 from .solver.admm import RouteResult
 from .solver.compiler import Bucket, CompiledProblem
 
-__all__ = ["compiled_from_numpy", "route_result_from_numpy"]
+__all__ = ["compiled_from_numpy", "route_result_from_numpy", "state_from_numpy"]
 
 
 def compiled_from_numpy(
@@ -79,3 +79,16 @@ def route_result_from_numpy(
         converged=t(converged, torch.bool),
         rho_final=t(rho_final),
     )
+
+
+def state_from_numpy(z, nu, dtype: torch.dtype = torch.float32, device=None):
+    """An ADMM iterate (z, nu) as tensors on ``device`` (the card unless
+    ``"cpu"`` is given): ``z`` maps bucket name -> (zD, zL) slot-major (K, m)
+    planes, ``nu`` is the (n,) scaled dual — the state a solver's
+    ``_iterate`` and ``DeviceGate.evaluate`` take."""
+    dev = resolve_device(device)
+
+    def t(a):
+        return torch.as_tensor(np.array(a), dtype=dtype, device=dev)
+
+    return {k: (t(zD), t(zL)) for k, (zD, zL) in z.items()}, t(nu)

@@ -19,8 +19,12 @@ Beyond the linear case, :class:`ConcaveUtility` expresses any separable
 concave utility over psi from an atom library (linear / quadratic / log /
 power).  The ADMM consensus prox stays closed-form per asset
 (``ops/prox.py::utility_prox``), so nonlinear utilities cost the same per
-iteration as linear ones.  Non-separable utilities (``CustomUtility``) are
-not part of this package yet.
+iteration as linear ones.
+
+:class:`CustomUtility` takes any concave, differentiable U(psi) given as a
+callable on tensors (non-separable: ``log(1 + c @ psi)``, a full quadratic
+form); its consensus prox is a fixed-trip FISTA (``ops/prox.py::custom_prox``)
+on the gradient from ``torch.autograd``.
 """
 from __future__ import annotations
 
@@ -245,12 +249,81 @@ class ConcaveUtility:
         )
 
 
+@dataclasses.dataclass(frozen=True)
 class CustomUtility:
-    """Non-separable concave utility U(psi) given as a callable: not ported
-    yet.  Constructing one raises."""
+    """Non-separable concave utility U(psi) given as a callable on tensors.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "CustomUtility (non-separable utilities, custom_prox and their "
-            "refinement) is not ported yet (queue 1, item 12b in ROADMAP.md)"
-        )
+    The consensus prox of a non-separable U has no closed form: the solver
+    runs a fixed-trip strongly-convex FISTA inside each ADMM iteration
+    (``ops/prox.py::custom_prox``), whose gradient comes from
+    ``torch.autograd``.
+
+    Parameters
+    ----------
+    fn : callable(tensor (n,)) -> scalar tensor, concave and differentiable
+        on the box.  Torch ops only, on the device and in the dtype of its
+        argument (close over tensors and move them with ``t.to(psi)``); it
+        must not read a value back to the host (``float(x)``, ``.item()``,
+        ``.cpu()``), because on the card the solver captures it into a CUDA
+        graph, and such a capture raises.
+    lo, hi : the box on psi (finite or +-inf per entry).
+    smoothness : upper bound on the largest eigenvalue of -Hessian(U) over
+        the box (the gradient step is 1/(smoothness + max_j w_j)).
+    prox_iters : inner FISTA trips per ADMM iteration.
+    conjugate : optional host callable nu -> an UPPER bound on
+        sup_psi U(psi) - nu @ psi over the box.  ``certify`` needs it;
+        without it only residual-based stopping is available.
+
+    ``value``/``grad`` evaluate fn in float64 on the CPU.
+    """
+
+    fn: object
+    lo: np.ndarray
+    hi: np.ndarray
+    smoothness: float
+    prox_iters: int = 60
+    conjugate: object = None
+
+    def __init__(self, fn, lo, hi, smoothness, prox_iters=60, conjugate=None):
+        lo = np.asarray(lo, np.float64)
+        hi = np.asarray(hi, np.float64)
+        if lo.shape != hi.shape:
+            raise ValueError("lo and hi must have identical shapes")
+        if np.any(lo > hi):
+            raise ValueError("box is empty: lo > hi somewhere")
+        if not np.isfinite(smoothness) or smoothness < 0:
+            raise ValueError("smoothness must be a finite nonneg bound")
+        object.__setattr__(self, "fn", fn)
+        object.__setattr__(self, "lo", lo)
+        object.__setattr__(self, "hi", hi)
+        object.__setattr__(self, "smoothness", float(smoothness))
+        object.__setattr__(self, "prox_iters", int(prox_iters))
+        object.__setattr__(self, "conjugate", conjugate)
+
+    @property
+    def n_assets(self) -> int:
+        return self.lo.shape[0]
+
+    def value(self, psi) -> float:
+        import torch
+
+        x = torch.as_tensor(np.asarray(psi, np.float64), dtype=torch.float64)
+        with torch.no_grad():
+            return float(self.fn(x))
+
+    def grad(self, psi) -> np.ndarray:
+        import torch
+
+        x = torch.as_tensor(np.array(psi, np.float64), dtype=torch.float64)
+        return autograd_grad(self.fn, x).numpy()
+
+
+def autograd_grad(fn, x):
+    """d fn / d x at ``x`` through ``torch.autograd`` (a detached tensor of
+    x's shape; zero where fn does not depend on x)."""
+    import torch
+
+    with torch.enable_grad():
+        y = x.detach().requires_grad_(True)
+        (g,) = torch.autograd.grad(fn(y), y, allow_unused=True)
+    return torch.zeros_like(x) if g is None else g.detach()

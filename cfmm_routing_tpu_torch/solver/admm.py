@@ -39,9 +39,13 @@ The methods that touch bucket arrays take an optional ``buckets=`` override
 (the refinement stage's delta arrays ride it; see
 ``solver/refine_device.py``).
 
-The objective is a linear :class:`Objective` or a separable
-:class:`ConcaveUtility`; a utility changes only the consensus prox
-(``ops/prox.py``), the bucket-side work is the same.
+The objective is a linear :class:`Objective`, a separable
+:class:`ConcaveUtility` or a non-separable :class:`CustomUtility`; a utility
+changes only the consensus prox (``ops/prox.py``), the bucket-side work is
+the same.  A :class:`CustomUtility` runs on the classic path only
+(:meth:`AdmmSolver.solve`), as in the JAX package: its prox is a fixed-trip
+FISTA on the autograd gradient of its ``fn``, captured with the rest of a
+check block on the card.
 
 The fused path runs one grouped ``fused_step`` launch per channel count K
 (:attr:`AdmmSolver._groups`, one lane per slot).  ``solve_fused(merged=True)``
@@ -70,13 +74,15 @@ import numpy as np
 import torch
 
 from .._device import host, resolve_device
-from ..models.utility import ConcaveUtility, Objective
+from ..models.utility import ConcaveUtility, CustomUtility, Objective
 from ..ops.iteration_cuda import (
     class_spans, fused_step_grouped, fused_step_merged,
 )
 from ..ops.projection import ProjectionConfig
 from ..ops.projection_cuda import _KIND, MAX_GROUP, project_grouped
-from ..ops.prox import psi_prox, utility_prox, utility_value
+from ..ops.prox import (
+    DeltaCustomUtility, custom_prox, psi_prox, utility_prox, utility_value,
+)
 from ..ops.segment import segment_sum, slot_order
 from .compiler import CompiledProblem
 from .graphs import GraphCache, run_block
@@ -376,15 +382,23 @@ class AdmmSolver:
         return out
 
     def _prox(self, s, c, lo, hi, rho, util=None):
-        """The consensus prox: linear (``util=None``) or separable concave."""
+        """The consensus prox: linear (``util=None``), separable concave (a
+        PackedUtility) or non-separable (a :class:`CustomUtility`)."""
         rho = self._per_asset(rho)
         if util is None:
             return psi_prox(s, self.degree, c, lo, hi, rho)
+        if isinstance(util, CustomUtility):
+            return custom_prox(s, self.degree, util, lo, hi, rho)
         return utility_prox(s, self.degree, util, rho)
 
     @staticmethod
     def _objective_value(c, psi, util=None):
-        return torch.sum(c * psi) if util is None else utility_value(util, psi)
+        if util is None:
+            return torch.sum(c * psi)
+        if isinstance(util, (CustomUtility, DeltaCustomUtility)):
+            with torch.no_grad():
+                return util.fn(psi)
+        return utility_value(util, psi)
 
     def _iterate(self, z, nu, rho, c, lo, hi, with_stats=True, buckets=None,
                  util=None):
@@ -684,18 +698,29 @@ class AdmmSolver:
         hi = self._t(np.minimum(objective.hi, _F32_BIG))
         return c, lo, hi
 
-    def _pack(self, objective):
+    def _pack(self, objective, custom=False):
         """(c, lo, hi, util) for an :class:`Objective` (util None) or a
         :class:`ConcaveUtility` (util its PackedUtility, c/lo/hi its
-        packed fields)."""
+        packed fields); with ``custom=True`` (the classic path) also a
+        :class:`CustomUtility` (util the instance itself, c zero, its box
+        clipped to the float32 range)."""
         if isinstance(objective, ConcaveUtility):
             util = objective.pack(self.dtype, self.device)
             return util.c, util.lo, util.hi, util
         if isinstance(objective, Objective):
             return (*self._objective_arrays(objective), None)
+        if isinstance(objective, CustomUtility):
+            if not custom:
+                raise TypeError(
+                    "a CustomUtility runs on the classic path only "
+                    "(AdmmSolver.solve): the fused kernels and ChunkedDriver "
+                    "take an Objective or a ConcaveUtility")
+            return (self._zeros(self.n),
+                    self._t(np.maximum(objective.lo, -_F32_BIG)),
+                    self._t(np.minimum(objective.hi, _F32_BIG)), objective)
         raise TypeError(
-            "the objective must be an Objective or a ConcaveUtility, not "
-            f"{type(objective).__name__}"
+            "the objective must be an Objective, a ConcaveUtility or a "
+            f"CustomUtility, not {type(objective).__name__}"
         )
 
     def solve_fused(
@@ -824,11 +849,15 @@ class AdmmSolver:
         warm: Optional[RouteResult] = None,
         max_iters: Optional[int] = None,
     ) -> RouteResult:
-        """Solve for an :class:`Objective` (linear) or a separable
-        :class:`ConcaveUtility`.  ``warm`` continues from a prior result at
-        the penalty it adapted to; ``max_iters`` overrides
-        ``options.max_iters`` for this call."""
-        c, lo, hi, util = self._pack(objective)
+        """Solve for an :class:`Objective` (linear), a separable
+        :class:`ConcaveUtility` or a non-separable :class:`CustomUtility`.
+        ``warm`` continues from a prior result at the penalty it adapted
+        to; ``max_iters`` overrides ``options.max_iters`` for this call.
+
+        On the card a :class:`CustomUtility`'s check blocks are captured once
+        per instance (``solver/graphs.py`` keys them by its identity); a
+        ``fn`` that reads the host makes the capture raise."""
+        c, lo, hi, util = self._pack(objective, custom=True)
         if rho is not None:
             rho_v = rho
         elif warm is not None:

@@ -34,7 +34,9 @@ regardless of how converged the ADMM iterate is.
 A separable :class:`ConcaveUtility` replaces the box support by the sum of
 its per-asset concave conjugates  sup_{lo<=psi<=hi} U_j(psi) - nu_j psi
 (closed form per atom, :func:`_util_support_grad`), with its own repair of
-nu; the pool side is unchanged.
+nu; the pool side is unchanged.  A non-separable :class:`CustomUtility`
+brings its own conjugate (a host callable giving an upper bound on
+sup_psi U(psi) - nu @ psi over the box); its certificate needs one.
 
 :func:`polish_prices` tightens the bound by minimizing it over nu (L-BFGS-B
 with the bound's Danskin subgradient); any nu it returns still gives a
@@ -49,7 +51,7 @@ import numpy as np
 import torch
 
 from .._device import host, resolve_device
-from ..models.utility import ConcaveUtility, Objective
+from ..models.utility import ConcaveUtility, CustomUtility, Objective
 from .compiler import CompiledProblem
 
 __all__ = ["Certificate", "InfeasibilityCertificate", "certify",
@@ -330,10 +332,21 @@ def _linear(objective):
     return c, lo, hi
 
 
-def _repaired_support(objective, prices):
+def _repaired_support(objective, prices, what="certify"):
     """(repaired nu, the objective's support at nu): the box support of a
-    linear Objective, the conjugate sum of a ConcaveUtility."""
+    linear Objective, the conjugate sum of a ConcaveUtility, the user
+    conjugate of a CustomUtility at nu >= 0."""
     p = np.asarray(host(prices), np.float64)
+    if isinstance(objective, CustomUtility):
+        if objective.conjugate is None:
+            raise ValueError(
+                f"{what}(CustomUtility) needs the utility's concave conjugate: "
+                "pass conjugate=lambda nu: <rigorous UPPER bound on "
+                "sup_psi U(psi) - nu @ psi over the box> — without it only "
+                "residual-based stopping is available for custom utilities"
+            )
+        nu = np.maximum(p, 0.0)
+        return nu, float(objective.conjugate(nu))
     if isinstance(objective, ConcaveUtility):
         nu = _util_repair_prices(objective, p)
         return nu, _util_support(objective, nu)
@@ -368,8 +381,8 @@ def dual_bound(
     alone (no trades needed): repaired-nu box (or utility) support +
     per-pool arbitrage supports.  ``evals``: optional (n_bisect, n_newton)
     override for the gm eta-search — fewer evaluations only loosen the
-    (always valid) bound."""
-    nu, support = _repaired_support(objective, prices)
+    (always valid) bound.  A :class:`CustomUtility` needs its conjugate."""
+    nu, support = _repaired_support(objective, prices, "dual_bound")
     return support + _pool_supports(compiled, nu, evals=evals, device=device)
 
 
@@ -384,7 +397,8 @@ def certify(
 ) -> Certificate:
     """Certify a candidate routing.
 
-    ``objective``: an :class:`Objective` or a :class:`ConcaveUtility`.
+    ``objective``: an :class:`Objective`, a :class:`ConcaveUtility` or a
+    :class:`CustomUtility` with its conjugate (``ValueError`` without one).
     deltas/lambdas: bucket name -> slot-major (K, m) arrays or tensors
     (RouteResult layout).  prices: (n,) dual prices (RouteResult.prices).
     ``device``: where the geo-mean support search runs (the card unless
@@ -460,7 +474,7 @@ def certify(
         else 0.0
     )
 
-    if isinstance(objective, ConcaveUtility):
+    if isinstance(objective, (ConcaveUtility, CustomUtility)):
         primal = objective.value(psi_hat)
     else:
         primal = float(np.asarray(objective.c, np.float64) @ psi_hat)
@@ -482,14 +496,35 @@ def certify(
     )
 
 
-def _dual_value_and_grad(compiled, c, lo, hi, nu, device=None, util=None):
+def _dual_value_and_grad(compiled, c, lo, hi, nu, device=None, util=None,
+                         custom=None):
     """g(nu) = box (or ``util``'s conjugate) support + sum of pool supports,
     with its subgradient.
 
     grad g = -psi*(nu) + sum_i (pool i's net-trade response at nu): the
     market's excess supply at prices nu.  g is convex and minimized where
     the market clears; any nu in the repair box gives a VALID bound, so a
-    minimizer only ever tightens the certificate."""
+    minimizer only ever tightens the certificate.
+
+    ``custom``: a CustomUtility, whose conjugate value is the user's; its
+    gradient is taken by central finite differences (the pool-side
+    gradients stay analytic), accurate enough to drive the L-BFGS search —
+    rigor never depends on it, every evaluated nu gives a valid bound."""
+    if custom is not None:
+        n = compiled.n_assets
+        g_val = float(custom.conjugate(nu))
+        grad = np.zeros(n)
+        h = 1e-6 * np.maximum(1.0, np.abs(nu))
+        for j in range(n):
+            nu_p = nu.copy()
+            nu_m = nu.copy()
+            nu_p[j] += h[j]
+            nu_m[j] = max(nu_m[j] - h[j], 0.0)
+            step = nu_p[j] - nu_m[j]
+            if step > 0:
+                grad[j] = (float(custom.conjugate(nu_p))
+                           - float(custom.conjugate(nu_m))) / step
+        return _add_pool_terms(compiled, nu, g_val, grad, device)
     if util is not None:
         g_val, psi_at = _util_support_grad(util, nu)
         return _add_pool_terms(compiled, nu, g_val, -psi_at, device)
@@ -537,11 +572,35 @@ def polish_prices(
     """Tighten the dual bound by minimizing g(nu) from ``nu0`` (L-BFGS-B).
 
     Returns whichever prices give the LOWER bound; rigor is free because
-    every repaired nu >= 0 yields a valid bound.  Linear ``Objective``s and
+    every repaired nu >= 0 yields a valid bound.  Linear ``Objective``s,
     separable ``ConcaveUtility``s (their conjugate and its Danskin gradient
-    are closed-form, :func:`_util_support_grad`).  ``device``: where the
-    geo-mean support search runs (the card unless ``"cpu"`` is given)."""
+    are closed-form, :func:`_util_support_grad`) and ``CustomUtility``s
+    with a conjugate (a finite-difference conjugate gradient; without a
+    conjugate ``nu0`` comes back as it is).  ``device``: where the geo-mean
+    support search runs (the card unless ``"cpu"`` is given)."""
     from scipy.optimize import minimize
+
+    if isinstance(objective, CustomUtility):
+        if objective.conjugate is None:
+            return np.asarray(host(nu0), np.float64)
+        n = compiled.n_assets
+
+        def fun_c(x):  # the custom branch reads no c / lo / hi
+            return _dual_value_and_grad(compiled, None, None, None,
+                                        np.maximum(x, 0.0), device=device,
+                                        custom=objective)
+
+        x0 = np.maximum(np.asarray(host(nu0), np.float64), 0.0)
+        g0, _ = fun_c(x0)
+        res = minimize(fun_c, x0, jac=True, method="L-BFGS-B",
+                       bounds=[(0.0, None)] * n,
+                       options=dict(maxfun=max_evals, maxiter=max_evals))
+        if np.all(np.isfinite(res.x)):
+            xr = np.maximum(res.x, 0.0)
+            g1, _ = fun_c(xr)
+            if g1 < g0:
+                return xr
+        return x0
 
     util = objective if isinstance(objective, ConcaveUtility) else None
     if util is not None:

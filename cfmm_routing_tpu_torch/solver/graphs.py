@@ -43,7 +43,9 @@ from typing import Callable
 import torch
 from torch.utils import _pytree as pytree
 
+from ..models.utility import CustomUtility
 from ..ops import _build
+from ..ops.prox import DeltaCustomUtility
 
 __all__ = ["GraphCache", "run_block", "eager"]
 
@@ -69,12 +71,47 @@ def _loop(step, n, state, consts):
     return state
 
 
+class _ById:
+    """A key part that compares by identity and holds its object, so the
+    object's id is not reused while the key (and its graph) lives."""
+
+    __slots__ = ("obj",)
+
+    def __init__(self, obj):
+        self.obj = obj
+
+    def __hash__(self):
+        return id(self.obj)
+
+    def __eq__(self, other):
+        return isinstance(other, _ById) and other.obj is self.obj
+
+
 def _meta(leaf):
     """A leaf's part of a graph's key: shape, dtype and device of a tensor;
-    any other leaf (a flag, None) by value, since the block bakes it in."""
+    a :class:`CustomUtility` (whose callable the block bakes in) by
+    identity; any other leaf (a flag, None) by value, since the block bakes
+    it in.  (A :class:`DeltaCustomUtility` is a pytree node, never a leaf:
+    its tensors are leaves, its callable part of the tree's structure.)"""
     if isinstance(leaf, torch.Tensor):
         return (tuple(leaf.shape), leaf.dtype, leaf.device)
+    if isinstance(leaf, CustomUtility):
+        return ("id", _ById(leaf))
     return ("static", leaf)
+
+
+def _holds_custom(leaves, spec):
+    """Whether a block's constants hold a custom utility: a leaf, or a
+    :class:`DeltaCustomUtility` node of their tree."""
+    if any(isinstance(x, CustomUtility) for x in leaves):
+        return True
+    specs = [spec]
+    while specs:
+        s = specs.pop()
+        if s.type is DeltaCustomUtility:
+            return True
+        specs.extend(s.children_specs)
+    return False
 
 
 class _Entry:
@@ -145,15 +182,26 @@ class GraphCache:
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=self._pool):
-                out = _loop(step, n, state, consts)
-                out_leaves, out_spec = pytree.tree_flatten(out)
-                if out_spec != s_spec:
-                    raise ValueError("a captured step must return its state's "
-                                     f"structure: {out_spec} != {s_spec}")
-                for dst, src in zip(entry.state, out_leaves):
-                    dst.copy_(src)
-                del out, out_leaves
+            try:
+                with torch.cuda.graph(graph, pool=self._pool):
+                    out = _loop(step, n, state, consts)
+                    out_leaves, out_spec = pytree.tree_flatten(out)
+                    if out_spec != s_spec:
+                        raise ValueError("a captured step must return its "
+                                         f"state's structure: {out_spec} != "
+                                         f"{s_spec}")
+                    for dst, src in zip(entry.state, out_leaves):
+                        dst.copy_(src)
+                    del out, out_leaves
+            except RuntimeError as err:
+                if not _holds_custom(c_leaves, c_spec):
+                    raise
+                raise RuntimeError(
+                    "capturing an iteration block with a custom utility as a "
+                    "CUDA graph failed; a CustomUtility's fn must be torch "
+                    "ops only, with no host read (float(x), .item(), .cpu()) "
+                    f"and no host-to-device copy: {err}"
+                ) from err
             entry.counts = {k: v - warm[k] for k, v in _build.LAUNCHES.items()
                             if v != warm[k]}
         finally:

@@ -136,8 +136,11 @@ def scale_objective(objective, d: np.ndarray):
         )
     if isinstance(objective, Objective):
         return Objective(objective.c * d, objective.lo / d, objective.hi / d)
-    raise TypeError("precondition supports Objective / ConcaveUtility, not "
-                    f"{type(objective).__name__}")
+    raise TypeError(
+        "precondition supports Objective / ConcaveUtility (CustomUtility "
+        "closures cannot be rescaled automatically — compose the scaling "
+        "into the utility's fn by hand)"
+    )
 
 
 def unscale_result(

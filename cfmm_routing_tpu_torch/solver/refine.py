@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from .._device import host, resolve_device
+from ..models.utility import CustomUtility
 from .admm import AdmmOptions, AdmmSolver, RouteResult
 from .certify import Certificate, certify, polish_prices
 from .compiler import CompiledProblem
@@ -69,12 +70,14 @@ def refine(
 ) -> RefineResult:
     """Polish ``result`` (typically an f32 solve) to a certified gap.
 
-    ``objective`` is the :class:`Objective` or :class:`ConcaveUtility` the
-    original solve used.
+    ``objective`` is the :class:`Objective`, :class:`ConcaveUtility` or
+    :class:`CustomUtility` (with its conjugate) the original solve used.
     Returns host-side (numpy) arrays only.  ``device``: where the float64
     ADMM and the certificate's eta search run (the card unless ``"cpu"`` is
     given).  ``cpu_shards`` (sharding the polish over host cores) is not
-    ported."""
+    ported; a custom utility drops it, as its prox is single-device."""
+    if isinstance(objective, CustomUtility):
+        cpu_shards = None
     if cpu_shards is not None:
         raise NotImplementedError(
             "refine(cpu_shards=) is not ported yet (queue 1, item 14 in "

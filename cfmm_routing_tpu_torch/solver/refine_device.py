@@ -25,10 +25,13 @@ correction solve per pass over all T points, folded on the pool axis
 or batched point by point, and one :func:`~.certify.certify_batch` per
 pass.
 
-:func:`refine_device` takes a linear :class:`Objective` or a separable
-:class:`ConcaveUtility`: every atom maps exactly under the shift and scale
-(:func:`_delta_objective`), and the re-centred consensus prox of a utility
-is ``ops/prox.py::delta_utility_prox``.  :func:`refine_sweep` is linear.
+:func:`refine_device` takes a linear :class:`Objective`, a separable
+:class:`ConcaveUtility` or a :class:`CustomUtility` with its conjugate: every
+atom maps exactly under the shift and scale (:func:`_delta_objective`), and
+the re-centred consensus prox of a utility is
+``ops/prox.py::delta_utility_prox`` (``delta_custom_prox`` for a custom one,
+which runs on the classic delta path only).  :func:`refine_sweep` is
+linear.
 """
 from __future__ import annotations
 
@@ -40,10 +43,14 @@ import numpy as np
 import torch
 
 from .._device import host, resolve_device
-from ..models.utility import ConcaveUtility, Objective
+from ..models.utility import (
+    ConcaveUtility, CustomUtility, Objective, autograd_grad,
+)
 from ..ops.iteration_cuda import fused_step_delta_grouped
 from ..ops.projection_cuda import project_delta_grouped
-from ..ops.prox import DeltaUtility, delta_utility_prox
+from ..ops.prox import (
+    DeltaCustomUtility, DeltaUtility, delta_custom_prox, delta_utility_prox,
+)
 from .admm import AdmmOptions, AdmmSolver, RouteResult, _F32_BIG, _fused_ok
 from .certify import certify, certify_batch, dual_bound, polish_prices
 from .compiler import CompiledProblem
@@ -66,7 +73,10 @@ class DeltaAdmmSolver(AdmmSolver):
         and ``nu`` the delta dual dnu, both small, so no O(d*|nu0|) product
         is formed:  psi = clip(yhat + 2 d (e0 - dnu)),  dmu = dnu + (psi -
         yhat) / (2 d).  A :class:`DeltaUtility` ``util`` runs
-        :func:`delta_utility_prox`, in the same small quantities."""
+        :func:`delta_utility_prox`, a :class:`DeltaCustomUtility`
+        :func:`delta_custom_prox`, in the same small quantities."""
+        if isinstance(util, DeltaCustomUtility):
+            return delta_custom_prox(nu, yhat, self.degree, util, rho)
         if util is not None:
             return delta_utility_prox(nu, yhat, self.degree, util,
                                       self._per_asset(rho))
@@ -252,6 +262,12 @@ class DeltaAdmmSolver(AdmmSolver):
         CPU) plus one classic residual-harvest iteration; every bucket's
         pool count must be a multiple of 128."""
         c, lo, hi, util, start_nu = _prep_delta_solve(objective, nu0, rho, self)
+        if fused and isinstance(util, DeltaCustomUtility):
+            raise ValueError(
+                "the fused delta kernel does not take CustomUtility "
+                "objectives yet — use fused=False (the classic delta path is "
+                "equally precise)"
+            )
         if warm is not None:
             z0, nu_start = self.warm_state(warm, rho)
         else:
@@ -324,8 +340,20 @@ def _prep_delta_solve(objective, nu0, rho: float, solver):
     clipped to the f32 range, util None.  A (delta-space) ConcaveUtility:
     util is its :class:`DeltaUtility`, whose fold constant
     e0u = U'_delta(0) - rho*nu0 and A = U'_delta(0) are computed in f64
-    (linear/quad c, log c/b, power c*b^{p-1}); c is 0."""
+    (linear/quad c, log c/b, power c*b^{p-1}); c is 0.  A
+    :class:`DeltaCustomUtility`: its e0u = U'(psi0) - rho*nu0 with the
+    gradient taken in float64 on the CPU; c is 0."""
     nu0 = np.asarray(nu0, np.float64)
+    if isinstance(objective, DeltaCustomUtility):
+        psi0_64 = np.asarray(objective.psi0, np.float64)
+        up0 = autograd_grad(objective.base_fn,
+                            torch.as_tensor(psi0_64, dtype=torch.float64)).numpy()
+        util = DeltaCustomUtility(
+            objective.base_fn, objective.smoothness, objective.prox_iters,
+            *(solver._t(np.asarray(x, np.float64)) for x in
+              (psi0_64, objective.eps, up0 - float(rho) * nu0, objective.lo,
+               objective.hi)))
+        return solver._zeros(solver.n), util.lo, util.hi, util, np.zeros_like(nu0)
     if isinstance(objective, ConcaveUtility):
         pack = objective.pack(solver.dtype, solver.device)
         k = np.asarray(objective.kind)
@@ -345,16 +373,20 @@ def _prep_delta_solve(objective, nu0, rho: float, solver):
 
 
 def _check_objective(objective):
-    if not isinstance(objective, (Objective, ConcaveUtility)):
-        raise TypeError("refine_device supports Objective / ConcaveUtility, not "
+    if not isinstance(objective, (Objective, ConcaveUtility, CustomUtility)):
+        raise TypeError("refine_device supports Objective / ConcaveUtility / "
+                        "CustomUtility (with a conjugate), not "
                         f"{type(objective).__name__}")
 
 
 def _curvature_scale(objective, psi0: np.ndarray) -> float:
-    """max_j |U''_j(psi0_j)| of the objective: 0 for a linear one.  The
-    delta objective's curvature is eps times this, which sets the
-    eps-regime penalty of :func:`refine_device`."""
+    """max_j |U''_j(psi0_j)| of the objective: 0 for a linear one, the
+    declared smoothness of a :class:`CustomUtility`.  The delta objective's
+    curvature is eps times this, which sets the eps-regime penalty of
+    :func:`refine_device`."""
     _check_objective(objective)
+    if isinstance(objective, CustomUtility):
+        return float(objective.smoothness)
     if not isinstance(objective, ConcaveUtility):
         return 0.0
     k = np.asarray(objective.kind)
@@ -392,8 +424,21 @@ def _delta_objective(objective, psi0: np.ndarray, eps: float):
         quad     c psi - a/2 psi^2     ->  quad     (c - a psi0) d - (a eps)/2 d^2
         log      c log(b + psi)        ->  log      (c/eps) log((b+psi0)/eps + d)
         power    (c/p)(b + psi)^p      ->  power    (c eps^{p-1}/p)((b+psi0)/eps + d)^p
+        custom   U(psi)                ->  U(psi0 + eps d)/eps  (DeltaCustomUtility)
+
+    A custom utility's psi0, eps and box are rounded to float32, as the JAX
+    package's are; its fold constant e0u is filled in at solve preparation
+    (:func:`_prep_delta_solve`).
     """
     _check_objective(objective)
+    if isinstance(objective, CustomUtility):
+        f32 = [np.float32(x) for x in (
+            psi0, eps,
+            np.clip((objective.lo - psi0) / eps, -_F32_BIG, _F32_BIG),
+            np.clip((objective.hi - psi0) / eps, -_F32_BIG, _F32_BIG))]
+        return DeltaCustomUtility(
+            objective.fn, objective.smoothness, objective.prox_iters,
+            f32[0], f32[1], np.zeros(np.shape(psi0), np.float32), f32[2], f32[3])
     lo = (objective.lo - psi0) / eps
     hi = (objective.hi - psi0) / eps
     if not isinstance(objective, ConcaveUtility):
@@ -415,7 +460,7 @@ def _delta_objective(objective, psi0: np.ndarray, eps: float):
 
 def _objective_value(objective, psi: np.ndarray) -> float:
     """The objective at psi in float64 on the host."""
-    if isinstance(objective, ConcaveUtility):
+    if isinstance(objective, (ConcaveUtility, CustomUtility)):
         return objective.value(psi)
     return float(np.asarray(objective.c, np.float64) @ psi)
 
@@ -776,8 +821,9 @@ def refine_device(
 ) -> RefineResult:
     """Polish an f32 solve to a certified gap with f32 correction solves on
     the device (see the module docstring); the certificate stays a rigorous
-    f64 pass.  ``objective``: an :class:`Objective` or a
-    :class:`ConcaveUtility`.  Returns host-side numpy arrays only.
+    f64 pass.  ``objective``: an :class:`Objective`, a
+    :class:`ConcaveUtility` or a :class:`CustomUtility` with its conjugate
+    (which the certificates need).  Returns host-side numpy arrays only.
 
     ``solver``: a pre-built :class:`DeltaAdmmSolver` (with
     ``adapt_rho=False``) to reuse across calls.  ``device``: where the
@@ -790,12 +836,20 @@ def refine_device(
 
     ``fused``: run the correction solves on the fused delta path.  Default
     ``None`` = auto: fused when every bucket's pool count is a multiple of
-    128 AND the solver runs on the card.  ``fused=True`` on a CPU solver
-    runs the plain fused delta version.
+    128 AND the solver runs on the card AND the objective is not a
+    :class:`CustomUtility` (whose correction solves are classic).
+    ``fused=True`` on a CPU solver runs the plain fused delta version.
 
     ``entry_cert``: a certificate of ``result`` the caller already has, in
     cert_space units (skips the entry certificate)."""
     _check_objective(objective)
+    is_custom = isinstance(objective, CustomUtility)
+    if is_custom and objective.conjugate is None:
+        raise ValueError(
+            "refine_device(CustomUtility) needs the utility's concave "
+            "conjugate for its rigorous certificates — pass "
+            "conjugate=lambda nu: <upper bound on sup U(psi) - nu@psi>"
+        )
     dev = solver.device if solver is not None else resolve_device(device)
     base_opts = options if options is not None else AdmmOptions()
     cur = to_host(result)
@@ -862,7 +916,7 @@ def refine_device(
             "eps_rel=1e-8))"
         )
     if fused is None:
-        fused = _fused_ok(solver) and _on_accelerator(solver)
+        fused = _fused_ok(solver) and _on_accelerator(solver) and not is_custom
     elif fused and not _fused_ok(solver):
         raise ValueError(
             "fused=True needs every bucket's pool count to be a multiple of "
@@ -955,6 +1009,8 @@ def refine_device(
             gate_hit = gate_score <= 5.0 * target_gap
             stalled = prev_gate is not None and gate_score > 0.7 * prev_gate
             prev_gate = gate_score
+            _LOG.debug("refine chunk gate: gap_est=%.2e box_est=%.2e done=%s",
+                       gap_est, box_est, done)
             if not (gate_hit or done or stalled or _c == int(chunks_per_pass) - 1):
                 dwarm = dres  # chain chunks on the device
                 continue

@@ -72,6 +72,30 @@ Phases (any failure raises and the script exits nonzero):
    host fallback may be taken, and the certificate must be finite and no
    worse than at entry.  Whether 1e-6 was reached is printed, not
    asserted.
+5b. The reference's gated route (``bench_grid.py:run_config``, fused, its
+   constants: 250-iteration chunks, a gate finished every second chunk,
+   12,000 iterations at most) at the three sizes of ``BENCH_GRID.md``:
+   ``random_arbitrage_table(64, 1_000)``, ``(64, 10_000)`` and ``(256,
+   100_000)``, seed 7, each equilibrated and ``pad_pools_to=1024``, float32
+   at (24, 4).  Before each size's route, its kernels against their plain
+   versions on that size's buckets and delta buckets, bitwise and across
+   launches: the grouped ``fused_step``, ``project``, ``segment_sum``,
+   ``fused_step_delta`` and ``project_delta`` on every K-group
+   (``gated_kernel_checks``).  The route: ``ChunkedDriver(fused=True)``
+   chunks, a ``DeviceGate`` pass
+   queued after every second chunk and finished (its float64 dual bound on
+   a side stream) while the next chunk runs, a float64 certificate only to
+   confirm a hand-off, the roll-back to the held snapshot, the rho
+   adaptation, then ``refine_device(fused=True, cert_space=...)``.  Each
+   size must end certified at 1e-6 in original units; the loop's launches
+   must be exactly the fused base's (K-groups x 249 ``fused_step`` a chunk)
+   plus one classic iteration a chunk and the gate's and the certificates'
+   projections and sums.  At 100k the route also runs eagerly and must take
+   the same path.  Printed: iterations and seconds to gate score 1e-3 and
+   to the hand-off, gate passes and host seconds, certificate and
+   refinement seconds, the wall clock, the host gate's time beside the
+   device chunk it runs during, and the card's idle time before the next
+   chunk, after a gated chunk and after any other.
 6. Sweeps and batches (each main-path run with the counts reset just
    before it and read just after, and every call a kernel wrapper makes to
    a plain version counted: there must be none).
@@ -129,6 +153,20 @@ Phases (any failure raises and the script exits nonzero):
       ``random_arbitrage(5, 8, seed=11)``, boxed) through
       ``api.route(certify=True)`` in float64, 300 iterations, on the card and
       on the CPU: equal to 1e-9.
+7e. A certified non-separable utility: U = c@psi - psi^T Q psi / 2 (the
+   quadratic form of ``tests/test_custom_utility.py``, Q = A A^T / n + 0.1 I
+   scaled to curvature 1e-4 on the 100k network and to 1e-3 on the 10k /
+   64-asset one, a box of +-1e6 so that the box-free conjugate
+   is tight) as a ``CustomUtility`` with ``prox_iters=80``, each
+   solved in the linear part's equilibrated space with the scales
+   composed into the utility by hand (``precondition`` refuses a custom
+   utility) and certified in original units: the float32 classic base
+   (phase 5's options), then ``refine_device(target_gap=1e-6)`` on the
+   classic delta path; it must certify at 1e-6, launch ``project`` and
+   ``segment_sum`` in the base and ``project_delta`` in refinement, and a
+   50-iteration replayed base must equal its eager run bit for bit.
+   Printed: the capture's seconds and memory, base and refinement
+   iterations and seconds.
 8. CUDA-graph replays (``solver/graphs.py``) against eager runs: at 100k
    pools in float32 (60 iterations, folds of 8) and float64 (30, folds of
    2), the classic solve (linear and concave utility), the fused and
@@ -147,7 +185,8 @@ segment sum, which read a size back to the host, from eager calls; the
 fused steps' times include their segment-sum launch; the fold kernels'
 times are summed over the 6b buckets; the grouped delta kernels' times
 over the K-groups of one iteration; bounds from this run's shapes;
-launches summed over the main-path runs of phases 4, 5, 6b-6d and 7b-7d),
+launches summed over the main-path runs of phases 4, 5, 5b, 6b-6d, 7b-7d
+and 7e),
 the card's name and power limit as ``nvidia-smi``
 reports them, and last ``{"ok": true, "device": {"platform": "gpu",
 "kind": ..., "count": ...}}``.
@@ -365,6 +404,643 @@ def count_plain_calls(counter):
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+
+
+# ---- the reference's gated route (bench_grid.py:run_config) -----------------
+# 250-iteration fused chunks, a device gate finished every second chunk, the
+# float64 certificate paid for only to confirm a hand-off (bench_grid.py:59-63)
+CHUNK = 250
+GATE_EVERY = 2
+MAX_ITERS = 12_000
+GAP_LOOSE = 1e-3
+GAP_TIGHT = 1e-6
+
+
+def certify_orig(solver, compiled_orig, obj, d, z, nu, rho, psi):
+    """``bench_grid.py:_certify_orig``: project once for exactly feasible
+    trades (solve space, one ``project`` launch per K-group), read every
+    plane back in one copy, un-scale to original units and certify in
+    float64 there.  Returns (certificate, original-units trades, solve-space
+    trades), trades as {bucket: (D, L)} numpy planes."""
+    from cfmm_routing_tpu_torch.solver.certify import certify
+
+    d_ext = np.concatenate([d, [1.0]])
+    inputs = {}
+    for name in solver.buckets:
+        nu_e = solver._bcast_nu(nu, name)
+        zD, zL = z[name]
+        inputs[name] = (zD - nu_e, zL + nu_e)
+    proj = solver._project_groups(inputs, solver.buckets)
+    names = list(solver.buckets)
+    flat = torch.cat([t.reshape(-1) for nm in names for t in proj[nm]]).cpu().numpy()
+    w_scaled, w_out, off = {}, {}, 0
+    for nm in names:
+        K, m = solver.buckets[nm]["mask"].shape
+        D, L = flat[off:off + K * m].reshape(K, m), flat[off + K * m:off + 2 * K * m]
+        off += 2 * K * m
+        w_scaled[nm] = (D, L.reshape(K, m))
+        ds = d_ext[solver.compiled.buckets[nm].asset].T  # (K, m)
+        w_out[nm] = (w_scaled[nm][0] * ds, w_scaled[nm][1] * ds)
+    prices = (rho * nu).cpu().numpy().astype(np.float64) / d
+    cert = certify(compiled_orig, obj, {k: v[0] for k, v in w_out.items()},
+                   {k: v[1] for k, v in w_out.items()}, prices,
+                   psi_claimed=np.asarray(psi.cpu(), np.float64) * d,
+                   device=solver.device)
+    return cert, w_out, w_scaled
+
+
+def gated_route(table, obj, device=None, pad=1024, chunk=CHUNK, gate_every=GATE_EVERY,
+                max_iters=MAX_ITERS, say=log):
+    """``bench_grid.py:run_config`` (fused) with the port: equilibrate,
+    ``compile_table(pad_pools_to=pad)``, float32 at ProjectionConfig(24, 4);
+    ``ChunkedDriver(fused=True)`` chunks from zero at rho 1, a
+    :class:`DeviceGate` dispatched after every ``gate_every``-th chunk and
+    finished while the next chunk runs, the hand-off test
+    (``bench_grid.py:245-310``), the roll-back to the held snapshot, the rho
+    adaptation (never off an exact fixed point), the confirming float64
+    certificate, then ``refine_device(fused=True, cert_space=...)``.  Warm-up
+    (the chunk's capture, the delta solve, the certificate paths) runs before
+    the clock.  Returns the route's numbers and launch counts."""
+    from cfmm_routing_tpu_torch.ops import _build
+    from cfmm_routing_tpu_torch.ops.projection import ProjectionConfig
+    from cfmm_routing_tpu_torch.solver.admm import AdmmOptions, AdmmSolver, RouteResult
+    from cfmm_routing_tpu_torch.solver.compiler import compile_table
+    from cfmm_routing_tpu_torch.solver.driver import ChunkedDriver
+    from cfmm_routing_tpu_torch.solver.precondition import equilibrate, unscale_result
+    from cfmm_routing_tpu_torch.solver.refine_device import (
+        DeltaAdmmSolver, _delta_objective, refine_device,
+    )
+    from cfmm_routing_tpu_torch.solver.residuals import DeviceGate
+
+    t_set = time.perf_counter()
+    eq = equilibrate(table, obj)
+    compiled = compile_table(eq.table, pad_pools_to=pad)
+    compiled_orig = compile_table(table, pad_pools_to=pad)
+    opts = AdmmOptions(max_iters=10**6, eps_abs=0.0, eps_rel=0.0,
+                       projection=ProjectionConfig(n_bisect=24, n_polish=4))
+    solver = AdmmSolver(compiled, dtype=torch.float32, options=opts, device=device)
+    on_card = solver.device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    drv = ChunkedDriver(solver, chunk=chunk, fused=True)
+    c, lo, hi = solver._objective_arrays(eq.objective)
+    sqn = solver._sqrt_edges()
+    groups = len(solver._groups)
+    z = {nm: (solver._zeros(*a["mask"].shape), solver._zeros(*a["mask"].shape))
+         for nm, a in solver.buckets.items()}
+    nu = solver._zeros(solver.n)
+    rho = solver._t(1.0)
+    setup_s = time.perf_counter() - t_set
+
+    # warm-up outside the clock: the chunk's capture, one delta iteration
+    # (the refinement's graphs are captured per pass, on its own arrays,
+    # inside the clock), the certificate paths
+    t0 = time.perf_counter()
+    _, _, psi_w, _ = drv._run_chunk_fused(z, nu, rho, c, lo, hi)
+    dopts = dataclasses.replace(opts, max_iters=chunk, eps_abs=1e-8, eps_rel=1e-8,
+                                adapt_rho=False, projection=AdmmOptions().projection)
+    dsolver = DeltaAdmmSolver(compiled, dtype=torch.float32, options=dopts,
+                              device=solver.device)
+    zeros = {nm: np.zeros(a["mask"].shape) for nm, a in solver.buckets.items()}
+    dummy = RouteResult(objective=0.0, psi=np.zeros(solver.n), prices=np.zeros(solver.n),
+                        deltas=zeros, lambdas=zeros, iters=0, r_norm=0.0, s_norm=0.0,
+                        converged=False, rho_final=1.0)
+    bdict_w, _ = dsolver.delta_buckets(dummy, 1.0, nu0=np.zeros(solver.n))
+    dsolver.solve_delta(_delta_objective(eq.objective, np.zeros(solver.n), 1.0), bdict_w,
+                        np.zeros(solver.n), 1.0, 1, fused=True)
+    gate = DeviceGate(solver, compiled_orig, obj, d=eq.d)
+    certify_orig(solver, compiled_orig, obj, eq.d, z, nu, rho, psi_w)
+    gate.finish(gate.evaluate(z, nu, rho))
+    sync()
+    del bdict_w
+    warm_s = time.perf_counter() - t0
+
+    st = dict(solve_s=0.0, gate_s=0.0, confirm_s=0.0, gates=0, confirms=0, loose=None,
+              tight=None, cert=None, w_scaled=None, handoff=False, r_stall=0,
+              looseness=[], confirmed=[])
+    # the host gate's ms per pass; on the card each kept chunk's events and
+    # whether a host gate ran while it did
+    gate_ms, events = [], []
+
+    def host_gate(pend):
+        it_p, z_p, nu_p, rho_p, solve_p, go_p = pend
+        tc = time.perf_counter()
+        est = gate.finish(go_p)
+        dt = time.perf_counter() - tc
+        st["gate_s"] += dt
+        st["gates"] += 1
+        gate_ms.append(1e3 * dt)
+        score = est.score
+        say(f"#   it={it_p}: gate gap={est.gap_rel:.2e} feas={est.feasibility_rel:.2e} "
+            f"solve={solve_p:.3f}s")
+        if st["loose"] is None and score <= GAP_LOOSE:
+            st["loose"] = (it_p, solve_p)
+        floor_suspect = st["loose"] is not None and st["r_stall"] >= 12
+        # hand-off wants a near-converged dual: small negative gaps are taken
+        # (refinement repairs feasibility), large overshoot is not
+        # (bench_grid.py:245-310)
+        confirm = (score <= GAP_TIGHT
+                   or (st["loose"] is not None and -1.5e-5 <= est.gap_rel <= 5e-6
+                       and est.feasibility_rel <= 1.5e-4)
+                   or (floor_suspect and score <= 3e-4))
+        if not confirm:
+            if floor_suspect:
+                st["r_stall"] = 0
+            return False
+        tc = time.perf_counter()
+        cert, _, w_scaled = certify_orig(solver, compiled_orig, obj, eq.d, z_p, nu_p,
+                                         rho_p, go_p["psi_solve"])
+        st["confirm_s"] += time.perf_counter() - tc
+        st["confirms"] += 1
+        st["cert"], st["w_scaled"] = cert, w_scaled
+        # how far the gate's cheap dual bound sits above the certificate's
+        st["looseness"].append((est.dual - cert.dual_bound)
+                               / max(1.0, abs(cert.dual_bound)))
+        # the prices both bounds were taken at (original units), for a
+        # check of the gate's bound against the reference's on the host
+        st["confirmed"].append(dict(
+            iters=it_p, gate_dual=est.dual, gate_objective=est.objective,
+            cert_dual=cert.dual_bound, cert_objective=cert.objective,
+            prices=go_p["host"].numpy()[3:].astype(np.float64).tolist()))
+        score_c = max(abs(cert.gap_rel), cert.feasibility_rel)
+        say(f"#   it={it_p}: CONFIRM gap={cert.gap_rel:.2e} "
+            f"feas={cert.feasibility_rel:.2e} (gate objective {est.objective:.9g} dual "
+            f"{est.dual:.9g}; certificate {cert.objective:.9g} / {cert.dual_bound:.9g})")
+        if score_c <= GAP_TIGHT:
+            st["tight"] = (it_p, solve_p)
+            return True
+        if (-1.5e-5 <= cert.gap_rel <= 5e-6 and cert.feasibility_rel <= 1.5e-4) or (
+                floor_suspect and score_c <= 3e-4):
+            st["handoff"] = True
+            return True
+        return False
+
+    _build.reset_launch_counts()
+    sync()
+    t_e2e0 = time.perf_counter()
+    iters = ci = evals = 0
+    r_min = math.inf
+    pending = None
+    psi = psi_w
+    while iters < max_iters:
+        t0 = time.perf_counter()
+        if on_card:
+            ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            ev0.record()
+        z_n, nu_n, psi_n, stats = drv._run_chunk_fused(z, nu, rho, c, lo, hi)
+        if on_card:
+            ev1.record()
+        iters += chunk
+        ci += 1
+        gate_out = None
+        if ci % gate_every == 0:
+            # the gate of this chunk's state: queued behind it, finished
+            # while the next chunk runs
+            gate_out = gate.evaluate(z_n, nu_n, rho)
+            gate_out["psi_solve"] = psi_n
+            evals += 1
+        prev, pending = pending, None
+        if prev is not None and host_gate(prev):
+            # decisions act on the held snapshot: roll back to it (the chunk
+            # in flight is discarded, its time already overlapped)
+            iters, z, nu, rho, st["solve_s"] = prev[:5]
+            psi = prev[5]["psi_solve"]
+            break
+        r_t, s_t = solver._residuals(solver._joint(stats), sqn)[:2]
+        r, s = (float(x) for x in torch.stack([r_t, s_t]).cpu())
+        if on_card:
+            events.append((ev0, ev1, prev is not None))
+        st["solve_s"] += time.perf_counter() - t0
+        z, nu, psi = z_n, nu_n, psi_n
+        if gate_out is not None:
+            pending = (iters, z_n, nu_n, rho, st["solve_s"], gate_out)
+        # never adapt off an exact float32 fixed point: r can reach 0 there
+        if min(r, s) > 1e-6:
+            if r > 3.0 * s:
+                rho, nu = rho * 2.0, nu / 2.0
+            elif s > 3.0 * r:
+                rho, nu = rho / 2.0, nu * 2.0
+        st["r_stall"] = 0 if r < 0.9 * r_min else st["r_stall"] + 1
+        r_min = min(r_min, r)
+    if pending is not None and st["tight"] is None and not st["handoff"]:
+        host_gate(pending)
+        iters, z, nu, rho, st["solve_s"] = pending[:5]
+        psi = pending[5]["psi_solve"]
+    if st["cert"] is None:
+        tc = time.perf_counter()
+        st["cert"], _, st["w_scaled"] = certify_orig(solver, compiled_orig, obj, eq.d, z,
+                                                     nu, rho, psi)
+        st["confirm_s"] += time.perf_counter() - tc
+        st["confirms"] += 1
+    sync()
+    loop_wall_s = time.perf_counter() - t_e2e0
+    loop_launches = dict(_build.LAUNCHES)
+    # the card's time between one chunk's end and the next one's start:
+    # after a chunk during which a host gate ran (the part of the gate the
+    # chunk did not hide, plus the residual read and the next launch) and
+    # after any other chunk (the gate's device pass, the residual read and
+    # the next launch)
+    chunk_ms = [a0.elapsed_time(a1) for a0, a1, gated in events if gated]
+    idle_gated, idle_other = [], []
+    for (_, a1, gated), (b0, _, _) in zip(events, events[1:]):
+        (idle_gated if gated else idle_other).append(a1.elapsed_time(b0))
+    cert, final = st["cert"], st["cert"]
+    refine_s, refine_iters, achieved = 0.0, 0, st["tight"] is not None
+    refine_launches = {}
+    if st["tight"] is None:
+        w = st["w_scaled"]
+        res32 = RouteResult(
+            objective=float(solver._objective_value(c, psi)),
+            psi=np.asarray(psi.cpu(), np.float64),
+            prices=np.asarray((rho * nu).cpu(), np.float64),
+            deltas={k: v[0] for k, v in w.items()}, lambdas={k: v[1] for k, v in w.items()},
+            iters=iters, r_norm=0.0, s_norm=0.0, converged=False,
+            rho_final=float(rho))
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        ref = refine_device(compiled, eq.objective, res32, target_gap=GAP_TIGHT,
+                            solver=dsolver, fused=True, entry_cert=cert,
+                            cert_space=(compiled_orig, obj,
+                                        lambda r: unscale_result(r, eq.d, compiled)))
+        sync()
+        refine_s = time.perf_counter() - t0
+        refine_launches = dict(_build.LAUNCHES)
+        refine_iters, achieved, final = ref.iters, bool(ref.achieved), ref.certificate
+    return dict(
+        n_pools=table.n_pools, n_assets=table.n_assets, groups=groups, chunk=chunk,
+        setup_s=setup_s, warm_s=warm_s,
+        iters_to_1e3=st["loose"][0] if st["loose"] else None,
+        solve_s_to_1e3=st["loose"][1] if st["loose"] else None,
+        iters_to_1e6=st["tight"][0] if st["tight"] else None,
+        device_iters=iters, device_solve_s=st["solve_s"], handoff=st["handoff"],
+        chunks=ci, gates_evaluated=evals, gate_passes=st["gates"],
+        gate_s_total=st["gate_s"], gate_s_per_pass=st["gate_s"] / max(1, st["gates"]),
+        confirms=st["confirms"], confirm_s=st["confirm_s"], loop_wall_s=loop_wall_s,
+        gate_dual_looseness=st["looseness"], confirmed=st["confirmed"],
+        entry=dict(gap_rel=cert.gap_rel, feasibility_rel=cert.feasibility_rel),
+        refine_s=refine_s, refine_iters=refine_iters, wall_s=loop_wall_s + refine_s,
+        gap_rel=final.gap_rel, feasibility_rel=final.feasibility_rel,
+        objective=final.objective, achieved=achieved,
+        gate_host_ms=gate_ms, chunk_device_ms=chunk_ms, idle_after_gate_ms=idle_gated,
+        idle_other_ms=idle_other,
+        loop_launches=loop_launches, refine_launches=refine_launches)
+
+
+# the three rows of BENCH_GRID.md's table: (assets, pools)
+GATED_SIZES = ((64, 1_000), (64, 10_000), (256, 100_000))
+
+
+def check_gated(label, out):
+    """Raise unless a gated route ended certified at 1e-6 and, on the card,
+    its loop ran the fused base with exactly one classic iteration a chunk:
+    ``fused_step`` K-groups x (chunk - 1) x chunks; ``project`` K-groups x
+    (chunks + gate passes + confirming certificates); ``segment_sum``
+    K-groups x (chunk x chunks + 2 x gate passes)."""
+    if not (out["achieved"] and abs(out["gap_rel"]) <= GAP_TIGHT
+            and out["feasibility_rel"] <= GAP_TIGHT):
+        raise AssertionError(f"{label}: no certificate at 1e-6: gap {out['gap_rel']:.3e} "
+                             f"feasibility {out['feasibility_rel']:.3e}")
+    g, ch, n = out["groups"], out["chunk"], out["chunks"]
+    want = dict(fused_step=g * (ch - 1) * n,
+                project=g * (n + out["gates_evaluated"] + out["confirms"]),
+                segment_sum=g * (ch * n + 2 * out["gates_evaluated"]))
+    got = {k: out["loop_launches"][k] for k in want}
+    if got != want:
+        raise AssertionError(f"{label}: gated loop launches {got} != {want} (a classic "
+                             "iteration ran beyond one per chunk, or a kernel did not run)")
+    if out["refine_iters"] and out["refine_launches"]["fused_step_delta"] == 0:
+        raise AssertionError(f"{label}: the refinement never launched fused_step_delta")
+
+
+def gated_kernel_checks(label, table, obj, pad=1024, device=None):
+    """Phase 5b's kernels against their plain versions at one size of the
+    gated route: its bucket dict (equilibrated, ``pad_pools_to=pad``,
+    float32 at (24, 4)) from a state of 20 fused iterations, and its delta
+    buckets (float32 at the refinement's (48, 6)) from a 20-iteration base
+    and 5 fused delta iterations.  Per K-group, bitwise: the grouped
+    ``fused_step``, ``project_grouped``, ``segment_sum``,
+    ``fused_step_delta_grouped`` and ``project_delta_grouped``, each also
+    bitwise across two launches.  Returns the checked calls per kernel."""
+    from cfmm_routing_tpu_torch.ops.iteration_cuda import (
+        fused_step_delta_grouped, fused_step_delta_grouped_plain, fused_step_grouped,
+        fused_step_grouped_plain,
+    )
+    from cfmm_routing_tpu_torch.ops.projection import ProjectionConfig
+    from cfmm_routing_tpu_torch.ops.projection_cuda import (
+        project_delta_grouped, project_delta_grouped_plain, project_grouped,
+        project_grouped_plain,
+    )
+    from cfmm_routing_tpu_torch.ops.segment import segment_sum, segment_sum_plain
+    from cfmm_routing_tpu_torch.solver.admm import AdmmOptions, AdmmSolver
+    from cfmm_routing_tpu_torch.solver.compiler import compile_table
+    from cfmm_routing_tpu_torch.solver.precondition import equilibrate
+    from cfmm_routing_tpu_torch.solver.refine import to_host
+    from cfmm_routing_tpu_torch.solver.refine_device import (
+        DeltaAdmmSolver, _delta_objective, _prep_delta_solve, _psi_from_trades,
+    )
+
+    cfg, cfg_delta = ProjectionConfig(n_bisect=24, n_polish=4), ProjectionConfig()
+    eq = equilibrate(table, obj)
+    compiled = compile_table(eq.table, pad_pools_to=pad)
+    solver = AdmmSolver(compiled, dtype=torch.float32, options=AdmmOptions(projection=cfg),
+                        device=device)
+    sync = torch.cuda.synchronize if solver.device.type == "cuda" else (lambda: None)
+    c, lo, hi = solver._objective_arrays(eq.objective)
+    rho = solver._t(1.0)
+    s, wdef, nu = solver.fused_init()
+    for _ in range(20):
+        s, wdef, nu, _, _ = solver._iterate_fused(s, wdef, nu, rho, c, lo, hi)
+    z = solver.fused_to_z(s, wdef)
+    v, _ = solver._fold_pack(wdef - nu)
+    pin = {}
+    for name in solver.buckets:
+        nu_e = solver._bcast_nu(nu, name)
+        pin[name] = (z[name][0] - nu_e, z[name][1] + nu_e)
+    checked = {k: 0 for k in ("fused_step", "project", "segment_sum", "fused_step_delta",
+                              "project_delta")}
+
+    def check(kname, K, kfn, pfn):
+        got, again, want = kfn(), kfn(), pfn()
+        sync()
+        if kname == "segment_sum":
+            got, again, want = [got], [again], [want]
+        else:
+            got, again, want = (grouped_leaves(x) for x in (got, again, want))
+        bitwise(f"5b {label}: {kname}[K={K}]", got, want)
+        bitwise(f"5b {label}: {kname}[K={K}] second launch", again, got)
+        checked[kname] += 1
+
+    for g in solver._groups:
+        val = torch.cat([((s[nm][1] - s[nm][0]) * solver.buckets[nm]["mask"]).reshape(-1)
+                         for nm in g["names"]])
+        check("fused_step", g["K"],
+              lambda: fused_step_grouped(s, v, solver.buckets, g, 1.0, cfg=cfg),
+              lambda: fused_step_grouped_plain(s, v, solver.buckets, g, 1.0, cfg=cfg))
+        check("project", g["K"],
+              lambda: project_grouped(pin, solver.buckets, g, cfg=cfg),
+              lambda: project_grouped_plain(pin, solver.buckets, g, cfg=cfg))
+        check("segment_sum", g["K"],
+              lambda: segment_sum(val, g["order"], g["seg"], v.shape[0]),
+              lambda: segment_sum_plain(val, g["order"], g["seg"], v.shape[0]))
+    base = to_host(solver.solve_fused(eq.objective, iters=20))
+    base = base._replace(psi=_psi_from_trades(compiled, base))
+    rho_d = float(np.clip(np.asarray(base.rho_final), 0.25, 4.0))
+    nu0 = (np.asarray(base.prices, np.float64) / rho_d).astype(np.float32).astype(np.float64)
+    ds = DeltaAdmmSolver(compiled, dtype=torch.float32,
+                         options=AdmmOptions(adapt_rho=False, projection=cfg_delta),
+                         device=solver.device)
+    bdict, min_x0 = ds.delta_buckets(base, 1e-3, nu0=nu0)
+    if not min_x0 > 0:
+        raise AssertionError(f"5b {label}: the base point has min x0 = {min_x0}")
+    dc, dlo, dhi, _, start = _prep_delta_solve(
+        _delta_objective(eq.objective, base.psi, 1e-3), nu0, rho_d, ds)
+    rho_t = ds._t(rho_d)
+    st, wd, _ = ds.fused_init(bdict)
+    dnu = ds._t(start)
+    for _ in range(5):
+        st, wd, dnu, _, _ = ds._iterate_fused(st, wd, dnu, rho_t, dc, dlo, dhi, buckets=bdict)
+    dv, _ = ds._fold_pack(wd - dnu)
+    dpin = {}
+    for name, arrs in bdict.items():
+        off = ds._bcast_nu(wd - dnu, name, bdict) - arrs["nu0e"]
+        dpin[name] = (st[name][0] + off, st[name][1] - off)
+    for g in ds._groups:
+        check("fused_step_delta", g["K"],
+              lambda: fused_step_delta_grouped(st, dv, bdict, g, 1.0, cfg=cfg_delta),
+              lambda: fused_step_delta_grouped_plain(st, dv, bdict, g, 1.0, cfg=cfg_delta))
+        check("project_delta", g["K"],
+              lambda: project_delta_grouped(dpin, bdict, g, cfg=cfg_delta),
+              lambda: project_delta_grouped_plain(dpin, bdict, g, cfg=cfg_delta))
+    log(f"# 5b {label}: fused_step, project, segment_sum, fused_step_delta and "
+        f"project_delta bitwise equal to their plain versions on every K-group of this "
+        f"size's buckets ({[g['names'] for g in solver._groups]}) and delta buckets, and "
+        f"across launches: {checked}")
+    return checked
+
+
+def gated_phase(report, card):
+    """Phase 5b: the reference's gated route (``gated_route``) at 1k, 10k
+    and 100k pools, replayed, and at 100k also eagerly (equal to the
+    replayed run: the same iterations, certificate and launches).  Returns
+    the replayed runs' launch counts (loop and refinement)."""
+    from cfmm_routing_tpu_torch.solver import graphs
+    from cfmm_routing_tpu_torch.utils.synth import random_arbitrage_table
+
+    t_phase = time.perf_counter()
+    rows, main, checks = {}, [], {}
+    for n_assets, m in GATED_SIZES:
+        table, obj = random_arbitrage_table(n_assets, m, seed=7)
+        checks[m] = gated_kernel_checks(f"{m} pools / {n_assets} assets", table, obj)
+        for mode in (("replayed", "eager") if m == 100_000 else ("replayed",)):
+            label = f"gated route {m} pools / {n_assets} assets ({mode})"
+            log(f"# 5b {label}:")
+            ctx = graphs.eager() if mode == "eager" else contextlib.nullcontext()
+            with ctx:
+                out = gated_route(table, obj)
+            check_gated(label, out)
+            med = lambda xs: statistics.median(xs) if xs else float("nan")  # noqa: E731
+            log(f"# 5b {label}: to gate score 1e-3 {out['iters_to_1e3']} iterations "
+                f"{out['solve_s_to_1e3']:.3f} s; hand-off at {out['device_iters']} "
+                f"iterations {out['device_solve_s']:.3f} s of device solve ({out['chunks']} "
+                f"chunks of {out['chunk']}); {out['gate_passes']} gate passes, host "
+                f"{out['gate_s_total']:.3f} s ({1e3 * out['gate_s_per_pass']:.2f} ms a pass); "
+                f"confirm certificate {out['confirm_s']:.3f} s ({out['confirms']}; the "
+                f"gate's dual bound above the certificate's by "
+                f"{', '.join(f'{x:.2e}' for x in out['gate_dual_looseness'])} relative); "
+                f"entry gap {out['entry']['gap_rel']:.2e} feas "
+                f"{out['entry']['feasibility_rel']:.2e}")
+            log(f"# 5b {label}: refinement {out['refine_iters']} iterations "
+                f"{out['refine_s']:.3f} s; gated loop + refinement {out['wall_s']:.3f} s "
+                f"(loop {out['loop_wall_s']:.3f} s; set-up {out['setup_s']:.2f} s and "
+                f"warm-up {out['warm_s']:.2f} s before the clock); final gap "
+                f"{out['gap_rel']:.3e} feasibility {out['feasibility_rel']:.3e} (original "
+                f"units); overlap (medians): host gate {med(out['gate_host_ms']):.2f} ms a "
+                f"pass beside the {med(out['chunk_device_ms']):.2f} ms device chunk it "
+                f"runs during; the card then idles {med(out['idle_after_gate_ms']):.3f} ms "
+                f"(max {max(out['idle_after_gate_ms'], default=float('nan')):.3f}) before "
+                f"the next chunk, against {med(out['idle_other_ms']):.3f} ms after a chunk "
+                f"with no host gate")
+            log(f"# 5b {label}: loop launches {out['loop_launches']}; refinement "
+                f"{out['refine_launches']}")
+            rows[f"{m} {mode}"] = out
+            if mode == "replayed":
+                main += [out["loop_launches"], out["refine_launches"]]
+        if m == 100_000:
+            a, b = rows["100000 replayed"], rows["100000 eager"]
+            same = [a["device_iters"] == b["device_iters"], a["gap_rel"] == b["gap_rel"],
+                    a["refine_iters"] == b["refine_iters"],
+                    a["loop_launches"] == b["loop_launches"],
+                    a["refine_launches"] == b["refine_launches"]]
+            if not all(same):
+                raise AssertionError(f"gated route 100k: the eager run differs from the "
+                                     f"replayed one (iterations, gap, refinement, "
+                                     f"launches): {same}")
+            log(f"# 5b gated route 100k: replayed {a['wall_s']:.3f} s vs eager "
+                f"{b['wall_s']:.3f} s, the same route (iterations, certificate, launches) "
+                f"on {card}")
+    report["gated_route"] = rows
+    report["gated_kernel_checks"] = checks
+    log(f"# phase 5b (gated route) done in {time.perf_counter() - t_phase:.1f} s")
+    return main
+
+
+# phase 7e's utility: U = c@psi - psi^T Q psi / 2, Q's largest eigenvalue
+# the cell's curvature, on a box wide enough that the optimum is interior
+# and the box-free conjugate is tight.  Its cells: the 100k network at
+# curvature 1e-4, and the 10k / 64-asset network at 1e-3.  At the 100k
+# network's degree (~900 slots an asset) curvature 1e-3 does not certify:
+# the reference's own refine_device stalls there too (gap 6.4e-6 at
+# 3,000 pools / 8 assets, degree ~860, chunk for chunk the port's;
+# ``tests/cross_check.py custom``), while at degree ~360 (10k / 64) both
+# certify.  At the test's own curvature (~4) the base alone certifies and
+# refinement never runs.
+QUAD_CURV = 1e-4
+QUAD_BOX = 1e6
+CUSTOM_CELLS = ((256, 100_000, QUAD_CURV), (64, 10_000, 1e-3))
+
+
+def quad_data(n, curvature):
+    """Phase 7e's Q: A A^T / n + 0.1 I (``tests/test_custom_utility.py:77-108``,
+    A from seed 5) scaled to largest eigenvalue ``curvature``, rounded to
+    the float32 values the card computes with (the utility's exact data)."""
+    A = np.random.default_rng(5).normal(size=(n, n))
+    Q = A @ A.T / n + 0.1 * np.eye(n)
+    Q = Q * (curvature / np.linalg.eigvalsh(Q)[-1])
+    return Q.astype(np.float32).astype(np.float64)
+
+
+def custom_route(n_assets, m, cfg_main, curvature=QUAD_CURV):
+    """Phase 7e's route at one size: the float32 classic base (phase 5's
+    options) with the quadratic CustomUtility of :func:`quad_data`, then
+    ``refine_device(target_gap=1e-6)`` (classic delta
+    path, residual check every 25 iterations so that its blocks replay),
+    certified in original units.  It solves in the equilibrated space of the
+    utility's linear part, the power-of-two scales d composed into the
+    utility by hand (U_d(p) = U(d p), conjugate conj(nu / d)), as
+    ``precondition``'s refusal asks.  Returns its numbers; raises unless
+    certified at 1e-6."""
+    from cfmm_routing_tpu_torch.models.utility import CustomUtility
+    from cfmm_routing_tpu_torch.ops import _build
+    from cfmm_routing_tpu_torch.solver.admm import AdmmOptions, AdmmSolver
+    from cfmm_routing_tpu_torch.solver.certify import certify
+    from cfmm_routing_tpu_torch.solver.compiler import compile_table
+    from cfmm_routing_tpu_torch.solver.precondition import equilibrate, unscale_result
+    from cfmm_routing_tpu_torch.solver.refine import to_host
+    from cfmm_routing_tpu_torch.solver.refine_device import refine_device
+    from cfmm_routing_tpu_torch.utils.synth import random_arbitrage_table
+
+    table, obj = random_arbitrage_table(n_assets, m, seed=7)
+    n = n_assets
+    eq = equilibrate(table, obj)
+    d = eq.d
+    compiled = compile_table(eq.table, pad_pools_to=1024)
+    compiled_orig = compile_table(table, pad_pools_to=1024)
+    Q, c = quad_data(n, curvature), np.asarray(obj.c).astype(np.float32).astype(np.float64)
+    Qt = torch.as_tensor(Q, dtype=torch.float32, device="cuda")
+    ct = torch.as_tensor(c, dtype=torch.float32, device="cuda")
+    dt = torch.as_tensor(d, dtype=torch.float32, device="cuda")
+    Qinv = np.linalg.inv(Q)
+
+    def conj(nu):  # sup_psi U(psi) - nu @ psi, box-free: an upper bound
+        return 0.5 * float((c - nu) @ Qinv @ (c - nu))
+
+    def fn(p):  # torch ops only, no host read: captured on the card
+        return torch.dot(ct.to(p), p) - 0.5 * torch.dot(p, Qt.to(p) @ p)
+
+    def fn_d(p):  # U(d p): d is a power of two per asset, exact
+        return fn(dt.to(p) * p)
+
+    lo, hi = np.full(n, -QUAD_BOX), np.full(n, QUAD_BOX)
+    util = CustomUtility(fn, lo=lo, hi=hi,
+                         smoothness=float(np.linalg.eigvalsh(Q)[-1]) * (1 + 1e-9),
+                         prox_iters=80, conjugate=conj)
+    util_d = CustomUtility(
+        fn_d, lo=lo / d, hi=hi / d,
+        smoothness=float(np.linalg.eigvalsh(Q * np.outer(d, d))[-1]) * (1 + 1e-9),
+        prox_iters=80, conjugate=lambda nu: conj(nu / d))
+    opts = AdmmOptions(max_iters=3000, eps_abs=1e-7, eps_rel=1e-7, check_every=25,
+                       projection=cfg_main)
+    solver = AdmmSolver(compiled, dtype=torch.float32, options=opts)
+    # capture cost: one check block (capture + one replay) against the same
+    # block replayed again
+    times = []
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_reserved()
+    for _ in range(2):
+        t0 = time.perf_counter()
+        solver.solve(util_d, max_iters=25)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    capture_s = times[0] - times[1]
+    capture_mb = (torch.cuda.memory_reserved() - mem0) / 2**20
+    te, tr, _ = replay_vs_eager("custom-utility classic base, 50 iterations",
+                                lambda: solver.solve(util_d, max_iters=50))
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = solver.solve(util_d)
+    torch.cuda.synchronize()
+    base_s = time.perf_counter() - t0
+    base_launches = dict(_build.LAUNCHES)
+    unscale = lambda r: unscale_result(r, d, compiled)  # noqa: E731
+    r0 = unscale(to_host(res))
+    t0 = time.perf_counter()
+    entry = certify(compiled_orig, util, r0.deltas, r0.lambdas, r0.prices,
+                    psi_claimed=r0.psi)
+    entry_s = time.perf_counter() - t0
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = refine_device(compiled, util_d, res, target_gap=1e-6, entry_cert=entry,
+                        options=dataclasses.replace(AdmmOptions(), check_every=25),
+                        cert_space=(compiled_orig, util, unscale))
+    torch.cuda.synchronize()
+    refine_s = time.perf_counter() - t0
+    refine_launches = dict(_build.LAUNCHES)
+    fc = out.certificate
+    row = dict(n_pools=m, n_assets=n, curvature=curvature,
+               base_iters=int(res.iters), base_s=base_s,
+               converged=bool(res.converged), refine_iters=out.iters, refine_s=refine_s,
+               entry=dict(gap_rel=entry.gap_rel, feasibility_rel=entry.feasibility_rel),
+               entry_s=entry_s,
+               wall_s=base_s + entry_s + refine_s, achieved=bool(out.achieved),
+               gap_rel=fc.gap_rel,
+               feasibility_rel=fc.feasibility_rel, objective=fc.objective,
+               capture_s=capture_s, capture_mb=capture_mb, block_s=times,
+               replay_check=dict(eager_s=te, replayed_s=tr),
+               base_launches=base_launches, refine_launches=refine_launches)
+    log(f"# 7e custom utility {m} pools / {n} assets (curvature {curvature:g}, solved "
+        f"equilibrated): base {row['base_iters']} "
+        f"classic iterations {base_s:.3f} s (converged {row['converged']}; entry "
+        f"certificate gap {entry.gap_rel:.2e} feas {entry.feasibility_rel:.2e}, "
+        f"{entry_s:.3f} s); refinement "
+        f"{out.iters} iterations {refine_s:.3f} s; final gap {fc.gap_rel:.3e} "
+        f"feasibility {fc.feasibility_rel:.3e} (objective {fc.objective:.6f}); a check "
+        f"block's capture {capture_s:.3f} s and {capture_mb:.1f} MB (memory_reserved), "
+        f"replayed {times[1]:.3f} s; 50 iterations replayed {tr:.3f} s vs eager "
+        f"{te:.3f} s, bitwise equal")
+    log(f"# 7e launches: base {base_launches}; refinement {refine_launches}")
+    missing = [k for k, dd in (("project", base_launches), ("segment_sum", base_launches),
+                               ("project_delta", refine_launches)) if dd[k] == 0]
+    if missing:
+        raise AssertionError(f"custom-utility route: kernels never launched: {missing}")
+    if not (out.achieved and abs(fc.gap_rel) <= 1e-6 and fc.feasibility_rel <= 1e-6):
+        raise AssertionError(f"custom-utility route at {m} pools: no certificate at 1e-6: "
+                             f"{fc.summary()} feasibility {fc.feasibility_rel:.3e}")
+    return row
+
+
+def custom_phase(report, card, cfg_main):
+    """Phase 7e: the certified custom-utility route (``custom_route``) at
+    each of ``CUSTOM_CELLS``.  Returns their launch counts (base and
+    refinement)."""
+    t_phase = time.perf_counter()
+    rows, launches = {}, []
+    for n_assets, m, curvature in CUSTOM_CELLS:
+        row = custom_route(n_assets, m, cfg_main, curvature=curvature)
+        rows[f"{m} pools / {n_assets} assets, curvature {curvature:g}"] = row
+        launches += [row["base_launches"], row["refine_launches"]]
+    report["custom_utility_route"] = rows
+    log(f"# phase 7e (custom utility) done in {time.perf_counter() - t_phase:.1f} s on "
+        f"{card}")
+    return launches
 
 
 def sweep_phase(report, rows, card, cfg_main, cfg64):
@@ -1408,7 +2084,9 @@ def package_times(root):
       100k pools x 8 reserve scenarios (6b), 10k pools x 50 points (6c) and
       1,000 pools x 1,024 points (6a);
     * the build's seconds (0.0 for a library found built), registers and
-      spills and SASS loops (:func:`build_report`).
+      spills and SASS loops (:func:`build_report`);
+    * the host-side times of phases 4, 6b and 7c's paths
+      (:func:`path_times`).
     """
     import os
 
@@ -1509,9 +2187,10 @@ def package_times(root):
     compiled = compile_table(eq.table, pad_pools_to=1024)
     solver = AdmmSolver(compiled, dtype=torch.float32, options=opts)
     out["100k"] = case("100k", solver, solver.buckets, eq.objective)
-    del solver
     B = 8
     scale = np.random.default_rng(3).uniform(0.7, 1.3, size=(B, compiled.n_pools))
+    del solver
+    out["paths"] = path_times(table, obj, compiled, eq.objective, scale, cfg)
     fs = AdmmSolver(fold_compiled(compiled, B), dtype=torch.float32, options=opts,
                     fold=(B, compiled.n_assets))
     bd = _reserve_buckets(fs, fold_compiled(compiled, B, scale))
@@ -1528,6 +2207,68 @@ def package_times(root):
         del fsb
         torch.cuda.empty_cache()
     out["registers"], out["sass_loops"] = build_report(str(_build.BUILD_DIR))
+    return out
+
+
+def path_times(table, obj, compiled, objective, scale, cfg, reps=5):
+    """Host-side path times for ``--times``, replayed, with phases 4, 6b
+    and 7c's options, each the least of ``reps`` runs after a warm-up:
+    phase 4's ``solve_fused(iters=499)`` (CUDA events around the call, as
+    phase 4 times it); phase 6b's ``solve_batch_reserves_folded(n_iters=749)``
+    over the reserve ``scale`` (host clock, reserve planes included, as 6b
+    times it); phase 7c's classic utility base (3,000 iterations, check
+    every 25) on a new solver, its check block's capture included, as 7c
+    times it, and again on the same solver (host clock)."""
+    from cfmm_routing_tpu_torch.models.utility import ConcaveUtility
+    from cfmm_routing_tpu_torch.solver.admm import AdmmOptions, AdmmSolver
+    from cfmm_routing_tpu_torch.solver.compiler import compile_table
+    from cfmm_routing_tpu_torch.solver.fold import solve_batch_reserves_folded
+    from cfmm_routing_tpu_torch.solver.precondition import equilibrate
+
+    solver = AdmmSolver(compiled, dtype=torch.float32, options=AdmmOptions(
+        max_iters=500, eps_abs=0.0, eps_rel=0.0, adapt_rho=False, projection=cfg))
+    fused = []
+    for _ in range(reps + 1):
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        solver.solve_fused(objective, iters=499)
+        stop.record()
+        stop.synchronize()
+        fused.append(start.elapsed_time(stop) / 1e3)
+    del solver
+    opts6 = AdmmOptions(max_iters=750, eps_abs=0.0, eps_rel=0.0, adapt_rho=False,
+                        projection=cfg)
+    folded = []
+    for _ in range(reps + 1):
+        t0 = time.perf_counter()
+        solve_batch_reserves_folded(compiled, objective, scale, options=opts6, n_iters=749)
+        folded.append(time.perf_counter() - t0)
+    util = ConcaveUtility.linear(obj.c, lo=obj.lo, hi=obj.hi)
+    util = util.with_log(1, c=1.0, b=2.0).with_log(3, c=0.5, b=1.0)
+    eq_u = equilibrate(table, util)
+    compiled_u = compile_table(eq_u.table, pad_pools_to=1024)
+    base_opts = AdmmOptions(max_iters=3000, eps_abs=1e-7, eps_rel=1e-7, check_every=25,
+                            projection=cfg)
+    fresh, again = [], []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        base_solver = AdmmSolver(compiled_u, dtype=torch.float32, options=base_opts)
+        base_solver.solve(eq_u.objective)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        base_solver.solve(eq_u.objective)
+        torch.cuda.synchronize()
+        fresh.append(t1 - t0)
+        again.append(time.perf_counter() - t1)
+    out = dict(fused_s=fused[1:], fused_iters_per_s=500 / min(fused[1:]),
+               reserve_s=folded[1:], reserve_iters_per_s=750 / min(folded[1:]),
+               utility_base_s=fresh[1:], utility_base_again_s=again[1:])
+    log(f"# paths (replayed): phase 4's fused solve {out['fused_iters_per_s']:.1f} it/s "
+        f"{[round(x, 5) for x in fused[1:]]} s; phase 6b's folded reserve batch "
+        f"{out['reserve_iters_per_s']:.1f} it/s {[round(x, 4) for x in folded[1:]]} s; "
+        f"phase 7c's utility base {[round(x, 4) for x in fresh[1:]]} s on a new solver, "
+        f"{[round(x, 4) for x in again[1:]]} s again")
     return out
 
 
@@ -2392,6 +3133,9 @@ def main(argv=None):
     log(f"# phase 5 (certified route) done in {time.perf_counter() - t_phase:.1f} s")
     del route_eager, rt, out
 
+    # ---- 5b. the reference's gated route at 1k, 10k and 100k pools ------------
+    phase5b = gated_phase(report, card=smi)
+
     # ---- 6. sweeps and batches ------------------------------------------------
     phase6 = sweep_phase(report, rows, card=smi, cfg_main=cfg_main, cfg64=cfg64)
 
@@ -2399,7 +3143,9 @@ def main(argv=None):
     phase7 = merged_utility_phase(report, rows, card=smi, cfg_main=cfg_main, cfg64=cfg64,
                                   counting_solver=CountingDeltaSolver,
                                   refine_opts=refine_opts)
-    main_launches = [launches4, launches5] + phase6 + phase7
+    # ---- 7e. a certified non-separable (custom) utility route ----------------
+    phase7e = custom_phase(report, card=smi, cfg_main=cfg_main)
+    main_launches = [launches4, launches5] + phase5b + phase6 + phase7 + phase7e
 
     # ---- 8. CUDA-graph replays against eager runs -----------------------------
     replay_phase(report, card=smi, cfg_main=cfg_main, cfg64=cfg64)

@@ -766,3 +766,92 @@ def test_failed_capture_raises(cuda_device):
 
     with pytest.raises(RuntimeError):
         graphs.run_block(solver, "sync", step, 3, 1, x, ())
+
+
+# ---- slice 9: the device gate and non-separable utilities --------------------
+
+def test_device_gate_card_matches_cpu(cuda_device):
+    """``DeviceGate`` on the card against the same gate on the CPU, on the
+    same equilibrated state: one ``project`` launch per K-group and two
+    segment sums per K-group a pass, estimates at ``tests/test_residuals.py``'s
+    bars (objective 1e-5 relative, dual 1e-9 relative, gap and feasibility
+    1e-5)."""
+    from cfmm_routing_tpu_torch.solver.precondition import equilibrate
+    from cfmm_routing_tpu_torch.solver.residuals import DeviceGate
+
+    table, obj = random_arbitrage_table(16, 300, seed=4, reserve_scale=1.0)
+    eq = equilibrate(table, obj)
+    compiled = compile_table(eq.table, pad_pools_to=128)
+    orig = compile_table(table, pad_pools_to=128)
+    opts = AdmmOptions(max_iters=100, check_every=25, projection=CFG)
+    cpu = AdmmSolver(compiled, options=opts, device="cpu")
+    res = cpu.solve(eq.objective)
+    z, nu = cpu.warm_state(res, 1.0)
+    gate_cpu = DeviceGate(cpu, orig, obj, d=eq.d)
+    want = gate_cpu.finish(gate_cpu.evaluate(z, nu, 1.0))
+    card = AdmmSolver(compiled, options=opts, device=cuda_device)
+    gate = DeviceGate(card, orig, obj, d=eq.d)
+    zc = {k: (a.to(cuda_device), b.to(cuda_device)) for k, (a, b) in z.items()}
+    _ = card._groups
+    _build.reset_launch_counts()
+    got = gate.finish(gate.evaluate(zc, nu.to(cuda_device), 1.0))
+    assert _build.LAUNCHES["project"] == len(card._groups) == 2
+    assert _build.LAUNCHES["segment_sum"] == 2 * len(card._groups)
+    assert abs(got.objective - want.objective) <= 1e-5 * max(1.0, abs(want.objective))
+    assert abs(got.dual - want.dual) <= 1e-9 * max(1.0, abs(want.dual))
+    assert abs(got.gap_rel - want.gap_rel) <= 1e-5
+    assert abs(got.feasibility_rel - want.feasibility_rel) <= 1e-5
+
+
+def _card_quadratic(device, prox_iters, read_host=False):
+    """A (network, CustomUtility) pair: c@psi - psi^T Q psi / 2 on the
+    random_arbitrage(5, 8, seed=13) network, Q and c on the card."""
+    from cfmm_routing_tpu_torch.models.utility import CustomUtility
+    from cfmm_routing_tpu_torch.utils.synth import random_arbitrage
+
+    spec, lin = random_arbitrage(5, 8, seed=13)
+    n = spec.n_assets
+    A = np.random.default_rng(5).normal(size=(n, n)) / np.sqrt(n)
+    Qt = torch.as_tensor(A @ A.T + 0.1 * np.eye(n), device=device)
+    ct = torch.as_tensor(np.asarray(lin.c), device=device)
+
+    def fn(p):
+        v = torch.dot(ct.to(p), p) - 0.5 * torch.dot(p, Qt.to(p) @ p)
+        return v * float(p.sum() * 0 + 1) if read_host else v
+
+    return spec, CustomUtility(fn, lo=np.full(n, -5.0), hi=np.full(n, 50.0),
+                               smoothness=float(torch.linalg.eigvalsh(Qt)[-1]),
+                               prox_iters=prox_iters)
+
+
+def test_custom_solve_replay_matches_eager_bitwise(cuda_device):
+    """A CustomUtility's classic solve (its FISTA prox and autograd inside
+    the captured check blocks): replayed bitwise equal to eager, with the
+    same launch counts; the ``project`` and ``segment_sum`` kernels run."""
+    spec, util = _card_quadratic(cuda_device, prox_iters=20)
+    for dtype in (torch.float32, torch.float64):
+        solver = AdmmSolver(compile_spec(spec), dtype=dtype, device=cuda_device,
+                            options=AdmmOptions(max_iters=40, eps_abs=0.0, eps_rel=0.0,
+                                                check_every=10, projection=CFG))
+        with graphs.eager():
+            _build.reset_launch_counts()
+            want = _leaves(solver.solve(util))
+            eager_counts = dict(_build.LAUNCHES)
+        _build.reset_launch_counts()
+        got = _leaves(solver.solve(util))
+        torch.cuda.synchronize()
+        assert dict(_build.LAUNCHES) == eager_counts
+        assert eager_counts["project"] > 0 and eager_counts["segment_sum"] > 0
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b.cpu())
+
+
+def test_custom_fn_reading_the_host_raises(cuda_device):
+    """A CustomUtility whose fn reads a value back to the host cannot be
+    captured: the solve raises and says why, and nothing runs eagerly
+    instead."""
+    spec, util = _card_quadratic(cuda_device, prox_iters=5, read_host=True)
+    solver = AdmmSolver(compile_spec(spec), device=cuda_device,
+                        options=AdmmOptions(max_iters=20, check_every=10))
+    with pytest.raises(RuntimeError, match="CustomUtility"):
+        solver.solve(util)

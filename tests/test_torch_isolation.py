@@ -65,6 +65,7 @@ def test_package_imports_with_jax_blocked():
         "import cfmm_routing_tpu_torch.models.reference_instances\n"
         "import cfmm_routing_tpu_torch.solver.refine_device\n"
         "import cfmm_routing_tpu_torch.solver.fold, cfmm_routing_tpu_torch.solver.driver\n"
+        "import cfmm_routing_tpu_torch.solver.residuals\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m]]\n"
         "print('ok')\n"
     )

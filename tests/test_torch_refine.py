@@ -11,9 +11,10 @@
 * ``refine`` (the float64 fallback) certifies the arbitrage instance at 1e-6.
 * The entry points left out of the port so far raise
   ``NotImplementedError`` naming their ROADMAP.md queue item
-  (``CustomUtility``: 12b; ``refine(cpu_shards=)``: 14; the native
-  packer), and ``refine_device`` refuses an objective that is neither an
-  ``Objective`` nor a ``ConcaveUtility``.
+  (``refine(cpu_shards=)``: 14; the native packer), ``refine_device``
+  refuses an objective that is neither an ``Objective``, a
+  ``ConcaveUtility`` nor a ``CustomUtility``, and a ``CustomUtility``
+  (item 12b, ported) without its conjugate.
 """
 import numpy as np
 import pytest
@@ -135,8 +136,11 @@ def test_refine_float64_fallback_certifies_arbitrage(arb):
 def test_left_out_entry_points_name_their_queue_item(arb):
     compiled, obj, base = arb["compiled"], arb["obj"], arb["port_base"]
 
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        CustomUtility(lambda psi: psi.sum(), obj.lo, obj.hi, smoothness=0.0)
+    # CustomUtility is ported (item 12b); without a conjugate it cannot be
+    # certified, so refine_device names what is missing
+    custom = CustomUtility(lambda psi: psi.sum(), obj.lo, obj.hi, smoothness=0.0)
+    with pytest.raises(ValueError, match="conjugate"):
+        rd.refine_device(compiled, custom, base, device="cpu")
 
     class Other:  # neither an Objective nor a ConcaveUtility
         c, lo, hi = obj.c, obj.lo, obj.hi
