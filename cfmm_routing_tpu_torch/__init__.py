@@ -13,8 +13,13 @@ Entry points run on the current CUDA device unless ``device="cpu"`` is
 passed; on CPU tensors every kernel runs its plain PyTorch version.  The
 CUDA kernels (``csrc/``) are compiled with ``nvcc`` at first use, and on
 the card the solvers replay their iteration blocks as CUDA graphs
-(``solver/graphs.py``).  ``__all__`` is the JAX package's, less the
-sharded names that are not ported yet (``ROADMAP.md`` item 14).
+(``solver/graphs.py``).  ``__all__`` is the JAX package's.
+
+Sharded (``parallel/``): each rank of a ``torch.distributed`` group holds
+its share of every bucket's pools; ``init_distributed`` joins the ranks
+(``torchrun``, or a coordinator address), ``pool_mesh`` /
+``pool_batch_mesh`` build the mesh, and ``ShardedAdmmSolver`` /
+``ShardedDeltaAdmmSolver`` solve on it.
 """
 from .models.pools import (  # noqa: F401
     BoundedProductPool,
@@ -53,6 +58,11 @@ from .solver.fold import (  # noqa: F401
     fold_compiled,
     solve_batch_folded,
     solve_batch_reserves_folded,
+)
+from .parallel.mesh import pool_batch_mesh, pool_mesh  # noqa: F401
+from .parallel.sharded import (  # noqa: F401
+    ShardedAdmmSolver,
+    ShardedDeltaAdmmSolver,
 )
 from .solver.refine import RefineResult, refine  # noqa: F401
 from .solver.refine_device import (  # noqa: F401
@@ -97,6 +107,10 @@ __all__ = [
     "solve_batch_folded",
     "solve_batch_reserves_folded",
     "DeltaAdmmSolver",
+    "ShardedAdmmSolver",
+    "ShardedDeltaAdmmSolver",
+    "pool_mesh",
+    "pool_batch_mesh",
     "unscale_result",
     "__version__",
 ]

@@ -62,6 +62,14 @@ per point, (T,) vectors; the joint solves (``solve``, ``solve_fused``,
 with its own penalty and its own stopping test, freezing a point's state
 once it has converged while the others go on — what ``AdmmSolver.solve_batch``
 and ``solve_batch_reserves`` return.
+
+A solver built with ``axis_name=<process group>`` holds one rank's share of
+every bucket's pools (``parallel/sharded.py`` builds it): each local
+consensus sum is completed by :meth:`AdmmSolver._psum`, an all-reduce over
+the group, at the sites where the JAX package has its ``psum`` — the
+consensus n-vector of every path, the four packed residual sums of a
+checked iteration, and the shard count of the tolerance scale.  Without a
+group ``_psum`` is the identity and adds nothing to an iteration.
 """
 from __future__ import annotations
 
@@ -72,6 +80,7 @@ from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .._device import host, resolve_device
 from ..models.utility import ConcaveUtility, CustomUtility, Objective
@@ -94,10 +103,6 @@ _CONSENSUS_MODES = ("auto", "onehot", "radix", "scatter")
 # routes' check_every): replayed n // 25 times, the rest eager
 _FUSED_BLOCK = 25
 _F32_BIG = float(np.finfo(np.float32).max / 4)
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet ({item} in ROADMAP.md)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,6 +131,12 @@ class AdmmOptions:
     # the one-hot layout's chunk width on the TPU: accepted for
     # compatibility and ignored, as consensus="onehot" is
     onehot_chunk: int = 512
+    # cross-shard consensus reduction: False sums the ranks' partials with
+    # the process group's all-reduce (its reduction order); True gathers
+    # every rank's partial and sums them in rank order with Neumaier
+    # compensation, the same bits on every rank and exact to one final
+    # rounding whatever the shard count.  Single-device: ignored.
+    precise_consensus: bool = False
 
 
 class RouteResult(NamedTuple):
@@ -194,6 +205,21 @@ def _fused_ok(solver) -> bool:
     )
 
 
+def _compensated_sum(x, group):
+    """Sum of every rank's ``x`` over ``group``: the partials gathered, then
+    added in rank order from zero with Neumaier compensation (the JAX
+    package's ``precise_consensus`` scan)."""
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    s = torch.zeros_like(x)
+    comp = torch.zeros_like(x)
+    for p in parts:
+        t = s + p
+        comp = comp + torch.where(torch.abs(s) >= torch.abs(p), (s - t) + p, (p - t) + s)
+        s = t
+    return s + comp
+
+
 def _reserve_buckets(solver, compiled_scaled):
     """The solver's bucket arrays with R, k0 and logk0 taken from a compiled
     problem of the same topology (scaled reserves)."""
@@ -240,6 +266,12 @@ class AdmmSolver:
     one; ``device="cpu"`` runs the plain PyTorch versions of the kernels.
     ``fold=(T, n_pt)``: ``compiled`` is a scenario fold of T points of n_pt
     assets each (``solver/fold.py``; see the module docstring).
+
+    ``axis_name``: the pools process group of a sharded solve (the JAX
+    package's mesh axis name); ``compiled`` is then this rank's shard, with
+    the global ``degree`` (``parallel/sharded.py``).  ``consensus_prox``:
+    ``(yhat_local, nu, c, lo, hi, rho) -> (psi, mu)`` in place of the
+    all-reduce and the linear prox (the asset-sharded consensus).
     """
 
     def __init__(
@@ -248,11 +280,10 @@ class AdmmSolver:
         dtype: torch.dtype = torch.float32,
         options: AdmmOptions = AdmmOptions(),
         device=None,
-        axis_name: Optional[str] = None,
+        axis_name=None,
         fold=None,
+        consensus_prox=None,
     ):
-        if axis_name is not None:
-            raise _not_ported("sharded consensus (axis_name)", "queue 1, item 14")
         if options.consensus not in _CONSENSUS_MODES:
             raise ValueError(f"unknown consensus mode {options.consensus!r}")
         if fold is not None:
@@ -278,6 +309,14 @@ class AdmmSolver:
         self._alpha = self._t(options.alpha)
         self._merged = None  # the merged K-groups, built at first use
         self._graphs = GraphCache()  # captured iteration blocks (card only)
+        self.axis_name = axis_name
+        self._consensus_prox = consensus_prox
+        self._n_shards = 1
+        if axis_name is not None:
+            # the eps scale's shard-count factor, by the reference's psum of
+            # ones; it also creates the group's communicator before any
+            # capture
+            self._n_shards = int(host(self._psum(self._t(1.0).reshape(1)))[0])
 
     @functools.cached_property
     def _groups(self):
@@ -333,6 +372,26 @@ class AdmmSolver:
         )
         eps_dua = opts.eps_abs * sqn + opts.eps_rel * torch.sqrt(stats["u_norm2"])
         return r, sd, eps_pri, eps_dua
+
+    # ---- cross-shard reductions (identity without a process group) --------
+
+    def _psum(self, x):
+        """``x`` summed over the pools group: in place by the group's
+        all-reduce, or by :func:`_compensated_sum` with
+        ``options.precise_consensus``.  ``x`` must be a tensor the caller
+        owns (it may be overwritten)."""
+        if self.axis_name is None:
+            return x
+        if self.options.precise_consensus:
+            return _compensated_sum(x, self.axis_name)
+        dist.all_reduce(x, group=self.axis_name)
+        return x
+
+    def _pmax(self, x):
+        """``x``'s elementwise maximum over the pools group, in place."""
+        if self.axis_name is not None:
+            dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self.axis_name)
+        return x
 
     # ---- consensus exchange -------------------------------------------------
     # Broadcast the n-vector nu to every (pool, slot) edge, and reduce
@@ -430,8 +489,11 @@ class AdmmSolver:
             cterm[name] = hL - hD
         yhat = self._reduce_edges(cterm, buckets)
 
-        s = yhat - 2.0 * self.degree * nu
-        psi, mu = self._prox(s, c, lo, hi, rho, util)
+        if util is None and self._consensus_prox is not None:
+            psi, mu = self._consensus_prox(yhat, nu, c, lo, hi, rho)
+        else:
+            s = self._psum(yhat) - 2.0 * self.degree * nu
+            psi, mu = self._prox(s, c, lo, hi, rho, util)
 
         z_new = {}
         w_out = {}
@@ -455,6 +517,11 @@ class AdmmSolver:
             z_new[name] = (znD, znL)
             w_out[name] = (D, L)
 
+        if with_stats and self.axis_name is not None:
+            # one packed all-reduce of the four local partial sums (u_norm2
+            # is built from the replicated mu and needs none)
+            r2, s2, w_norm2, z_norm2 = self._psum(
+                torch.stack([r2, s2, w_norm2, z_norm2])).unbind(0)
         u_norm2 = self._asset_sum(2.0 * self.degree * mu * mu)
         stats = dict(
             r2=r2, s2=s2 * rho * rho, w_norm2=w_norm2, z_norm2=z_norm2,
@@ -510,7 +577,7 @@ class AdmmSolver:
             s_new.update(sg)
             w_out.update(wg)
             y = yg if y is None else y + yg
-        yhat = unpack(y) - 2.0 * (1.0 - alpha) * self.degree * wdef
+        yhat = self._psum(unpack(y)) - 2.0 * (1.0 - alpha) * self.degree * wdef
         svec = yhat - 2.0 * self.degree * nu
         psi, mu = self._prox(svec, c, lo, hi, rho, util)
         wdef_new = (1.0 - alpha) * wdef + nu - mu
@@ -596,7 +663,7 @@ class AdmmSolver:
             sm_new.append((sDn, sLn))
             w_out.append((D, L))
             y = y + yp
-        yhat = unpack(y) - 2.0 * (1.0 - alpha) * self.degree * wdef
+        yhat = self._psum(unpack(y)) - 2.0 * (1.0 - alpha) * self.degree * wdef
         svec = yhat - 2.0 * self.degree * nu
         psi, mu = self._prox(svec, c, lo, hi, rho, util)
         wdef_new = (1.0 - alpha) * wdef + nu - mu
@@ -614,9 +681,10 @@ class AdmmSolver:
 
     def _sqrt_edges(self, per_point=False):
         """sqrt of the edge count (of one point's, ``per_point`` on a fold):
-        the absolute-tolerance scale."""
+        the absolute-tolerance scale.  A shard's count times the shard
+        count: the residual sums are global, so the scale must be too."""
         edges = sum(2 * a["mask"].numel() for a in self.buckets.values())
-        return math.sqrt(edges / (self._fold[0] if per_point else 1))
+        return math.sqrt(edges * self._n_shards / (self._fold[0] if per_point else 1))
 
     def _solve_fused_impl(self, c, lo, hi, rho, n_iters, buckets=None,
                           z0=None, nu0=None, util=None, merged=False):

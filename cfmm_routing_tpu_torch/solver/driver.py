@@ -18,6 +18,13 @@ fused kernel path (``AdmmSolver._iterate_fused``) and harvests the
 residuals with one classic iteration, as ``solve_fused`` does; on a folded
 solver that is the ``fused_step(fold=)`` kernel.  The residuals of a folded
 solver are joint over its points.
+
+Handed a :class:`~..parallel.sharded.ShardedAdmmSolver`, the driver runs
+the same loop on each rank around the rank's shard (``solver.inner``, whose
+iterations all-reduce over the pools group): every host decision reads
+all-reduced residuals, so every rank takes the same branch, and the result's
+trade planes are gathered into the global layout at the end.  Each rank
+checkpoints its own shard, to ``checkpoint_path + ".rank<r>.npz"``.
 """
 from __future__ import annotations
 
@@ -106,6 +113,13 @@ class ChunkedDriver:
     a fold) to be a multiple of 128 (``pad_pools_to=128``/1024)."""
 
     def __init__(self, solver, chunk: int = 200, fused: bool = False):
+        from ..parallel.sharded import ShardedAdmmSolver
+
+        self.sharded = None
+        if isinstance(solver, ShardedAdmmSolver):
+            if fused:
+                solver._check_fused_alignment()
+            self.sharded, solver = solver, solver.inner
         self.solver = solver
         self.chunk = int(chunk)
         self.fused = bool(fused)
@@ -173,6 +187,11 @@ class ChunkedDriver:
         nu = sol._zeros(sol.n)
         rho_v = sol._t(rho if rho is not None else opts.rho)
         it = 0
+        compiled = sol.compiled
+        if self.sharded is not None:
+            compiled = self.sharded.compiled
+            if checkpoint_path is not None:
+                checkpoint_path = f"{checkpoint_path}.rank{self.sharded.shard}"
         if resume and checkpoint_path is not None:
             z, nu, rho_v, it = _load_state(checkpoint_path, sol)
 
@@ -244,7 +263,7 @@ class ChunkedDriver:
         if not converged and last_good_prices is not None:
             from .certify import certify_infeasible
 
-            cert = certify_infeasible(sol.compiled, objective, last_good_prices,
+            cert = certify_infeasible(compiled, objective, last_good_prices,
                                       device=sol.device)
             if cert.infeasible:
                 status = "infeasible"
@@ -271,5 +290,7 @@ class ChunkedDriver:
             converged=torch.tensor(converged, device=sol.device),
             rho_final=rho_v,
         )
+        if self.sharded is not None:
+            result = self.sharded._gather(result)
         log.status = status
         return result, log

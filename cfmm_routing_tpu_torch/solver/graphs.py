@@ -26,6 +26,13 @@ libraries load, lazily built tables are built and kernel attributes are set
 outside the capture; the capture then records launches only.  A failed
 capture or replay raises: nothing falls back to the eager loop.
 
+A sharded solver's blocks hold its collectives (``AdmmSolver._psum``).  An
+NCCL all-reduce is captured like a kernel: the solver's constructor has run
+one already, so its communicator exists, and the warm-up step runs the
+block's collectives eagerly before the capture.  A gloo group moves CUDA
+tensors through the host and cannot be captured: a block of a solver on one
+raises unless it runs inside :func:`eager`.
+
 Launch counts (``ops/_build.LAUNCHES``) are added in Python by the kernel
 wrappers, which a replay does not run.  A capture records what its block
 adds, the warm-up's and the capture's own counts are taken back out, and
@@ -41,6 +48,7 @@ from collections import OrderedDict
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
 from ..models.utility import CustomUtility
@@ -223,4 +231,10 @@ def run_block(solver, key, step: Callable, n: int, reps: int, state, consts,
         return state
     if solver.device.type != "cuda" or _EAGER[0]:
         return _loop(step, n * reps, state, consts)
+    group = solver.axis_name
+    if group is not None and dist.get_backend(group) != "nccl":
+        raise RuntimeError(
+            f"a sharded solver on a {dist.get_backend(group)} process group "
+            "cannot capture its collectives in a CUDA graph: run its solves "
+            "inside graphs.eager(), or on an NCCL group")
     return solver._graphs.run(key, step, n, reps, state, consts, owner)

@@ -16,10 +16,12 @@ needs x0 > 0).
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .._device import host, resolve_device
 from ..models.utility import CustomUtility
@@ -58,6 +60,44 @@ def to_host(res: RouteResult) -> RouteResult:
     ])
 
 
+def _make_solver(compiled, opts, cpu_shards, strict, dev):
+    """The float64 polish solver: sharded over the ranks of a CPU (gloo)
+    process group when ``cpu_shards`` asks for it and the group has enough
+    ranks, else single-device.
+
+    A fallback to the single-device path is loud: a run that asked for N
+    host cores should not silently run on one (``strict=True`` turns the
+    fallback into an error)."""
+    if cpu_shards and int(cpu_shards) > 1:
+        n = int(cpu_shards)
+        reason = None
+        try:
+            from ..parallel.mesh import pool_mesh
+            from ..parallel.sharded import ShardedAdmmSolver
+
+            ranks = (dist.get_world_size()
+                     if dist.is_initialized() and dist.get_backend() == "gloo" else 0)
+            if ranks >= n:
+                mesh = pool_mesh(n_devices=n, platform="cpu")
+                return ShardedAdmmSolver(compiled, mesh, dtype=torch.float64,
+                                         options=opts)
+            reason = (
+                f"{ranks} rank(s) in an initialised CPU (gloo) process group — "
+                f"start {n} processes and call init_distributed() in each "
+                "before refine"
+            )
+        except (ValueError, RuntimeError, NotImplementedError) as e:
+            reason = f"{type(e).__name__}: {e}"
+        msg = (
+            f"refine(cpu_shards={n}) falling back to the SINGLE-DEVICE "
+            f"f64 path ({reason})"
+        )
+        if strict:
+            raise RuntimeError(msg)
+        logging.getLogger("cfmm_routing_tpu_torch.refine").warning(msg)
+    return AdmmSolver(compiled, dtype=torch.float64, options=opts, device=dev)
+
+
 def refine(
     compiled: CompiledProblem,
     objective,
@@ -66,6 +106,7 @@ def refine(
     max_iters: int = 200_000,
     options: Optional[AdmmOptions] = None,
     cpu_shards: Optional[int] = None,
+    strict: bool = False,
     device=None,
 ) -> RefineResult:
     """Polish ``result`` (typically an f32 solve) to a certified gap.
@@ -74,15 +115,18 @@ def refine(
     :class:`CustomUtility` (with its conjugate) the original solve used.
     Returns host-side (numpy) arrays only.  ``device``: where the float64
     ADMM and the certificate's eta search run (the card unless ``"cpu"`` is
-    given).  ``cpu_shards`` (sharding the polish over host cores) is not
-    ported; a custom utility drops it, as its prox is single-device."""
+    given).
+
+    ``cpu_shards``: shard the float64 polish over N host cores, the port's
+    counterpart of the JAX package's N virtual CPU devices: the ranks of an
+    initialised CPU (gloo) process group of at least N ranks
+    (``parallel/mesh.py``), every rank calling ``refine`` alike, through
+    ``ShardedAdmmSolver``.  Without such a group it falls back to the
+    single-device path with a WARNING log line, or raises a RuntimeError
+    when ``strict=True``.  A custom utility drops ``cpu_shards``, as in the
+    JAX package."""
     if isinstance(objective, CustomUtility):
         cpu_shards = None
-    if cpu_shards is not None:
-        raise NotImplementedError(
-            "refine(cpu_shards=) is not ported yet (queue 1, item 14 in "
-            "ROADMAP.md)"
-        )
     dev = resolve_device(device)
     base = options if options is not None else AdmmOptions()
     cur = to_host(result)
@@ -124,8 +168,7 @@ def refine(
                 base, eps_abs=_EPS_SCHEDULE[stage], eps_rel=_EPS_SCHEDULE[stage],
                 max_iters=_CHUNK_MAX,
             )
-            solver = AdmmSolver(compiled, dtype=torch.float64, options=opts,
-                                device=dev)
+            solver = _make_solver(compiled, opts, cpu_shards, strict, dev)
         res = solver.solve(objective, warm=cur, max_iters=chunk)
         took = int(host(res.iters))
         total += took

@@ -118,7 +118,7 @@ class DeltaAdmmSolver(AdmmSolver):
             hL = alpha * L + (1.0 - alpha) * zL
             w_hat[name] = (D, L, hD, hL)
             cterm[name] = hL - hD
-        yhat = self._reduce_edges(cterm, buckets)
+        yhat = self._psum(self._reduce_edges(cterm, buckets))
 
         psi, dmu = self._delta_prox(yhat, c, nu, lo, hi, rho, util)
 
@@ -144,6 +144,9 @@ class DeltaAdmmSolver(AdmmSolver):
             z_new[name] = (znD, znL)
             w_out[name] = (D, L)
 
+        if with_stats and self.axis_name is not None:
+            r2, s2, w_norm2, z_norm2 = self._psum(
+                torch.stack([r2, s2, w_norm2, z_norm2])).unbind(0)
         u_norm2 = self._asset_sum(2.0 * self.degree * dmu * dmu)
         stats = dict(
             r2=r2, s2=s2 * rho * rho, w_norm2=w_norm2, z_norm2=z_norm2,
@@ -173,7 +176,7 @@ class DeltaAdmmSolver(AdmmSolver):
             s_new.update(sg)
             w_out.update(wg)
             y = yg if y is None else y + yg
-        yhat = unpack(y) - 2.0 * (1.0 - alpha) * self.degree * wdef
+        yhat = self._psum(unpack(y)) - 2.0 * (1.0 - alpha) * self.degree * wdef
         psi, mu = self._delta_prox(yhat, c, nu, lo, hi, rho, util)
         wdef_new = (1.0 - alpha) * wdef + nu - mu
         return s_new, wdef_new, mu, psi, w_out

@@ -67,7 +67,9 @@ class DeviceGate:
     ``project`` launch per K-group on the card) and sums through its
     ``_reduce_edges`` (one ``segment_sum`` per K-group), so any solver of
     the problem works, whichever path produced its per-bucket state (a
-    merged fused run hands its state back per bucket).
+    merged fused run hands its state back per bucket).  On a shard of a
+    sharded solve (``ShardedAdmmSolver.inner``) the net trade and the gross
+    volume are summed, and the residual maxima taken, over the pools group.
     """
 
     def __init__(self, solver, compiled_orig, objective, d=None):
@@ -125,8 +127,8 @@ class DeviceGate:
             net[name] = (L - D) * mask
             vol[name] = (torch.abs(D) + torch.abs(L)) * ds * mask
             per_bucket.append((name, D, L, x, ds, mask, needs_floor))
-        psi_orig = solver._reduce_edges(net, buckets) * self._dvec
-        gross = solver._reduce_edges(vol, buckets)
+        psi_orig = solver._psum(solver._reduce_edges(net, buckets)) * self._dvec
+        gross = solver._psum(solver._reduce_edges(vol, buckets))
         # per-asset row scales, as certify's: violations judged against the
         # asset's own magnitude (|psi_j| or its gross volume)
         scale = torch.clamp_min(torch.maximum(torch.abs(psi_orig), gross), 1.0)
@@ -141,6 +143,10 @@ class DeviceGate:
             if needs_floor:
                 floor_slot = torch.relu(-x) * ds * mask
                 feas = torch.maximum(feas, torch.max(floor_slot / se))
+        if solver.axis_name is not None:
+            # the residuals' maxima over every rank's pools, so that every
+            # rank reads the same gate and takes the same hand-off
+            phi, feas = solver._pmax(torch.stack([phi, feas])).unbind(0)
         obj = torch.sum(self._c * psi_orig)
         prices = rho * nu / self._dvec
         return torch.cat([torch.stack([phi, feas, obj]), prices])

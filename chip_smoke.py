@@ -177,6 +177,29 @@ Phases (any failure raises and the script exits nonzero):
    replayed.  ``torch.profiler`` windows over 50 and 500 fused-base
    iterations and over one classic check block, replayed and eager: the
    CUDA kernels' busy share of their span.
+9. Scale-out (``parallel/``, ``torch.distributed``).
+   a. One rank, NCCL, in this process (``pool_mesh()`` with no group: an
+      in-memory store), replayed, the 100k network of phase 4:
+      ``ShardedAdmmSolver.solve_fused(499)``, the classic solve (phase 5's
+      options), ``ChunkedDriver(fused=True)`` and
+      ``ShardedDeltaAdmmSolver.solve_delta(fused=True)`` bitwise equal to
+      the unsharded solvers'; the certified route through
+      ``refine_device(solver=ShardedDeltaAdmmSolver)`` at 1e-6; the
+      sharded and unsharded fused it/s in turns and the NCCL kernels'
+      device ms an iteration (profiler).
+   b. Two spawned ranks sharing the card over gloo (NCCL refuses two ranks
+      on one device), eager, the same network with ``pad_pools_to=2048``:
+      phase 5b's five kernels bitwise on each rank's K-groups, the sharded
+      ``solve_fused(499)`` against the unsharded one (1e-4), the certified
+      route (sharded classic base and ``ShardedDeltaAdmmSolver``) at 1e-6
+      and within 1e-6 of the single-device route, ``shard_assets=True``
+      against the replicated consensus (1e-8, float64).
+   c. Four spawned ranks on a 2x2 ``pool_batch_mesh``: 4 reserve scenarios
+      (``uniform(0.7, 1.3)``) at 10k / 64, float64, against the unsharded
+      ``solve_batch_reserves`` (1e-6).
+   A rank that fails or outlasts its timeout fails the phase.  Two or four
+   ranks on one card measure no scale-out: their seconds are the host
+   round trips of gloo.
 
 It prints one JSON line describing every kernel of the path (device times
 from CUDA events around CUDA-graph replays of back-to-back calls, summed
@@ -185,8 +208,8 @@ segment sum, which read a size back to the host, from eager calls; the
 fused steps' times include their segment-sum launch; the fold kernels'
 times are summed over the 6b buckets; the grouped delta kernels' times
 over the K-groups of one iteration; bounds from this run's shapes;
-launches summed over the main-path runs of phases 4, 5, 5b, 6b-6d, 7b-7d
-and 7e),
+launches summed over the main-path runs of phases 4, 5, 5b, 6b-6d, 7b-7d,
+7e and 9, 9b's and 9c's over their ranks),
 the card's name and power limit as ``nvidia-smi``
 reports them, and last ``{"ok": true, "device": {"platform": "gpu",
 "kind": ..., "count": ...}}``.
@@ -197,10 +220,14 @@ import dataclasses
 import json
 import logging
 import math
+import multiprocessing
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -711,7 +738,7 @@ def check_gated(label, out):
         raise AssertionError(f"{label}: the refinement never launched fused_step_delta")
 
 
-def gated_kernel_checks(label, table, obj, pad=1024, device=None):
+def gated_kernel_checks(label, table, obj, pad=1024, device=None, mesh=None, phase="5b"):
     """Phase 5b's kernels against their plain versions at one size of the
     gated route: its bucket dict (equilibrated, ``pad_pools_to=pad``,
     float32 at (24, 4)) from a state of 20 fused iterations, and its delta
@@ -719,7 +746,9 @@ def gated_kernel_checks(label, table, obj, pad=1024, device=None):
     and 5 fused delta iterations.  Per K-group, bitwise: the grouped
     ``fused_step``, ``project_grouped``, ``segment_sum``,
     ``fused_step_delta_grouped`` and ``project_delta_grouped``, each also
-    bitwise across two launches.  Returns the checked calls per kernel."""
+    bitwise across two launches.  With a ``mesh`` (phase 9b) the solvers
+    are this rank's shards of the sharded ones and the K-groups its own.
+    Returns the checked calls per kernel."""
     from cfmm_routing_tpu_torch.ops.iteration_cuda import (
         fused_step_delta_grouped, fused_step_delta_grouped_plain, fused_step_grouped,
         fused_step_grouped_plain,
@@ -741,8 +770,21 @@ def gated_kernel_checks(label, table, obj, pad=1024, device=None):
     cfg, cfg_delta = ProjectionConfig(n_bisect=24, n_polish=4), ProjectionConfig()
     eq = equilibrate(table, obj)
     compiled = compile_table(eq.table, pad_pools_to=pad)
-    solver = AdmmSolver(compiled, dtype=torch.float32, options=AdmmOptions(projection=cfg),
-                        device=device)
+    opts, dopts = AdmmOptions(projection=cfg), AdmmOptions(adapt_rho=False,
+                                                            projection=cfg_delta)
+    if mesh is None:
+        top = solver = AdmmSolver(compiled, dtype=torch.float32, options=opts,
+                                  device=device)
+        dtop = ds = DeltaAdmmSolver(compiled, dtype=torch.float32, options=dopts,
+                                    device=device)
+    else:
+        from cfmm_routing_tpu_torch.parallel.sharded import (
+            ShardedAdmmSolver, ShardedDeltaAdmmSolver,
+        )
+
+        top = ShardedAdmmSolver(compiled, mesh, options=opts)
+        dtop = ShardedDeltaAdmmSolver(compiled, mesh, options=dopts)
+        solver, ds = top.inner, dtop.inner
     sync = torch.cuda.synchronize if solver.device.type == "cuda" else (lambda: None)
     c, lo, hi = solver._objective_arrays(eq.objective)
     rho = solver._t(1.0)
@@ -765,8 +807,8 @@ def gated_kernel_checks(label, table, obj, pad=1024, device=None):
             got, again, want = [got], [again], [want]
         else:
             got, again, want = (grouped_leaves(x) for x in (got, again, want))
-        bitwise(f"5b {label}: {kname}[K={K}]", got, want)
-        bitwise(f"5b {label}: {kname}[K={K}] second launch", again, got)
+        bitwise(f"{phase} {label}: {kname}[K={K}]", got, want)
+        bitwise(f"{phase} {label}: {kname}[K={K}] second launch", again, got)
         checked[kname] += 1
 
     for g in solver._groups:
@@ -781,16 +823,13 @@ def gated_kernel_checks(label, table, obj, pad=1024, device=None):
         check("segment_sum", g["K"],
               lambda: segment_sum(val, g["order"], g["seg"], v.shape[0]),
               lambda: segment_sum_plain(val, g["order"], g["seg"], v.shape[0]))
-    base = to_host(solver.solve_fused(eq.objective, iters=20))
+    base = to_host(top.solve_fused(eq.objective, iters=20))
     base = base._replace(psi=_psi_from_trades(compiled, base))
     rho_d = float(np.clip(np.asarray(base.rho_final), 0.25, 4.0))
     nu0 = (np.asarray(base.prices, np.float64) / rho_d).astype(np.float32).astype(np.float64)
-    ds = DeltaAdmmSolver(compiled, dtype=torch.float32,
-                         options=AdmmOptions(adapt_rho=False, projection=cfg_delta),
-                         device=solver.device)
-    bdict, min_x0 = ds.delta_buckets(base, 1e-3, nu0=nu0)
+    bdict, min_x0 = dtop.delta_buckets(base, 1e-3, nu0=nu0)
     if not min_x0 > 0:
-        raise AssertionError(f"5b {label}: the base point has min x0 = {min_x0}")
+        raise AssertionError(f"{phase} {label}: the base point has min x0 = {min_x0}")
     dc, dlo, dhi, _, start = _prep_delta_solve(
         _delta_objective(eq.objective, base.psi, 1e-3), nu0, rho_d, ds)
     rho_t = ds._t(rho_d)
@@ -810,7 +849,7 @@ def gated_kernel_checks(label, table, obj, pad=1024, device=None):
         check("project_delta", g["K"],
               lambda: project_delta_grouped(dpin, bdict, g, cfg=cfg_delta),
               lambda: project_delta_grouped_plain(dpin, bdict, g, cfg=cfg_delta))
-    log(f"# 5b {label}: fused_step, project, segment_sum, fused_step_delta and "
+    log(f"# {phase} {label}: fused_step, project, segment_sum, fused_step_delta and "
         f"project_delta bitwise equal to their plain versions on every K-group of this "
         f"size's buckets ({[g['names'] for g in solver._groups]}) and delta buckets, and "
         f"across launches: {checked}")
@@ -2011,6 +2050,420 @@ def replay_phase(report, card, cfg_main, cfg64):
         f"on {card}")
 
 
+# ---- phase 9: scale-out on torch.distributed -----------------------------------
+# 9a runs in this process on a one-rank NCCL group; 9b and 9c spawn ranks that
+# share the one card over gloo (NCCL refuses two ranks on one device), eagerly:
+# their times are no scale-out times.
+
+SCALEOUT_TIMEOUT_S = 300  # every spawned rank's group timeout; the parent waits a minute more
+
+
+def same_result(label, got, want):
+    """Raise unless two RouteResults are bitwise equal, leaf for leaf."""
+    for i, (a, b) in enumerate(zip(result_leaves(got), result_leaves(want))):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}: output {i} differs by "
+                                 f"{float((a.double() - b.double()).abs().max()):.3e}")
+
+
+def scaleout_main_net(pad):
+    """The 100k / 256 network of phase 4, equilibrated, compiled with
+    ``pad_pools_to=pad``; and its original-units twin for the certificates."""
+    from cfmm_routing_tpu_torch.solver.compiler import compile_table
+    from cfmm_routing_tpu_torch.solver.precondition import equilibrate
+    from cfmm_routing_tpu_torch.utils.synth import random_arbitrage_table
+
+    table, obj = random_arbitrage_table(256, 100_000, seed=7)
+    eq = equilibrate(table, obj)
+    return (obj, eq, compile_table(eq.table, pad_pools_to=pad),
+            compile_table(table, pad_pools_to=pad))
+
+
+def scaleout_route(compiled, cert_compiled, obj, eq, base_solver, delta_solver):
+    """Phase 5's certified route: ``base_solver.solve`` (classic base), then
+    ``refine_device(target_gap=1e-6)`` with ``delta_solver``, certified in
+    original units.  Returns (out, base result, base s, refine s)."""
+    from cfmm_routing_tpu_torch.solver.precondition import unscale_result
+    from cfmm_routing_tpu_torch.solver.refine_device import refine_device
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    base = base_solver.solve(eq.objective)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = refine_device(compiled, eq.objective, base, target_gap=1e-6,
+                        cert_space=(cert_compiled, obj,
+                                    lambda r: unscale_result(r, eq.d, compiled)),
+                        solver=delta_solver)
+    torch.cuda.synchronize()
+    return out, base, t1 - t0, time.perf_counter() - t1
+
+
+def _rank_9b(rank, cfg_main, refine_opts):
+    """One of 9b's two ranks: the 100k / 256 network compiled with
+    ``pad_pools_to=2048`` (each rank 1024-aligned buckets), every solve
+    eager (gloo).  Rank 0 also runs the single-device references, replayed."""
+    from cfmm_routing_tpu_torch.ops import _build
+    from cfmm_routing_tpu_torch.parallel.mesh import pool_mesh
+    from cfmm_routing_tpu_torch.parallel.sharded import (
+        ShardedAdmmSolver, ShardedDeltaAdmmSolver,
+    )
+    from cfmm_routing_tpu_torch.solver import graphs
+    from cfmm_routing_tpu_torch.solver.admm import AdmmOptions, AdmmSolver
+    from cfmm_routing_tpu_torch.solver.refine_device import DeltaAdmmSolver
+    from cfmm_routing_tpu_torch.utils.synth import random_arbitrage_table
+
+    out = {}
+    mesh = pool_mesh()
+    obj, eq, compiled, cert_compiled = scaleout_main_net(2048)
+    table, tobj = random_arbitrage_table(256, 100_000, seed=7)
+    with graphs.eager():
+        out["kernels_checked"] = gated_kernel_checks(f"rank {rank}", table, tobj, pad=2048,
+                                                     mesh=mesh, phase="9b")
+        opts = AdmmOptions(max_iters=500, eps_abs=0.0, eps_rel=0.0, adapt_rho=False,
+                           projection=cfg_main)
+        sh = ShardedAdmmSolver(compiled, mesh, options=opts)
+        _build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sh.solve_fused(eq.objective, iters=499)
+        torch.cuda.synchronize()
+        out["fused_s"] = time.perf_counter() - t0
+        out["fused_launches"] = dict(_build.LAUNCHES)
+        out["fused_objective"] = float(res.objective)
+        psi = res.psi.double().cpu().numpy()
+        base_opts = AdmmOptions(max_iters=3000, eps_abs=1e-7, eps_rel=1e-7, check_every=25,
+                                projection=cfg_main)
+        _build.reset_launch_counts()
+        route, base, base_s, refine_s = scaleout_route(
+            compiled, cert_compiled, obj, eq, ShardedAdmmSolver(compiled, mesh, options=base_opts),
+            ShardedDeltaAdmmSolver(compiled, mesh, options=refine_opts))
+        out["route_launches"] = dict(_build.LAUNCHES)
+        c = route.certificate
+        out["route"] = dict(achieved=bool(route.achieved), objective=c.objective,
+                            gap_rel=c.gap_rel, feasibility_rel=c.feasibility_rel,
+                            base_iters=int(base.iters), base_s=base_s,
+                            refine_iters=int(route.iters), refine_s=refine_s)
+        o64 = AdmmOptions(max_iters=200, eps_abs=0.0, eps_rel=0.0, projection=cfg_main)
+        _build.reset_launch_counts()
+        a = ShardedAdmmSolver(compiled, mesh, dtype=torch.float64, options=o64,
+                              shard_assets=True).solve(eq.objective)
+        b = ShardedAdmmSolver(compiled, mesh, dtype=torch.float64, options=o64).solve(
+            eq.objective)
+        out["assets_launches"] = dict(_build.LAUNCHES)
+        out["assets"] = dict(objective=float(a.objective), replicated=float(b.objective),
+                             psi_max_abs=float((a.psi - b.psi).abs().max()))
+    if rank == 0:  # the single-device references, replayed (nothing to all-reduce)
+        ref = AdmmSolver(compiled, options=opts).solve_fused(eq.objective, iters=499)
+        p1 = ref.psi.double().cpu().numpy()
+        out["fused_ref_objective"] = float(ref.objective)
+        out["fused_psi_drift"] = float(np.max(np.abs(psi - p1))) / max(
+            1.0, float(np.max(np.abs(p1))))
+        route1, _, _, _ = scaleout_route(
+            compiled, cert_compiled, obj, eq, AdmmSolver(compiled, options=base_opts),
+            DeltaAdmmSolver(compiled, options=refine_opts))
+        out["route_ref"] = dict(achieved=bool(route1.achieved),
+                                objective=route1.certificate.objective,
+                                gap_rel=route1.certificate.gap_rel)
+    return out
+
+
+def _rank_9c(rank, cfg_main, refine_opts):
+    """One of 9c's four ranks on a 2x2 ``pool_batch_mesh``: 4 reserve
+    scenarios of the 10k / 64 network, float64 to 1e-7 (checked every 25
+    iterations), eager (gloo); rank 0 also solves them unsharded, replayed."""
+    from cfmm_routing_tpu_torch.ops import _build
+    from cfmm_routing_tpu_torch.parallel.mesh import pool_batch_mesh
+    from cfmm_routing_tpu_torch.parallel.sharded import ShardedAdmmSolver
+    from cfmm_routing_tpu_torch.solver import graphs
+    from cfmm_routing_tpu_torch.solver.admm import AdmmOptions, AdmmSolver
+    from cfmm_routing_tpu_torch.solver.compiler import compile_table
+    from cfmm_routing_tpu_torch.solver.precondition import equilibrate
+    from cfmm_routing_tpu_torch.utils.synth import random_arbitrage_table
+
+    table, obj = random_arbitrage_table(64, 10_000, seed=7)
+    eq = equilibrate(table, obj)
+    compiled = compile_table(eq.table, pad_pools_to=1024)
+    scale = np.random.default_rng(5).uniform(0.7, 1.3, size=(4, compiled.n_pools))
+    opts = AdmmOptions(max_iters=4000, eps_abs=1e-7, eps_rel=1e-7, check_every=25)
+    mesh = pool_batch_mesh(pools=2, batch=2)
+    out = {}
+    with graphs.eager():
+        _build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = ShardedAdmmSolver(compiled, mesh, dtype=torch.float64,
+                                options=opts).solve_batch_reserves(eq.objective, scale)
+        torch.cuda.synchronize()
+        out["s"] = time.perf_counter() - t0
+        out["launches"] = dict(_build.LAUNCHES)
+    out["objective"] = res.objective.cpu().tolist()
+    out["iters"] = res.iters.cpu().tolist()
+    if rank == 0:
+        ref = AdmmSolver(compiled, dtype=torch.float64, options=opts).solve_batch_reserves(
+            eq.objective, scale)
+        out["ref_objective"] = ref.objective.cpu().tolist()
+        out["ref_iters"] = ref.iters.cpu().tolist()
+    return out
+
+
+def _rank_main(part, rank, world, store, out_dir, cfg_main, refine_opts):
+    """Entry of a spawned rank of 9b / 9c: joins the gloo group, runs its part,
+    writes its JSON; on a failure it writes the traceback and exits at once,
+    so that its peers fail at their next collective."""
+    try:
+        torch.cuda.set_device(0)
+        from cfmm_routing_tpu_torch.parallel.mesh import init_distributed
+
+        init_distributed(f"file://{store}", world, rank, backend="gloo",
+                         timeout=SCALEOUT_TIMEOUT_S)
+        fn = {"9b": _rank_9b, "9c": _rank_9c}[part]
+        result = fn(rank, cfg_main, refine_opts)
+        with open(os.path.join(out_dir, f"{part}_rank{rank}.json"), "w") as fh:
+            json.dump(result, fh)
+        torch.distributed.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(out_dir, f"{part}_rank{rank}.err"), "w") as fh:
+            fh.write(traceback.format_exc())
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)
+
+
+def spawn_ranks(part, world, cfg_main, refine_opts):
+    """Run ``part`` on ``world`` spawned ranks sharing the card; every rank's
+    result, or raise when a rank fails or outlasts the timeout (all killed)."""
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as out_dir:
+        store = os.path.join(out_dir, "store")
+        procs = [ctx.Process(target=_rank_main,
+                             args=(part, r, world, store, out_dir, cfg_main, refine_opts))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + SCALEOUT_TIMEOUT_S + 60
+        for p in procs:
+            p.join(timeout=max(1.0, deadline - time.monotonic()))
+        late = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        failed = [r for r, p in enumerate(procs) if p.exitcode != 0]
+        if late or failed:
+            errs = "".join(open(os.path.join(out_dir, f)).read()
+                           for f in sorted(os.listdir(out_dir)) if f.endswith(".err"))
+            raise AssertionError(f"phase {part}: ranks {failed} failed ({late} timed out):\n"
+                                 f"{errs}")
+        out = []
+        for r in range(world):
+            with open(os.path.join(out_dir, f"{part}_rank{r}.json")) as fh:
+                out.append(json.load(fh))
+        return out
+
+
+def collective_ms(sharded, unsharded, objective, iters):
+    """What a sharded ``solve_fused(iters)`` adds on the device to the
+    unsharded one, from ``torch.profiler`` windows over both (replayed):
+    the NCCL kernels' device ms per iteration, and the names of every
+    kernel or copy that only the sharded window holds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_us(solver):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            solver.solve_fused(objective, iters=iters)
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.events():
+            if "CUDA" in str(getattr(e, "device_type", "")):
+                out[e.name] = out.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+        return out
+
+    plain, sharded_us = device_us(unsharded), device_us(sharded)
+    nccl = sum(v for k, v in sharded_us.items() if "nccl" in k.lower())
+    return nccl / 1e3 / (iters + 1), sorted(k for k in sharded_us if k not in plain)
+
+
+def scaleout_phase(report, card, cfg_main, refine_opts):
+    """Phase 9: the sharded solvers (``parallel/``) on the card.  9a: one
+    rank, NCCL, in this process, replayed, bitwise against the unsharded
+    solvers at 100k / 256, the certified route, and the fused it/s of both
+    in turns; 9b: two spawned ranks on gloo, eager (kernels on each rank's
+    K-groups, the fused solve, the certified route, the asset-sharded
+    consensus); 9c: four spawned ranks on a 2x2 batch x pools mesh, the
+    reserve scenarios.  Returns the main-path launch counts of every
+    sharded run (9b and 9c: each rank's)."""
+    import torch.distributed as dist
+
+    from cfmm_routing_tpu_torch.ops import _build
+    from cfmm_routing_tpu_torch.parallel.mesh import pool_mesh
+    from cfmm_routing_tpu_torch.parallel.sharded import (
+        ShardedAdmmSolver, ShardedDeltaAdmmSolver,
+    )
+    from cfmm_routing_tpu_torch.solver.admm import AdmmOptions, AdmmSolver
+    from cfmm_routing_tpu_torch.solver.driver import ChunkedDriver
+    from cfmm_routing_tpu_torch.solver.refine import to_host
+    from cfmm_routing_tpu_torch.solver.refine_device import (
+        DeltaAdmmSolver, _delta_objective, _psi_from_trades,
+    )
+
+    t_phase = time.perf_counter()
+    log(f"# phase 9 (scale-out): torch {torch.__version__}, NCCL "
+        f"{'.'.join(map(str, torch.cuda.nccl.version()))}")
+    launches = []
+
+    def counted(fn):
+        """``fn()`` with the launch counts set to 0 just before, read just
+        after (a sharded main-path run)."""
+        _build.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        launches.append(dict(_build.LAUNCHES))
+        return out
+
+    # ---- 9a. one rank, NCCL, in this process, replayed ---------------------------
+    t9a = time.perf_counter()
+    obj, eq, compiled, cert_compiled = scaleout_main_net(1024)
+    mesh = pool_mesh()  # no group yet: a one-rank NCCL group over an in-memory store
+    if dist.get_backend(mesh.get_group("pools")) != "nccl" or mesh.size() != 1:
+        raise AssertionError(f"9a: expected a one-rank NCCL mesh, got {mesh}")
+    opts = AdmmOptions(max_iters=500, eps_abs=0.0, eps_rel=0.0, adapt_rho=False,
+                       projection=cfg_main)
+    base_opts = AdmmOptions(max_iters=3000, eps_abs=1e-7, eps_rel=1e-7, check_every=25,
+                            projection=cfg_main)
+    sh, single = ShardedAdmmSolver(compiled, mesh, options=opts), AdmmSolver(compiled,
+                                                                             options=opts)
+    res_s = counted(lambda: sh.solve_fused(eq.objective, iters=499))
+    same_result("9a solve_fused(499)", res_s, single.solve_fused(eq.objective, iters=499))
+    shc = ShardedAdmmSolver(compiled, mesh, options=base_opts)
+    sic = AdmmSolver(compiled, options=base_opts)
+    base_s = counted(lambda: shc.solve(eq.objective))
+    base_1 = sic.solve(eq.objective)
+    same_result("9a classic solve", base_s, base_1)
+    drv_s, log_s = counted(lambda: ChunkedDriver(shc, chunk=250, fused=True).solve(
+        eq.objective, max_iters=3000))
+    drv_1, log_1 = ChunkedDriver(sic, chunk=250, fused=True).solve(eq.objective,
+                                                                   max_iters=3000)
+    same_result("9a ChunkedDriver(fused=True)", drv_s, drv_1)
+    if log_s.status != log_1.status or len(log_s) != len(log_1):
+        raise AssertionError(f"9a ChunkedDriver: {log_s.status} after {len(log_s)} chunks "
+                             f"!= {log_1.status} after {len(log_1)}")
+    host_base = to_host(base_1)
+    host_base = host_base._replace(psi=_psi_from_trades(compiled, host_base))
+    rho_d = float(np.clip(np.asarray(host_base.rho_final), 0.25, 4.0))
+    nu0 = (np.asarray(host_base.prices, np.float64) / rho_d).astype(np.float32).astype(
+        np.float64)
+    dobj = _delta_objective(eq.objective, host_base.psi, 1e-3)
+    dsh = ShardedDeltaAdmmSolver(compiled, mesh, options=refine_opts)
+    dsi = DeltaAdmmSolver(compiled, options=refine_opts)
+    bd_s, mx_s = dsh.delta_buckets(host_base, 1e-3, nu0=nu0)
+    bd_1, mx_1 = dsi.delta_buckets(host_base, 1e-3, nu0=nu0)
+    if mx_s != mx_1:
+        raise AssertionError(f"9a delta_buckets: min x0 {mx_s} != {mx_1}")
+    d_s = counted(lambda: dsh.solve_delta(dobj, bd_s, nu0, rho_d, 250, fused=True))
+    same_result("9a solve_delta(fused=True)", d_s,
+                dsi.solve_delta(dobj, bd_1, nu0, rho_d, 250, fused=True))
+    log("# 9a: one NCCL rank, replayed: solve_fused(499), the classic solve (phase 5's "
+        "options), ChunkedDriver(fused=True) and solve_delta(fused=True) bitwise equal to "
+        "the unsharded solvers'")
+    route = counted(lambda: scaleout_route(
+        compiled, cert_compiled, obj, eq, shc, ShardedDeltaAdmmSolver(
+            compiled, mesh, options=refine_opts)))
+    out9a, _, rb_s, rr_s = route
+    c9a = out9a.certificate
+    log(f"# 9a certified route (sharded, one rank): base {rb_s:.3f} s, refinement "
+        f"{out9a.iters} iterations {rr_s:.3f} s; gap_rel {c9a.gap_rel:.3e} feasibility_rel "
+        f"{c9a.feasibility_rel:.3e}; achieved {out9a.achieved}")
+    if not (out9a.achieved and abs(c9a.gap_rel) <= 1e-6 and c9a.feasibility_rel <= 1e-6):
+        raise AssertionError(f"9a: the sharded certified route missed 1e-6: {c9a.summary()}")
+    secs = {"unsharded": [], "sharded": []}
+    for who in ("unsharded", "sharded", "sharded", "unsharded"):  # in turns
+        solver = single if who == "unsharded" else sh
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        solver.solve_fused(eq.objective, iters=499)
+        stop.record()
+        stop.synchronize()
+        secs[who].append(start.elapsed_time(stop) / 1e3)
+    its = {k: 500 / min(v) for k, v in secs.items()}
+    ar_ms, ar_names = collective_ms(sh, single, eq.objective, 49)
+    log(f"# 9a fused it/s (500 iterations, replayed, in turns): unsharded "
+        f"{its['unsharded']:.1f} {secs['unsharded']} s, sharded one rank "
+        f"{its['sharded']:.1f} {secs['sharded']} s; NCCL kernels {ar_ms:.5f} device ms "
+        f"an iteration (profiler, 50 iterations; device work only the sharded window "
+        f"holds: {[n[:60] for n in ar_names]}) on {card}")
+    report["scaleout_9a"] = dict(
+        fused_iters_per_s=its, fused_s=secs, allreduce_ms_per_iter=ar_ms,
+        allreduce_kernels=ar_names,
+        route=dict(achieved=bool(out9a.achieved), gap_rel=c9a.gap_rel,
+                   feasibility_rel=c9a.feasibility_rel, objective=c9a.objective,
+                   base_s=rb_s, refine_s=rr_s, refine_iters=int(out9a.iters)),
+        seconds=time.perf_counter() - t9a)
+    del sh, single, shc, sic, dsh, dsi, bd_s, bd_1
+    dist.destroy_process_group()
+    log(f"# 9a done in {time.perf_counter() - t9a:.1f} s")
+
+    # ---- 9b. two ranks on the card, gloo, eager -----------------------------------
+    t9b = time.perf_counter()
+    r9b = spawn_ranks("9b", 2, cfg_main, refine_opts)
+    log(f"# 9b ranks done in {time.perf_counter() - t9b:.1f} s")
+    r0 = r9b[0]
+    replicated = ("achieved", "objective", "gap_rel", "feasibility_rel", "base_iters",
+                  "refine_iters")
+    for r, res in enumerate(r9b):
+        launches += [res["fused_launches"], res["route_launches"], res["assets_launches"]]
+        if ([res["route"][k] for k in replicated] != [r0["route"][k] for k in replicated]
+                or res["fused_objective"] != r0["fused_objective"]
+                or res["assets"] != r0["assets"]):
+            raise AssertionError(f"9b: rank {r}'s replicated results differ from rank "
+                                 f"0's: {res} vs {r0}")
+    rel_f = abs(r0["fused_objective"] - r0["fused_ref_objective"]) / max(
+        1.0, abs(r0["fused_ref_objective"]))
+    rt, rf = r0["route"], r0["route_ref"]
+    rel_route = abs(rt["objective"] - rf["objective"]) / max(1.0, abs(rf["objective"]))
+    a = r0["assets"]
+    rel_assets = abs(a["objective"] - a["replicated"]) / max(1.0, abs(a["replicated"]))
+    log(f"# 9b (two ranks sharing one card, gloo through the host, eager: no scale-out "
+        f"time): kernels bitwise on each rank's K-groups {[x['kernels_checked'] for x in r9b]}; "
+        f"solve_fused(499) {r0['fused_s']:.3f} s, objective rel {rel_f:.2e} vs unsharded, psi "
+        f"drift {r0['fused_psi_drift']:.2e}; certified route base {rt['base_iters']} "
+        f"iterations {rt['base_s']:.3f} s, refinement {rt['refine_iters']} iterations "
+        f"{rt['refine_s']:.3f} s, gap_rel {rt['gap_rel']:.3e} feasibility_rel "
+        f"{rt['feasibility_rel']:.3e}, objective rel {rel_route:.2e} vs the single-device "
+        f"route's (gap_rel {rf['gap_rel']:.3e}); shard_assets objective rel {rel_assets:.2e}, "
+        f"psi {a['psi_max_abs']:.2e}; {time.perf_counter() - t9b:.1f} s on {card}")
+    if not rel_f <= 1e-4:
+        raise AssertionError(f"9b: sharded fused objective rel {rel_f:.2e} > 1e-4")
+    if not (rt["achieved"] and rf["achieved"] and abs(rt["gap_rel"]) <= 1e-6
+            and rt["feasibility_rel"] <= 1e-6 and rel_route <= 1e-6):
+        raise AssertionError(f"9b: certified route {rt} vs single-device {rf}")
+    if not rel_assets <= 1e-8:
+        raise AssertionError(f"9b: shard_assets objective rel {rel_assets:.2e} > 1e-8")
+
+    # ---- 9c. four ranks on the card, 2x2 batch x pools, gloo, eager ---------------
+    t9c = time.perf_counter()
+    r9c = spawn_ranks("9c", 4, cfg_main, refine_opts)
+    launches += [res["launches"] for res in r9c]
+    got, want = np.asarray(r9c[0]["objective"]), np.asarray(r9c[0]["ref_objective"])
+    rel_c = float(np.max(np.abs(got - want) / np.abs(want)))
+    log(f"# 9c (four ranks sharing one card, gloo, eager): solve_batch_reserves of 4 "
+        f"scenarios at 10k / 64, float64 to 1e-7, {r9c[0]['s']:.3f} s, iterations "
+        f"{r9c[0]['iters']} (unsharded {r9c[0]['ref_iters']}); objectives rel {rel_c:.2e} "
+        f"vs unsharded; {time.perf_counter() - t9c:.1f} s on {card}")
+    if not rel_c <= 1e-6:
+        raise AssertionError(f"9c: sharded reserve scenarios rel {rel_c:.2e} > 1e-6")
+    report["scaleout_9b"] = dict(ranks=r9b, fused_rel=rel_f, route_rel=rel_route,
+                                 assets_rel=rel_assets, seconds=time.perf_counter() - t9b)
+    report["scaleout_9c"] = dict(ranks=r9c, rel=rel_c, seconds=time.perf_counter() - t9c)
+    missing = [k for k in ("project", "fused_step", "segment_sum", "fused_step_delta",
+                           "project_delta") if not any(c.get(k) for c in launches)]
+    if missing:
+        raise AssertionError(f"phase 9: kernels never launched on the sharded paths: {missing}")
+    log(f"# phase 9 (scale-out) done in {time.perf_counter() - t_phase:.1f} s on {card}")
+    return launches
+
+
 def build_report(build_dir):
     """Registers and spills of every kernel in the ``-Xptxas=-v`` logs kept
     beside the built libraries ({library: {kernel: [registers, spill
@@ -3149,6 +3602,10 @@ def main(argv=None):
 
     # ---- 8. CUDA-graph replays against eager runs -----------------------------
     replay_phase(report, card=smi, cfg_main=cfg_main, cfg64=cfg64)
+
+    # ---- 9. scale-out: the sharded solvers --------------------------------------
+    main_launches += scaleout_phase(report, card=smi, cfg_main=cfg_main,
+                                    refine_opts=refine_opts)
 
     # ---- report -------------------------------------------------------------
     kernels = []

@@ -855,3 +855,69 @@ def test_custom_fn_reading_the_host_raises(cuda_device):
                         options=AdmmOptions(max_iters=20, check_every=10))
     with pytest.raises(RuntimeError, match="CustomUtility"):
         solver.solve(util)
+
+
+# ---- scale-out: the sharded solvers on torch.distributed -----------------------
+
+
+@pytest.fixture
+def one_rank_nccl_mesh(cuda_device):
+    """A one-rank NCCL pools mesh over an in-memory store (``pool_mesh()`` in
+    a process with no group), torn down after the test."""
+    import torch.distributed as dist
+
+    from cfmm_routing_tpu_torch.parallel.mesh import pool_mesh
+
+    had = dist.is_initialized()
+    mesh = pool_mesh()
+    yield mesh
+    if not had:
+        dist.destroy_process_group()
+
+
+def test_sharded_one_rank_nccl_is_bitwise_the_unsharded_solver(one_rank_nccl_mesh):
+    """On a world-size-1 NCCL group the sharded solves, replayed with the
+    all-reduce inside their CUDA graphs, equal ``AdmmSolver``'s bit for bit:
+    ``solve_fused`` and the classic ``solve``."""
+    from cfmm_routing_tpu_torch.parallel.sharded import ShardedAdmmSolver
+
+    table, obj = random_arbitrage_table(16, 300, seed=4, reserve_scale=1.0)
+    compiled = compile_table(table, pad_pools_to=128)
+    opts = AdmmOptions(max_iters=60, eps_abs=0.0, eps_rel=0.0, check_every=10,
+                       projection=plain.ProjectionConfig(24, 4))
+    sharded = ShardedAdmmSolver(compiled, one_rank_nccl_mesh, options=opts)
+    single = AdmmSolver(compiled, options=opts)
+    assert sharded.device.type == "cuda" and sharded.n_shards == 1
+    for run in (lambda s: s.solve_fused(obj, iters=60), lambda s: s.solve(obj)):
+        got, want = run(sharded), run(single)
+        assert torch.equal(got.psi, want.psi) and torch.equal(got.prices, want.prices)
+        assert torch.equal(got.objective, want.objective)
+        for name in want.deltas:
+            assert torch.equal(got.deltas[name], want.deltas[name])
+            assert torch.equal(got.lambdas[name], want.lambdas[name])
+    assert len(sharded.inner._graphs._entries) > 0  # the blocks were captured
+
+
+def test_sharded_on_a_gloo_group_runs_only_eager(cuda_device):
+    """A gloo group over CUDA tensors (ranks sharing one card) cannot capture
+    its collectives: a replayed solve raises, and inside ``graphs.eager()``
+    the solve runs, equal to the unsharded eager solve."""
+    import torch.distributed as dist
+
+    from cfmm_routing_tpu_torch.parallel.mesh import pool_mesh
+    from cfmm_routing_tpu_torch.parallel.sharded import ShardedAdmmSolver
+
+    assert not dist.is_initialized()
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        spec, obj = arbitrage_instance()
+        opts = AdmmOptions(max_iters=20, eps_abs=0.0, eps_rel=0.0, check_every=5)
+        sharded = ShardedAdmmSolver(spec, pool_mesh(), options=opts)
+        with pytest.raises(RuntimeError, match="graphs.eager"):
+            sharded.solve(obj)
+        with graphs.eager():
+            got = sharded.solve(obj)
+            want = AdmmSolver(compile_spec(spec), options=opts).solve(obj)
+        assert torch.equal(got.psi, want.psi)
+    finally:
+        dist.destroy_process_group()

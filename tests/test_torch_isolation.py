@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: no JAX, no reference package, no silent CPU.
 
-* No module of ``cfmm_routing_tpu_torch/`` (nor ``chip_smoke.py``) imports
-  ``jax`` or ``cfmm_routing_tpu`` — checked on the source, so a lazy import
-  inside a function is caught too.
+* No module of ``cfmm_routing_tpu_torch/`` (nor ``chip_smoke.py``, nor the
+  sharded tests' rank script ``tests/torch_ranks.py``) imports ``jax`` or
+  ``cfmm_routing_tpu`` — checked on the source, so a lazy import inside a
+  function is caught too.
 * The package imports in a fresh interpreter where ``jax`` cannot load.
 * Entry points default to the card: with no CUDA device and no
   ``device=`` they raise instead of running on the CPU.
@@ -19,6 +20,7 @@ import torch
 
 from cfmm_routing_tpu_torch import api
 from cfmm_routing_tpu_torch.models.reference_instances import arbitrage_instance
+from cfmm_routing_tpu_torch.parallel.mesh import pool_mesh
 from cfmm_routing_tpu_torch.solver.admm import AdmmOptions, AdmmSolver
 from cfmm_routing_tpu_torch.solver.compiler import compile_spec
 from cfmm_routing_tpu_torch.solver.fold import solve_batch_folded
@@ -30,7 +32,7 @@ _FORBIDDEN = ("jax", "jaxlib", "cfmm_routing_tpu")
 
 def _sources():
     files = sorted((REPO / "cfmm_routing_tpu_torch").rglob("*.py"))
-    return files + [REPO / "chip_smoke.py"]
+    return files + [REPO / "chip_smoke.py", REPO / "tests" / "torch_ranks.py"]
 
 
 def _imported_roots(path):
@@ -66,6 +68,7 @@ def test_package_imports_with_jax_blocked():
         "import cfmm_routing_tpu_torch.solver.refine_device\n"
         "import cfmm_routing_tpu_torch.solver.fold, cfmm_routing_tpu_torch.solver.driver\n"
         "import cfmm_routing_tpu_torch.solver.residuals\n"
+        "import cfmm_routing_tpu_torch.parallel.mesh, cfmm_routing_tpu_torch.parallel.sharded\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m]]\n"
         "print('ok')\n"
     )
@@ -90,6 +93,8 @@ def test_entry_points_without_a_card_raise(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         solve_batch_folded(compile_spec(spec), np.tile(obj.c, (2, 1)),
                            np.tile(obj.lo, (2, 1)), np.tile(obj.hi, (2, 1)))
+    with pytest.raises(RuntimeError, match="platform='cpu'"):
+        pool_mesh()
     # asked for explicitly, the CPU works
     on_cpu = AdmmSolver(compile_spec(spec), device="cpu",
                         options=AdmmOptions(max_iters=1))

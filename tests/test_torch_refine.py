@@ -10,12 +10,16 @@
   bounds agree to 1e-9 relative.
 * ``refine`` (the float64 fallback) certifies the arbitrage instance at 1e-6.
 * The entry points left out of the port so far raise
-  ``NotImplementedError`` naming their ROADMAP.md queue item
-  (``refine(cpu_shards=)``: 14; the native packer), ``refine_device``
+  ``NotImplementedError`` naming their ROADMAP.md queue item (the native
+  packer); ``refine(cpu_shards=4)`` (ported) in a process with no gloo
+  group of 4 ranks falls back to the single-device polish with the JAX
+  package's ``SINGLE-DEVICE`` warning and certifies; ``refine_device``
   refuses an objective that is neither an ``Objective``, a
   ``ConcaveUtility`` nor a ``CustomUtility``, and a ``CustomUtility``
   (item 12b, ported) without its conjugate.
 """
+import logging
+
 import numpy as np
 import pytest
 import torch
@@ -133,7 +137,7 @@ def test_refine_float64_fallback_certifies_arbitrage(arb):
     assert abs(out.certificate.objective - 21.499805) / 21.499805 < 1e-6
 
 
-def test_left_out_entry_points_name_their_queue_item(arb):
+def test_left_out_entry_points_name_their_queue_item(arb, caplog):
     compiled, obj, base = arb["compiled"], arb["obj"], arb["port_base"]
 
     # CustomUtility is ported (item 12b); without a conjugate it cannot be
@@ -147,8 +151,12 @@ def test_left_out_entry_points_name_their_queue_item(arb):
 
     with pytest.raises(TypeError, match="ConcaveUtility"):
         rd.refine_device(compiled, Other(), base, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        refine(compiled, obj, base, cpu_shards=4, device="cpu")
+    # cpu_shards is ported (item 14): without 4 gloo ranks it takes the
+    # reference's loud single-device fallback, and certifies
+    with caplog.at_level(logging.WARNING, logger="cfmm_routing_tpu_torch.refine"):
+        out = refine(compiled, obj, base, target_gap=1e-6, cpu_shards=4, device="cpu")
+    assert any("SINGLE-DEVICE" in r.getMessage() for r in caplog.records)
+    assert out.achieved, out.certificate.summary()
     table, _ = random_arbitrage_table(8, 20, seed=1)
     with pytest.raises(NotImplementedError, match="native packer"):
         compile_table(table, backend="native")
