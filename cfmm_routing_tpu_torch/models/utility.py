@@ -222,13 +222,17 @@ class ConcaveUtility:
 
     # ---- tensor packing ------------------------------------------------------
 
-    def pack(self, dtype, device):
+    def pack(self, dtype, device=None):
         """Encode as a :class:`~cfmm_routing_tpu_torch.ops.prox.PackedUtility`
         of tensors on ``device`` (box clamped to float32-safe finite values
-        and to the atom domains)."""
+        and to the atom domains).  ``device=None``: the card, as every entry
+        point of the package (raises without one)."""
         import torch
 
+        from .._device import resolve_device
         from ..ops.prox import PackedUtility
+
+        device = resolve_device(device)
 
         big = np.finfo(np.float32).max / 4
         dom = np.where(

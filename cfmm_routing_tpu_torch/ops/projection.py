@@ -279,10 +279,11 @@ def _root_find(h_of_mu, mu_hi, h_target, cfg: ProjectionConfig):
     return torch.where(feasible0, zero, hi)
 
 
-def gm_mu_bracket(p, q, R, w, s, gamma, k0, mask):
+def gm_mu_bracket(p, q, R, w, s, gamma, k0, mask, dtype=None):
     """Upper bracket for the gm multiplier: big enough that every L clips
     to 0, hence xi >= Rp and h >= log k0.  Sufficient per slot:
-    t >= max(2 q+ (Rp + gamma p+), 4 q+^2 gamma^2)."""
+    t >= max(2 q+ (Rp + gamma p+), 4 q+^2 gamma^2).  ``dtype``: whose
+    smallest normal floors k0 (default: k0's own)."""
     Rp = R + s
     qp = torch.relu(q) + 1e-3
     need_t = torch.maximum(
@@ -290,7 +291,8 @@ def gm_mu_bracket(p, q, R, w, s, gamma, k0, mask):
     )
     valid = mask > 0
     w_safe = torch.where(valid, w, torch.ones_like(w))
-    cand = need_t / (w_safe * torch.clamp_min(k0, _tiny(k0))[None, :])
+    tiny = _tiny(k0) if dtype is None else torch.finfo(dtype).tiny
+    cand = need_t / (w_safe * torch.clamp_min(k0, tiny)[None, :])
     cand = torch.where(valid, cand, torch.zeros_like(cand))
     return 4.0 * torch.amax(cand, dim=0) + 1.0
 

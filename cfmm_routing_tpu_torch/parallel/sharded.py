@@ -262,15 +262,19 @@ class ShardedAdmmSolver:
         return self._gather(self.inner.solve(objective, rho=rho, warm=self._local(warm),
                                              max_iters=max_iters))
 
-    def solve_fused(self, objective, iters: int, rho: Optional[float] = None) -> RouteResult:
+    def solve_fused(self, objective, iters: int, rho: Optional[float] = None,
+                    interpret: bool = False) -> RouteResult:
         """Fixed-iteration fused-kernel solve, pools sharded over the mesh:
         each rank runs the fused kernels on its shard, one all-reduce of the
         consensus n-vector per iteration completes it.  Each rank's pool
-        counts must be multiples of 128 (see the class docstring)."""
+        counts must be multiples of 128 (see the class docstring).
+        ``interpret``: the JAX package's Pallas interpret mode, accepted and
+        ignored."""
         self._check_fused_alignment()
         return self._gather(self.inner.solve_fused(objective, iters, rho=rho))
 
-    def make_chunk_fn(self, chunk: int, fused: bool = False):
+    def make_chunk_fn(self, chunk: int, fused: bool = False,
+                      interpret: bool = False):
         """A sharded chunk function with the JAX package's ChunkedDriver
         contract, on this rank's shard of the state:
 
@@ -278,7 +282,8 @@ class ShardedAdmmSolver:
                 (z, nu, r2, s2, w2, z2, u2, psi, obj)
 
         ``chunk`` iterations (``fused=True``: ``chunk - 1`` fused iterations
-        and one classic residual harvest), with global residual sums."""
+        and one classic residual harvest), with global residual sums.
+        ``interpret`` is accepted and ignored, as by :meth:`solve_fused`."""
         from ..solver.driver import ChunkedDriver
 
         drv = ChunkedDriver(self, chunk=chunk, fused=fused)
@@ -422,6 +427,7 @@ class ShardedDeltaAdmmSolver(ShardedAdmmSolver):
         max_iters: int,
         warm: Optional[RouteResult] = None,
         fused: bool = False,
+        interpret: bool = False,
     ) -> RouteResult:
         """One sharded correction solve, with ``DeltaAdmmSolver.solve_delta``'s
         semantics (its preparation, ``_prep_delta_solve``, is the one the

@@ -267,6 +267,14 @@ class AdmmSolver:
     ``fold=(T, n_pt)``: ``compiled`` is a scenario fold of T points of n_pt
     assets each (``solver/fold.py``; see the module docstring).
 
+    ``segment_sum_fn``: ``(vals, idx) -> (n,)``, a torch callable that
+    replaces the classic path's consensus reduction, called per bucket on
+    its flattened pre-masked plane and asset ids (on the card it must be
+    capturable: torch ops, no host read).  The fused kernels reduce with
+    their own segment sum, so a solver given one refuses the fused paths.
+    ``degree_override``: an (n,) degree vector in place of
+    ``compiled.degree`` in the consensus metric.
+
     ``axis_name``: the pools process group of a sharded solve (the JAX
     package's mesh axis name); ``compiled`` is then this rank's shard, with
     the global ``degree`` (``parallel/sharded.py``).  ``consensus_prox``:
@@ -279,6 +287,8 @@ class AdmmSolver:
         compiled: CompiledProblem,
         dtype: torch.dtype = torch.float32,
         options: AdmmOptions = AdmmOptions(),
+        segment_sum_fn=None,
+        degree_override=None,
         device=None,
         axis_name=None,
         fold=None,
@@ -301,7 +311,9 @@ class AdmmSolver:
         self._meta = {
             name: (b.kind, b.needs_floor) for name, b in compiled.buckets.items()
         }
-        self.degree = self._t(compiled.degree)
+        self.degree = self._t(compiled.degree if degree_override is None
+                              else degree_override)
+        self._segsum = segment_sum_fn
         mode = options.consensus
         if mode == "auto":
             mode = "onehot" if self.n <= 512 else "radix"
@@ -407,7 +419,16 @@ class AdmmSolver:
         plane -> (n,).  On the card: one fixed-order segment-sum kernel per
         K-group (:attr:`_groups`) over its buckets' planes one after
         another, the groups' sums added in group order.  On the CPU:
-        ``index_add_`` bucket by bucket."""
+        ``index_add_`` bucket by bucket.  A solver given a
+        ``segment_sum_fn`` calls it bucket by bucket instead, on either
+        device."""
+        if self._segsum is not None:
+            y = None
+            for name, vals in planes.items():
+                yb = self._segsum(vals.reshape(-1),
+                                  buckets[name]["asset"].reshape(-1))
+                y = yb if y is None else y + yb
+            return y
         if next(iter(planes.values())).device.type == "cuda":
             y = None
             for g in self._groups:
@@ -558,11 +579,19 @@ class AdmmSolver:
         v = torch.cat([w, self._zeros(n_pad - n)])
         return v, lambda y: y[:n]
 
+    def _check_fused_reduction(self):
+        if self._segsum is not None:
+            raise ValueError(
+                "segment_sum_fn replaces the classic path's reduction; the "
+                "fused kernels reduce with the package's segment_sum kernel "
+                "and do not take it: use solve() or a classic ChunkedDriver")
+
     def _iterate_fused(self, s, wdef, nu, rho, c, lo, hi, buckets=None,
                        util=None):
         """One fused iteration: one ``fused_step_grouped`` launch and one
         segment sum per group of buckets with the same channel count
         (:attr:`_groups`), the groups' y added in group order."""
+        self._check_fused_reduction()
         buckets = self.buckets if buckets is None else buckets
         alpha = float(self.options.alpha)
         v, unpack = self._fold_pack(wdef - nu)
@@ -652,6 +681,7 @@ class AdmmSolver:
         """:meth:`_iterate_fused` on merged K-group state: one
         ``fused_step_merged`` launch (and one segment sum) per channel
         count."""
+        self._check_fused_reduction()
         alpha = float(self.options.alpha)
         v, unpack = self._fold_pack(wdef - nu)
         y = torch.zeros_like(v)
@@ -796,10 +826,15 @@ class AdmmSolver:
         objective,
         iters: int,
         rho: Optional[float] = None,
+        interpret: bool = False,
         merged: bool = False,
     ) -> RouteResult:
         """Fixed-iteration solve on the fused-kernel path, for an
         :class:`Objective` or a :class:`ConcaveUtility`.
+
+        ``interpret``: the JAX package's Pallas interpret mode, accepted
+        at its place and ignored (the CPU runs the plain versions of the
+        kernels, the card the kernels).
 
         Requires every bucket's pool count to be a multiple of 128 (compile
         with ``pad_pools_to=128``), as the JAX package's fused path does.

@@ -14,7 +14,8 @@ padded arrays instead of one-hot matrices:
 
 Everything here runs once per problem on the host (numpy); the solver
 copies the arrays to the device.  Bucket arrays are bit-identical to the
-JAX package's compiler (its numpy packer).
+JAX package's compiler with the same backend (numpy, or the C++ packer of
+``native/``).
 """
 from __future__ import annotations
 
@@ -208,29 +209,39 @@ def compile_table(
     projection is the identity at the origin and every consensus access is
     masked (solver/admm.py).
 
-    ``backend``: 'numpy' or 'auto' (both the numpy packer; a native packer
-    is not part of this package yet).
+    ``backend``: 'native' (the C++ packer, ``native/``), 'numpy', or
+    'auto' (native when ``g++`` builds it, else numpy).  'native' raises
+    if the packer does not build.  The two agree bit for bit on every
+    integer array and to summation-order roundoff on the float ones
+    (tests/test_torch_native.py).
     """
-    if backend not in ("auto", "numpy"):
-        raise NotImplementedError(
-            f"backend={backend!r}: the native packer is not ported yet "
-            "(ROADMAP queue 1, item 1); use backend='numpy'"
-        )
+    from .. import native
+
+    use_native = backend == "native" or (backend == "auto" and native.available())
     n = table.n_assets
     P = table.n_pools
 
-    if pad_pow2:
-        Ks = np.maximum(
-            2,
-            (1 << np.ceil(np.log2(np.maximum(table.width, 2))).astype(np.int64)),
-        ).astype(np.int32)
+    if pad_pow2 and use_native:
+        # the (kind, next_pow2(K), floor) key per pool from the packer
+        # (packer.cpp bucket_keys), bit-identical to the numpy expression
+        keys = native.bucket_keys(
+            np.ascontiguousarray(table.width, np.int32),
+            np.ascontiguousarray(table.kind, np.uint8),
+            np.ascontiguousarray(table.floor, np.uint8),
+        )
     else:
-        Ks = np.maximum(2, table.width).astype(np.int32)
-    keys = (
-        (table.kind.astype(np.int32) << 24)
-        | (Ks.astype(np.int32) << 1)
-        | table.floor.astype(np.int32)
-    )
+        if pad_pow2:
+            Ks = np.maximum(
+                2,
+                (1 << np.ceil(np.log2(np.maximum(table.width, 2))).astype(np.int64)),
+            ).astype(np.int32)
+        else:
+            Ks = np.maximum(2, table.width).astype(np.int32)
+        keys = (
+            (table.kind.astype(np.int32) << 24)
+            | (Ks.astype(np.int32) << 1)
+            | table.floor.astype(np.int32)
+        )
 
     buckets: Dict[str, Bucket] = {}
     degree = np.zeros(n, dtype=np.float64)
@@ -250,10 +261,23 @@ def compile_table(
         asset = np.zeros((m, K), dtype=np.int32)
         logk0 = np.zeros(m)
         k0 = np.zeros(m)
-        _fill_bucket_numpy(
-            table, rows, m, K, is_gm, R, W, S, Gf, mask, asset,
-            degree, logk0, k0,
-        )
+        if use_native:
+            native.fill_bucket(
+                m, m_real, K, is_gm, rows,
+                np.ascontiguousarray(table.width, np.int32),
+                np.ascontiguousarray(table.offset, np.int64),
+                np.ascontiguousarray(table.assets, np.int32),
+                np.ascontiguousarray(table.reserves, np.float64),
+                np.ascontiguousarray(table.weights, np.float64),
+                np.ascontiguousarray(table.shifts, np.float64),
+                np.ascontiguousarray(table.fees, np.float64),
+                R, W, S, Gf, mask, asset, degree, logk0, k0,
+            )
+        else:
+            _fill_bucket_numpy(
+                table, rows, m, K, is_gm, R, W, S, Gf, mask, asset,
+                degree, logk0, k0,
+            )
         if kind == "gm":
             k0[m_real:] = 1.0
         name = f"{kind}{K}{'f' if floor else ''}"

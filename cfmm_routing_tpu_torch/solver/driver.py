@@ -110,9 +110,12 @@ class ChunkedDriver:
     """Host-side orchestration around an :class:`AdmmSolver`.
 
     ``fused=True`` needs every bucket's pool count (per scenario point on
-    a fold) to be a multiple of 128 (``pad_pools_to=128``/1024)."""
+    a fold) to be a multiple of 128 (``pad_pools_to=128``/1024).
+    ``interpret``: the JAX package's Pallas interpret mode, accepted and
+    ignored."""
 
-    def __init__(self, solver, chunk: int = 200, fused: bool = False):
+    def __init__(self, solver, chunk: int = 200, fused: bool = False,
+                 interpret: bool = False):
         from ..parallel.sharded import ShardedAdmmSolver
 
         self.sharded = None

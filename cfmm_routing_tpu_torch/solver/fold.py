@@ -228,6 +228,7 @@ def solve_batch_folded(
     dtype: torch.dtype = torch.float32,
     fused: bool = None,
     chunk: int = 500,
+    interpret: bool = False,
     rho: float = None,
     max_iters: int = None,
     device=None,
@@ -240,7 +241,8 @@ def solve_batch_folded(
     ``fused_step(fold=)`` kernel; otherwise the classic solve.  Semantics
     differ from :meth:`AdmmSolver.solve_batch` only in the JOINT stopping
     test and the shared adapted rho.  Returns a per-point batched
-    RouteResult of numpy arrays (:func:`unfold_route`)."""
+    RouteResult of numpy arrays (:func:`unfold_route`).  ``interpret``: the
+    JAX package's Pallas interpret mode, accepted and ignored."""
     c = np.asarray(c, np.float64)
     T = c.shape[0]
     opts = options if options is not None else AdmmOptions()
@@ -268,6 +270,7 @@ def solve_batch_reserves_folded(
     n_iters: int = 750,
     rho: float = None,
     fused: bool = None,
+    interpret: bool = False,
     device=None,
 ) -> RouteResult:
     """T per-pool reserve scenarios ((T, n_pools) ``reserve_scale``) of one
@@ -276,7 +279,9 @@ def solve_batch_reserves_folded(
     ``fused_step(fold=)`` kernel (``fused``, default on the card with
     128-aligned buckets), else a classic solve of at most ``n_iters``
     iterations.  The reserve planes are uploaded in the solver's dtype.
-    Returns a per-point batched RouteResult of numpy arrays."""
+    Returns a per-point batched RouteResult of numpy arrays.
+    ``interpret``: the JAX package's Pallas interpret mode, accepted and
+    ignored."""
     reserve_scale = np.asarray(reserve_scale, np.float64)
     T = reserve_scale.shape[0]
     opts = options if options is not None else AdmmOptions()

@@ -162,6 +162,7 @@ class DeltaAdmmSolver(AdmmSolver):
         deferred-broadcast identity z = s +/- wdef_e is untouched by the
         re-centring (nu0e enters only the projection input, inside the
         kernel), so the O(n) recursion is the base fused path's."""
+        self._check_fused_reduction()
         buckets = self.buckets if buckets is None else buckets
         alpha = float(self.options.alpha)
         v, unpack = self._fold_pack(wdef - nu)
@@ -250,6 +251,7 @@ class DeltaAdmmSolver(AdmmSolver):
         max_iters: int,
         warm: Optional[RouteResult] = None,
         fused: bool = False,
+        interpret: bool = False,
     ) -> RouteResult:
         """One correction solve on the delta bucket arrays.
 
@@ -263,7 +265,8 @@ class DeltaAdmmSolver(AdmmSolver):
         ``fused=True`` runs ``max_iters`` fused delta iterations (the
         ``fused_step_delta`` kernel on the card, its plain version on the
         CPU) plus one classic residual-harvest iteration; every bucket's
-        pool count must be a multiple of 128."""
+        pool count must be a multiple of 128.  ``interpret``: the JAX
+        package's Pallas interpret mode, accepted and ignored."""
         c, lo, hi, util, start_nu = _prep_delta_solve(objective, nu0, rho, self)
         if fused and isinstance(util, DeltaCustomUtility):
             raise ValueError(
@@ -297,17 +300,23 @@ class DeltaAdmmSolver(AdmmSolver):
 
         ``deltas``/``lambdas``: bucket name -> (T, K, m) base trades;
         ``eps``: (T,) per-point correction scales; ``nu0``: (T, n)
-        float32-exact base scaled duals.  Returns (buckets, min_x0 (T,))."""
+        float32-exact base scaled duals.  Returns (buckets, in_axes,
+        min_x0 (T,)), the JAX package's triple.  ``in_axes`` maps every
+        array of ``buckets`` to None: the fold lays the T points out along
+        the pool axis, so no array carries a leading grid axis."""
         fs = self._batch_solver(len(np.asarray(eps)))
-        return _delta_buckets_folded(fs, deltas, lambdas, eps, nu0)
+        out, min_x0 = _delta_buckets_folded(fs, deltas, lambdas, eps, nu0)
+        axes = {name: dict.fromkeys(arrs) for name, arrs in out.items()}
+        return out, axes, min_x0
 
-    def solve_delta_batch(self, c, lo, hi, nu0, rho, bdict, max_iters,
+    def solve_delta_batch(self, c, lo, hi, nu0, rho, bdict, axes, max_iters,
                           warm=None):
         """T correction solves (linear objectives, delta-dual iteration),
         each with its own penalty ``rho`` (T,) and its own stopping test:
         ``c`` (T, n) carries e0 = c_true/rho - nu0 per point, ``nu0`` the
         delta dual to start from, ``bdict`` the arrays of
-        :meth:`delta_buckets_batch`.  ``warm``: a previous batched delta
+        :meth:`delta_buckets_batch` (``axes``, its in_axes, is accepted at
+        the JAX package's place and not needed).  ``warm``: a previous batched delta
         result (same centre) to chain chunks from: z0 = its trades, dnu0 =
         its prices / rho.  Returns a RouteResult with leading axis T."""
         rho = np.asarray(rho, np.float64)
@@ -736,13 +745,15 @@ def refine_sweep(
             # the folded solve ran at rho=1: prices == dnu per point
             d_prices = rho[:, None] * unfold_vec(dresh.prices, T)
         else:
-            bdict, min_x0 = solver.delta_buckets_batch(deltas, lambdas, eps, nu0f)
+            bdict, axes, min_x0 = solver.delta_buckets_batch(deltas, lambdas, eps,
+                                                             nu0f)
             e0 = c / rho[:, None] - nu0f
             dnu_start = np.zeros_like(nu0f)
             dres = None
             for _ck in range(4):
                 dres = solver.solve_delta_batch(e0, lo_d, hi_d, dnu_start, rho,
-                                                bdict, iters_per_pass, warm=dres)
+                                                bdict, axes, iters_per_pass,
+                                                warm=dres)
                 it_ck = int(host(dres.iters).max())
                 total += it_ck
                 if it_ck < int(iters_per_pass) or bool(host(dres.converged).all()):
@@ -819,6 +830,7 @@ def refine_device(
     rho0: Optional[float] = None,
     eps_factor: float = 10.0,
     fused: Optional[bool] = None,
+    interpret: bool = False,
     entry_cert=None,
     device=None,
 ) -> RefineResult:
@@ -842,6 +854,8 @@ def refine_device(
     128 AND the solver runs on the card AND the objective is not a
     :class:`CustomUtility` (whose correction solves are classic).
     ``fused=True`` on a CPU solver runs the plain fused delta version.
+    ``interpret``: the JAX package's Pallas interpret mode, accepted and
+    ignored.
 
     ``entry_cert``: a certificate of ``result`` the caller already has, in
     cert_space units (skips the entry certificate)."""

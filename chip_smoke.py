@@ -200,6 +200,33 @@ Phases (any failure raises and the script exits nonzero):
    A rank that fails or outlasts its timeout fails the phase.  Two or four
    ranks on one card measure no scale-out: their seconds are the host
    round trips of gloo.
+10. The native packer, the command line and the host extras (each
+   main-path run with the counts reset just before it and read just after).
+   a. ``random_arbitrage_table(256, 100_000, seed=7)`` compiled with
+      ``pad_pools_to=1024`` by the C++ packer (``native/``, built with g++)
+      and by the numpy packer, in turns, both timed: integer arrays equal,
+      float arrays within 1e-12 (absolute and relative, the bar of
+      ``tests/test_native.py``); ``backend="auto"`` fills every bucket
+      natively and equals ``"native"`` bit for bit; ``solve_fused(499)``
+      on the native compile launches exactly K-groups x 499 ``fused_step``
+      and one classic iteration's ``project``.
+   b. ``python -m cfmm_routing_tpu_torch`` in this process
+      (``__main__.main``): ``export-reference`` of the three instances;
+      ``solve --certify --refine-to 1e-7 --max-iters 6000 --eps 2e-6
+      --json`` on each, certified and pinned to BASELINE.md at phase 3's
+      float32 bar (2e-6); ``solve --refine-to 1e-6 --max-iters 3000
+      --json`` on a JSON file of ``random_arbitrage(256, 100_000,
+      seed=7)`` (``spec_to_json``, its arbitrage objective) -- seconds,
+      iterations and certificate printed, 1e-6 printed and not asserted,
+      ``project``, ``segment_sum`` and ``project_delta`` launched; ``sweep
+      --points 51 --t-max 50 --json`` on the two-asset instance.
+   c. ``time_phases`` on the 100k classic solver (its four phases, each >
+      0, through the ``project`` and ``segment_sum`` kernels), and
+      ``trace`` around a 25-iteration fused solve: at least one file
+      written, the five operations with the most device time printed.
+   d. ``examples/arbitrage_torch.py``, ``liquidation_torch.py`` and
+      ``two_asset_torch.py`` in this process: each certified and within
+      2e-6 of its pins.
 
 It prints one JSON line describing every kernel of the path (device times
 from CUDA events around CUDA-graph replays of back-to-back calls, summed
@@ -209,7 +236,7 @@ fused steps' times include their segment-sum launch; the fold kernels'
 times are summed over the 6b buckets; the grouped delta kernels' times
 over the K-groups of one iteration; bounds from this run's shapes;
 launches summed over the main-path runs of phases 4, 5, 5b, 6b-6d, 7b-7d,
-7e and 9, 9b's and 9c's over their ranks),
+7e, 9 (9b's and 9c's over their ranks) and 10),
 the card's name and power limit as ``nvidia-smi``
 reports them, and last ``{"ok": true, "device": {"platform": "gpu",
 "kind": ..., "count": ...}}``.
@@ -2464,6 +2491,292 @@ def scaleout_phase(report, card, cfg_main, refine_opts):
     return launches
 
 
+# ---- phase 10: the native packer, the command line and the host extras ---------
+EXAMPLES = ("arbitrage_torch", "liquidation_torch", "two_asset_torch")
+
+
+def run_cli(argv):
+    """``python -m cfmm_routing_tpu_torch`` in this process: (exit code,
+    standard output, seconds)."""
+    import io
+
+    from cfmm_routing_tpu_torch.__main__ import main as cli_main
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    torch.cuda.synchronize()
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def load_example(name):
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples",
+                        f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def host_extras_phase(report, card, cfg_main):
+    """Phase 10: this slice's modules on the card at full width.  10a: the
+    native packer against the numpy packer at 100k pools, and a fused solve
+    on the native compile; 10b: the command line in-process (pins, a 100k
+    certified solve from a JSON file, a sweep); 10c: ``time_phases`` and
+    ``trace`` on the 100k solvers; 10d: the three example scripts.  Returns
+    the launch counts of every main-path run."""
+    import io
+
+    from cfmm_routing_tpu_torch import native
+    from cfmm_routing_tpu_torch.ops import _build
+    from cfmm_routing_tpu_torch.solver.admm import AdmmOptions, AdmmSolver
+    from cfmm_routing_tpu_torch.solver.compiler import compile_table
+    from cfmm_routing_tpu_torch.solver.precondition import equilibrate
+    from cfmm_routing_tpu_torch.utils.profiling import time_phases, trace
+    from cfmm_routing_tpu_torch.utils.serde import spec_to_json
+    from cfmm_routing_tpu_torch.utils.synth import random_arbitrage, random_arbitrage_table
+
+    t_phase = time.perf_counter()
+    out, launches = {}, []
+
+    def counted(fn):
+        """``fn()`` with the launch counts set to 0 just before and read just
+        after (a main-path run); returns (result, counts)."""
+        _build.reset_launch_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        launches.append(dict(_build.LAUNCHES))
+        return res, launches[-1]
+
+    # ---- 10a. the native packer at 100k pools -------------------------------------
+    # the bar of tests/test_native.py: float fields to summation-order roundoff
+    PACK_TOL = 1e-12
+    table, obj = random_arbitrage_table(256, 100_000, seed=7)
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError(f"10a: the native packer did not build: {native._error}")
+    t_build = time.perf_counter() - t0
+    secs = {}
+    for backend in ("native", "numpy", "native"):  # in turns
+        t0 = time.perf_counter()
+        comp = compile_table(table, pad_pools_to=1024, backend=backend)
+        secs.setdefault(backend, []).append(time.perf_counter() - t0)
+        if backend == "native":
+            comp_native = comp
+        else:
+            comp_numpy = comp
+    fills = []
+    fill = native.fill_bucket
+    native.fill_bucket = lambda *a: fills.append(1) or fill(*a)
+    try:
+        comp_auto = compile_table(table, pad_pools_to=1024)
+    finally:
+        native.fill_bucket = fill
+    if len(fills) != len(comp_native.buckets):
+        raise AssertionError(f"10a: backend='auto' filled {len(fills)} buckets natively, "
+                             f"not all {len(comp_native.buckets)}")
+    diffs = {}
+    for comp_b, exact in ((comp_numpy, False), (comp_auto, True)):
+        if list(comp_b.buckets) != list(comp_native.buckets) or not (
+                np.array_equal(comp_b.degree, comp_native.degree)):
+            raise AssertionError("10a: bucket names or degrees differ between packers")
+        for name, b in comp_native.buckets.items():
+            o = comp_b.buckets[name]
+            for field in ("mask", "asset", "pool_ids"):
+                if not np.array_equal(getattr(b, field), getattr(o, field)):
+                    raise AssertionError(f"10a: {name}.{field} differs between packers")
+            for field in ("reserves", "weights", "shift", "gamma", "logk0", "k0"):
+                x, y = getattr(b, field), getattr(o, field)
+                d = float(np.max(np.abs(x - y))) if x.size else 0.0
+                if exact and not np.array_equal(x, y):
+                    raise AssertionError(f"10a: 'auto' and 'native' differ in {name}.{field}")
+                if not exact:
+                    diffs[f"{name}.{field}"] = d
+                    if not np.allclose(x, y, rtol=PACK_TOL, atol=PACK_TOL):
+                        raise AssertionError(f"10a: {name}.{field} differs by {d:.3e} "
+                                             f"(bar {PACK_TOL:g} abs + rel)")
+    worst = max(diffs, key=diffs.get)
+    log(f"# 10a packer at 100k / 256: native {secs['native'][0]:.3f} / "
+        f"{secs['native'][1]:.3f} s, numpy {secs['numpy'][0]:.3f} s (in turns; g++ build "
+        f"{t_build:.2f} s); "
+        f"'auto' took native ({len(fills)} buckets, bitwise); native vs numpy: integer "
+        f"arrays equal, largest float difference {diffs[worst]:.3e} ({worst}; bar "
+        f"{PACK_TOL:g}) on {card}")
+    opts = AdmmOptions(max_iters=500, eps_abs=0.0, eps_rel=0.0, adapt_rho=False,
+                       projection=cfg_main)
+    solver_n = AdmmSolver(comp_native, dtype=torch.float32, options=opts)
+    res_n, cnt = counted(lambda: solver_n.solve_fused(obj, iters=499))
+    n_groups = len(solver_n._groups)
+    if cnt["fused_step"] != 499 * n_groups or cnt["project"] != n_groups:
+        raise AssertionError(f"10a: solve_fused(499) on the native compile launched {cnt}, "
+                             f"expected {499 * n_groups} fused_step and {n_groups} project")
+    if not (math.isfinite(float(res_n.objective)) and bool(torch.isfinite(res_n.psi).all())):
+        raise AssertionError("10a: solve_fused on the native compile is not finite")
+    log(f"# 10a solve_fused(499) on the native compile: objective "
+        f"{float(res_n.objective):.6f}, launches {cnt}")
+    out["packer"] = dict(native_s=secs["native"], numpy_s=secs["numpy"], build_s=t_build,
+                         max_float_diff=diffs[worst], worst=worst, fused_launches=cnt)
+    del comp_numpy, comp_auto, solver_n, res_n
+
+    # ---- 10b. the command line, in-process ----------------------------------------
+    # removed when the phase ends, or at exit if it fails
+    tmpdir = tempfile.TemporaryDirectory(prefix="cfmm_cli_")
+    tmp = tmpdir.name
+    paths, cli = {}, {}
+    for name in ("arbitrage", "liquidation", "two-asset"):
+        rc, text, _ = run_cli(["export-reference", name])
+        if rc != 0 or json.loads(text)["n_assets"] < 3:
+            raise AssertionError(f"10b: export-reference {name} failed ({rc})")
+        paths[name] = os.path.join(tmp, f"{name}.json")
+        with open(paths[name], "w") as fh:
+            fh.write(text)
+    # phase 3's float32 route and bar: refined to 1e-7 from bench.py's base
+    pins = {"arbitrage": 21.499805, "liquidation": 15.883010, "two-asset": 6.233000}
+    for name, pin in pins.items():
+        (rc, text, s), cnt = counted(lambda: run_cli(
+            ["solve", paths[name], "--certify", "--refine-to", "1e-7", "--max-iters",
+             "6000", "--eps", "2e-6", "--json"]))
+        res = json.loads(text)
+        value = res["psi"][4] if name == "liquidation" else res["objective"]
+        rel = abs(value - pin) / pin
+        log(f"# 10b solve --certify --refine-to 1e-7 {name}: {value:.9f} vs {pin} (rel "
+            f"{rel:.2e}), iters {res['iters']}, gap_rel {res['certificate']['rel_gap']:.3e}, "
+            f"{s:.2f} s, launches {cnt}")
+        if rc != 0 or not (rel < 2e-6 and res["converged"]):
+            raise AssertionError(f"10b: solve {name}: {res['objective']} rel {rel:.2e}, "
+                                 f"certificate {res['certificate']}")
+        if cnt["project"] == 0 or cnt["segment_sum"] == 0:
+            raise AssertionError(f"10b: solve {name} launched {cnt}")
+        cli[f"solve {name}"] = dict(value=value, pin=pin, rel=rel, iters=res["iters"],
+                                    certificate=res["certificate"], s=s, launches=cnt)
+    # the 100k network as a JSON file, objective included
+    t0 = time.perf_counter()
+    spec100k, obj100k = random_arbitrage(256, 100_000, seed=7)
+    doc = json.loads(spec_to_json(spec100k, indent=None))
+    doc["objective"] = {"workload": "arbitrage", "market_values": obj100k.c.tolist()}
+    paths["100k"] = os.path.join(tmp, "random_arbitrage_100k.json")
+    with open(paths["100k"], "w") as fh:
+        json.dump(doc, fh)
+    t_write = time.perf_counter() - t0
+    del spec100k, doc
+    (rc, text, s), cnt = counted(lambda: run_cli(
+        ["solve", paths["100k"], "--refine-to", "1e-6", "--max-iters", "3000", "--json"]))
+    res = json.loads(text)
+    cert100k = res["certificate"]
+    log(f"# 10b solve --refine-to 1e-6 --max-iters 3000 at 100k / 256 (JSON written in "
+        f"{t_write:.1f} s): {s:.2f} s, iters {res['iters']}, objective "
+        f"{res['objective']:.6f}, gap_rel {cert100k['rel_gap']:.3e}, feasibility "
+        f"{cert100k['feasibility']:.3e}, reached 1e-6: {res['converged']}; launches {cnt} "
+        f"on {card}")
+    if rc != 0 or not (math.isfinite(res["objective"]) and len(res["psi"]) == obj100k.n_assets
+                       and all(math.isfinite(v) for v in cert100k.values())):
+        raise AssertionError(f"10b: the 100k solve returned {rc}, {cert100k}")
+    missing = [k for k in ("project", "segment_sum", "project_delta") if cnt[k] == 0]
+    if missing:
+        raise AssertionError(f"10b: the 100k solve never launched {missing}: {cnt}")
+    cli["solve 100k"] = dict(s=s, json_write_s=t_write, iters=res["iters"],
+                             objective=res["objective"], certificate=cert100k,
+                             reached=res["converged"], launches=cnt)
+    (rc, text, s), cnt = counted(lambda: run_cli(
+        ["sweep", paths["two-asset"], "--give", "0", "--receive", "2", "--points", "51",
+         "--t-max", "50", "--max-iters", "8000", "--eps", "2e-6", "--json"]))
+    sw = json.loads(text)
+    u = np.asarray(sw["utilities"])
+    u25 = float(u[25])  # t = 25 on linspace(0, 50, 51)
+    log(f"# 10b sweep --points 51 --t-max 50: {s:.2f} s, u(25) {u25:.6f} (rel "
+        f"{abs(u25 - 31.005495) / 31.005495:.2e} from the pin, no refinement), "
+        f"{int(np.sum(sw['converged']))} of 51 converged; launches {cnt}")
+    if rc != 0 or u.shape != (51,) or not np.isfinite(u).all() or np.any(np.diff(u) < -1e-4):
+        raise AssertionError(f"10b: sweep returned {rc}, utilities {u}")
+    if cnt["project"] == 0 or cnt["segment_sum"] == 0:
+        raise AssertionError(f"10b: the sweep launched {cnt}")
+    cli["sweep"] = dict(s=s, u25=u25, converged=int(np.sum(sw["converged"])), launches=cnt)
+    out["cli"] = cli
+
+    # ---- 10c. observability on the 100k solvers -------------------------------------
+    eq = equilibrate(table, obj)
+    solver = AdmmSolver(compile_table(eq.table, pad_pools_to=1024), dtype=torch.float32,
+                        options=opts)
+    phases, cnt = counted(lambda: time_phases(solver, eq.objective, iters=3, inner=20))
+    log(f"# 10c time_phases at 100k / 256 (ms an iteration, CUDA events, 3 x 20 calls): "
+        + ", ".join(f"{k} {v * 1e3:.4f}" for k, v in phases.items())
+        + f"; launches {cnt} on {card}")
+    if set(phases) != {"project+bcast", "edge-reduce", "psi-prox", "full-iteration"} or \
+            not all(v > 0 for v in phases.values()):
+        raise AssertionError(f"10c: time_phases returned {phases}")
+    if cnt["project"] == 0 or cnt["segment_sum"] == 0:
+        raise AssertionError(f"10c: time_phases launched {cnt}")
+    logdir = os.path.join(tmp, "trace")
+    solver.solve_fused(eq.objective, iters=25)  # its block captured outside the trace
+
+    def traced():
+        with trace(logdir) as prof:
+            solver.solve_fused(eq.objective, iters=25)
+        return prof
+
+    prof, cnt = counted(traced)
+    files = [os.path.join(d, f) for d, _, fs in os.walk(logdir) for f in fs]
+    if not files:
+        raise AssertionError(f"10c: trace wrote no file into {logdir}")
+
+    def dev_us(e):
+        for attr in ("self_device_time_total", "self_cuda_time_total"):
+            v = getattr(e, attr, None)
+            if v is not None:
+                return float(v)
+        return 0.0
+
+    # the device's own entries (kernels, copies, sets), so that no kernel is
+    # counted again in the host operator that launched it
+    events = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    total_ms = sum(dev_us(e) for e in events) / 1e3
+    top = sorted(events, key=dev_us, reverse=True)[:5]
+    top = [dict(name=e.key, device_ms=dev_us(e) / 1e3, calls=e.count) for e in top]
+    log(f"# 10c trace of solve_fused(25): {len(files)} file(s), "
+        f"{sum(os.path.getsize(f) for f in files)} bytes; launches {cnt}; device time "
+        f"{total_ms:.3f} ms in all; the five device operations with the most: "
+        + "; ".join(f"{t['name'][:60]} {t['device_ms']:.3f} ms x{t['calls']} "
+                    f"({t['device_ms'] / max(total_ms, 1e-12):.1%})" for t in top))
+    out["observability"] = dict(time_phases_s=phases, trace_files=len(files),
+                                trace_device_ms=total_ms, trace_top=top, launches=cnt)
+    del solver
+    tmpdir.cleanup()
+
+    # ---- 10d. the example scripts, in-process -------------------------------------
+    ex = {}
+    for name in EXAMPLES:
+        mod = load_example(name)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            got, cnt = counted(mod.main)
+        s = time.perf_counter() - t0
+        printed = buf.getvalue()
+        if name == "two_asset_torch":
+            rels = {t: abs(got["utilities"][t] - p) / p for t, p in got["pins"].items()
+                    if p > 0}
+        else:
+            rels = {"value": abs(got["objective"] - got["pin"]) / got["pin"]}
+        log(f"# 10d examples/{name}.py: {s:.2f} s, rel from the pins "
+            + ", ".join(f"{k}: {v:.2e}" for k, v in rels.items())
+            + f", certified {got['certified']}; launches {cnt}")
+        for line in printed.strip().splitlines()[:3]:
+            log(f"#     {line}")
+        if not (got["certified"] and max(rels.values()) < 2e-6 and "BASELINE.md" in printed):
+            raise AssertionError(f"10d: {name} missed its pins: {rels}")
+        if cnt["project"] == 0 or cnt["segment_sum"] == 0:
+            raise AssertionError(f"10d: {name} launched {cnt}")
+        ex[name] = dict(s=s, rel=rels, launches=cnt)
+    out["examples"] = ex
+    report["host_extras"] = out
+    log(f"# phase 10 (packer, CLI, observability, examples) done in "
+        f"{time.perf_counter() - t_phase:.1f} s on {card}")
+    return launches
+
+
 def build_report(build_dir):
     """Registers and spills of every kernel in the ``-Xptxas=-v`` logs kept
     beside the built libraries ({library: {kernel: [registers, spill
@@ -3606,6 +3919,9 @@ def main(argv=None):
     # ---- 9. scale-out: the sharded solvers --------------------------------------
     main_launches += scaleout_phase(report, card=smi, cfg_main=cfg_main,
                                     refine_opts=refine_opts)
+
+    # ---- 10. the native packer, the command line and the host extras ------------
+    main_launches += host_extras_phase(report, card=smi, cfg_main=cfg_main)
 
     # ---- report -------------------------------------------------------------
     kernels = []

@@ -3,8 +3,9 @@
 Both packages build their problems from the same seeds; the port's
 ``compile_spec`` / ``compile_table`` must reproduce every bucket array,
 the per-asset degree and the bookkeeping of the reference's numpy packer
-exactly.  (The reference's default native packer agrees with its numpy
-packer to summation-order roundoff, ``tests/test_native.py``.)
+exactly, and its native packer's with ``backend="native"``.  (A package's
+native packer agrees with its numpy packer to summation-order roundoff,
+``tests/test_native.py``, ``tests/test_torch_native.py``.)
 """
 import numpy as np
 import pytest
@@ -55,7 +56,7 @@ def test_reference_instances_bit_identical(instance):
     _assert_same_objective(ref_obj, port_obj)
     _assert_bit_identical(
         ref_compiler.compile_spec(ref_spec, backend="numpy"),
-        port_compiler.compile_spec(port_spec),
+        port_compiler.compile_spec(port_spec, backend="numpy"),
     )
 
 
@@ -71,7 +72,8 @@ def test_random_table_bit_identical(pad_pools_to):
     _assert_bit_identical(
         ref_compiler.compile_table(ref_table, pad_pools_to=pad_pools_to,
                                    backend="numpy"),
-        port_compiler.compile_table(port_table, pad_pools_to=pad_pools_to),
+        port_compiler.compile_table(port_table, pad_pools_to=pad_pools_to,
+                                    backend="numpy"),
     )
 
 
@@ -82,11 +84,16 @@ def test_random_spec_bit_identical_unpadded_widths():
     _assert_same_objective(ref_obj, port_obj)
     _assert_bit_identical(
         ref_compiler.compile_spec(ref_spec, pad_pow2=False, backend="numpy"),
-        port_compiler.compile_spec(port_spec, pad_pow2=False),
+        port_compiler.compile_spec(port_spec, pad_pow2=False, backend="numpy"),
     )
 
 
 def test_native_packer_not_ported():
+    """The native packer is ported: the port's is bit-identical to the
+    reference's on the same table."""
+    ref_table, _ = ref_synth.random_arbitrage_table(8, 20, seed=1)
     table, _ = port_synth.random_arbitrage_table(8, 20, seed=1)
-    with pytest.raises(NotImplementedError, match="native packer"):
-        port_compiler.compile_table(table, backend="native")
+    _assert_bit_identical(
+        ref_compiler.compile_table(ref_table, backend="native"),
+        port_compiler.compile_table(table, backend="native"),
+    )

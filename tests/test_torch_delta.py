@@ -131,7 +131,7 @@ def _base_case():
                                      adapt_rho=False))
     ref_b, _ = ref_ds.delta_buckets(base, EPS, nu0=nu0f)
     port_ds = DeltaAdmmSolver(
-        compile_table(table, pad_pools_to=256), dtype=F32, device="cpu",
+        compile_table(table, pad_pools_to=256, backend="numpy"), dtype=F32, device="cpu",
         options=AdmmOptions(max_iters=10, eps_abs=0.0, eps_rel=0.0,
                             adapt_rho=False))
     port_b, min_x0 = port_ds.delta_buckets(base, EPS, nu0=nu0f)

@@ -38,6 +38,10 @@ from cfmm_routing_tpu_torch.solver.refine_device import DeltaAdmmSolver, refine_
 
 F64 = torch.float64
 
+# the in-process references run beside the rank processes (each already
+# at OMP_NUM_THREADS=1): one thread here too
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):

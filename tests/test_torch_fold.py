@@ -62,7 +62,7 @@ def _compiled_pair():
     table, _ = random_arbitrage_table(16, 300, seed=4, reserve_scale=1.0)
     ref = ref_compile_table(ref_table(16, 300, seed=4, reserve_scale=1.0)[0],
                             pad_pools_to=256, backend="numpy")
-    return compile_table(table, pad_pools_to=256), ref
+    return compile_table(table, pad_pools_to=256, backend="numpy"), ref
 
 
 @pytest.mark.parametrize("scaled", [False, True])

@@ -49,7 +49,7 @@ def _per_call_case():
     """300 pools, 16 assets, buckets padded to 256 pools: gm2, gm2f, gm4,
     cs2f, cs4f.  Nonzero masked state planes and a random price vector."""
     table, _ = random_arbitrage_table(16, 300, seed=4, reserve_scale=1.0)
-    compiled = compile_table(table, pad_pools_to=256)
+    compiled = compile_table(table, pad_pools_to=256, backend="numpy")
     rng = np.random.default_rng(12)
     state = {}
     for name, b in compiled.buckets.items():

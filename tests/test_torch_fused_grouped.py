@@ -53,7 +53,7 @@ _ref_step = jax.jit(
 
 def _network():
     table, _ = random_arbitrage_table(16, 150, seed=4, reserve_scale=1.0)
-    compiled = compile_table(table, pad_pools_to=128)
+    compiled = compile_table(table, pad_pools_to=128, backend="numpy")
     assert {n: b.m for n, b in compiled.buckets.items()} == dict.fromkeys(
         ["gm2", "gm2f", "gm4", "cs2f", "cs4f"], 128)
     return compiled

@@ -921,3 +921,29 @@ def test_sharded_on_a_gloo_group_runs_only_eager(cuda_device):
         assert torch.equal(got.psi, want.psi)
     finally:
         dist.destroy_process_group()
+
+
+def test_cli_solve_at_100k_launches_the_kernels(cuda_device, tmp_path, capsys, monkeypatch):
+    """``python -m cfmm_routing_tpu_torch solve --refine-to`` on a 100k-pool
+    JSON problem runs on the card through the kernels: the classic base
+    launches ``project`` and ``segment_sum``, the (unpadded, classic)
+    refinement ``project_delta``."""
+    import json
+
+    from cfmm_routing_tpu_torch.__main__ import main
+    from cfmm_routing_tpu_torch.utils.serde import spec_to_json
+    from cfmm_routing_tpu_torch.utils.synth import random_arbitrage
+
+    monkeypatch.delenv("CFMM_FORCE_CPU", raising=False)
+    spec, obj = random_arbitrage(256, 100_000, seed=7)
+    doc = json.loads(spec_to_json(spec, indent=None))
+    doc["objective"] = {"workload": "arbitrage", "market_values": obj.c.tolist()}
+    path = tmp_path / "p100k.json"
+    path.write_text(json.dumps(doc))
+    _build.reset_launch_counts()
+    assert main(["solve", str(path), "--refine-to", "1e-6", "--max-iters", "3000",
+                 "--json"]) == 0
+    out = json.loads(capsys.readouterr().out)
+    assert np.isfinite(out["objective"]) and len(out["psi"]) == 256
+    for kernel in ("project", "segment_sum", "project_delta"):
+        assert _build.LAUNCHES[kernel] > 0, (kernel, dict(_build.LAUNCHES))

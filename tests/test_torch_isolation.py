@@ -1,10 +1,13 @@
 """The PyTorch port stands alone: no JAX, no reference package, no silent CPU.
 
-* No module of ``cfmm_routing_tpu_torch/`` (nor ``chip_smoke.py``, nor the
-  sharded tests' rank script ``tests/torch_ranks.py``) imports ``jax`` or
+* No module of ``cfmm_routing_tpu_torch/`` (nor ``chip_smoke.py``, the
+  sharded tests' rank script ``tests/torch_ranks.py`` or the port's
+  examples ``examples/*_torch.py``) imports ``jax`` or
   ``cfmm_routing_tpu`` — checked on the source, so a lazy import inside a
   function is caught too.
-* The package imports in a fresh interpreter where ``jax`` cannot load.
+* The package, its command line and its host extras import in a fresh
+  interpreter where ``jax`` cannot load; ``utils.plotting`` imports where
+  ``matplotlib`` cannot.
 * Entry points default to the card: with no CUDA device and no
   ``device=`` they raise instead of running on the CPU.
 """
@@ -32,7 +35,9 @@ _FORBIDDEN = ("jax", "jaxlib", "cfmm_routing_tpu")
 
 def _sources():
     files = sorted((REPO / "cfmm_routing_tpu_torch").rglob("*.py"))
-    return files + [REPO / "chip_smoke.py", REPO / "tests" / "torch_ranks.py"]
+    examples = sorted((REPO / "examples").glob("*_torch.py"))
+    assert len(examples) == 3
+    return files + examples + [REPO / "chip_smoke.py", REPO / "tests" / "torch_ranks.py"]
 
 
 def _imported_roots(path):
@@ -69,8 +74,29 @@ def test_package_imports_with_jax_blocked():
         "import cfmm_routing_tpu_torch.solver.fold, cfmm_routing_tpu_torch.solver.driver\n"
         "import cfmm_routing_tpu_torch.solver.residuals\n"
         "import cfmm_routing_tpu_torch.parallel.mesh, cfmm_routing_tpu_torch.parallel.sharded\n"
+        "import cfmm_routing_tpu_torch.native, cfmm_routing_tpu_torch.__main__\n"
+        "import cfmm_routing_tpu_torch.oracle, cfmm_routing_tpu_torch.utils.serde\n"
+        "import cfmm_routing_tpu_torch.utils.plotting, cfmm_routing_tpu_torch.utils.profiling\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m]]\n"
         "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_plotting_imports_with_matplotlib_blocked():
+    code = (
+        "import sys\n"
+        "sys.modules['matplotlib'] = None\n"
+        "import cfmm_routing_tpu_torch.utils.plotting as p\n"
+        "assert callable(p.save_sweep_figures)\n"
+        "try:\n"
+        "    p.plot_sweep_utility(None)\n"
+        "except ImportError:\n"
+        "    print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,

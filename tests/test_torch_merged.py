@@ -63,7 +63,7 @@ _ref_step = jax.jit(ref_fused_step_merged,
 def _instance():
     table, obj = random_arbitrage_table(16, 300, seed=4, reserve_scale=1.0)
     ref_t, ref_obj = ref_table(16, 300, seed=4, reserve_scale=1.0)
-    return (table, obj, compile_table(table, pad_pools_to=1024),
+    return (table, obj, compile_table(table, pad_pools_to=1024, backend="numpy"),
             ref_t, ref_obj, ref_compile_table(ref_t, pad_pools_to=1024, backend="numpy"))
 
 

@@ -58,7 +58,7 @@ TOL = dict(rtol=1e-9, atol=1e-9)
 def case():
     r_table, r_obj = ref_table(16, 150, seed=4, reserve_scale=1.0)
     table, obj = random_arbitrage_table(16, 150, seed=4, reserve_scale=1.0)
-    compiled = compile_table(table, pad_pools_to=128)
+    compiled = compile_table(table, pad_pools_to=128, backend="numpy")
     assert {n: b.m for n, b in compiled.buckets.items()} == dict.fromkeys(
         ["gm2", "gm2f", "gm4", "cs2f", "cs4f"], 128)
     return dict(ref_compiled=ref_compile_table(r_table, pad_pools_to=128,

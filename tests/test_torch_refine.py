@@ -9,9 +9,8 @@
 * ``polish_prices`` from the same perturbed prices: the two packages' dual
   bounds agree to 1e-9 relative.
 * ``refine`` (the float64 fallback) certifies the arbitrage instance at 1e-6.
-* The entry points left out of the port so far raise
-  ``NotImplementedError`` naming their ROADMAP.md queue item (the native
-  packer); ``refine(cpu_shards=4)`` (ported) in a process with no gloo
+* ``compile_table(backend="native")`` (ported) compiles;
+  ``refine(cpu_shards=4)`` (ported) in a process with no gloo
   group of 4 ranks falls back to the single-device polish with the JAX
   package's ``SINGLE-DEVICE`` warning and certifies; ``refine_device``
   refuses an objective that is neither an ``Objective``, a
@@ -158,5 +157,5 @@ def test_left_out_entry_points_name_their_queue_item(arb, caplog):
     assert any("SINGLE-DEVICE" in r.getMessage() for r in caplog.records)
     assert out.achieved, out.certificate.summary()
     table, _ = random_arbitrage_table(8, 20, seed=1)
-    with pytest.raises(NotImplementedError, match="native packer"):
-        compile_table(table, backend="native")
+    native = compile_table(table, backend="native")
+    assert native.n_pools == 20 and native.degree.sum() == native.n_slots

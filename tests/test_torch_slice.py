@@ -39,7 +39,7 @@ def _ref_and_port(n_assets, n_pools, seed):
     r_table, _ = ref_table(n_assets, n_pools, seed=seed, reserve_scale=1.0)
     table, obj = random_arbitrage_table(n_assets, n_pools, seed=seed,
                                         reserve_scale=1.0)
-    return (ref_compile_table(r_table, backend="numpy"), compile_table(table),
+    return (ref_compile_table(r_table, backend="numpy"), compile_table(table, backend="numpy"),
             obj)
 
 
@@ -120,7 +120,7 @@ def test_equilibrate_and_unscale_match_reference():
     for field in ("c", "lo", "hi"):
         np.testing.assert_array_equal(getattr(got.objective, field),
                                       getattr(want.objective, field))
-    comp = compile_table(got.table)
+    comp = compile_table(got.table, backend="numpy")
     rng = np.random.default_rng(2)
     arrays = dict(
         objective=1.0, psi=rng.normal(size=16), prices=rng.uniform(size=16),
