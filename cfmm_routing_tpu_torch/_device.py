@@ -6,6 +6,8 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from .utils.profiling import span
+
 __all__ = ["resolve_device", "host"]
 
 
@@ -27,7 +29,9 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
 
 
 def host(x) -> np.ndarray:
-    """A numpy copy of a tensor (any device) or array-like."""
+    """A numpy copy of a tensor (any device) or array-like; a tensor's copy
+    inside a ``host.sync`` span (on the card the host waits for it)."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        with span("host.sync"):
+            return x.detach().cpu().numpy()
     return np.asarray(x)

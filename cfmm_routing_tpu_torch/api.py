@@ -29,6 +29,7 @@ from ._device import host
 from .models.utility import ConcaveUtility, Objective
 from .solver.admm import AdmmOptions, AdmmSolver, RouteResult
 from .solver.compiler import PoolTable, ProblemSpec, compile_table
+from .utils.profiling import spanned
 
 __all__ = [
     "Route", "Sweep", "arbitrage", "liquidate", "sweep", "route", "make_solver",
@@ -93,6 +94,7 @@ def make_solver_compiled(compiled, dtype: torch.dtype = torch.float32,
                       device=device)
 
 
+@spanned("route.result")
 def _route_from(solver: AdmmSolver, res, obj, do_certify: bool,
                 cert_compiled=None) -> Route:
     deltas, lambdas = solver.unbucket(res)
@@ -209,6 +211,7 @@ def _solve_preconditioned(spec, objective, certify, solver_kwargs,
     return _route_from(solver, res0, objective, certify, cert_compiled)
 
 
+@spanned("route")
 def route(
     spec: ProblemSpec,
     objective,
@@ -285,6 +288,7 @@ def _net_trades(compiled, deltas, lambdas):
     return per_pool
 
 
+@spanned("sweep")
 def sweep(
     spec: ProblemSpec,
     give: int,

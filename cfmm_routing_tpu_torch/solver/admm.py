@@ -93,6 +93,7 @@ from ..ops.prox import (
     DeltaCustomUtility, custom_prox, psi_prox, utility_prox, utility_value,
 )
 from ..ops.segment import segment_sum, slot_order
+from ..utils.profiling import count, span, spanned
 from .compiler import CompiledProblem
 from .graphs import GraphCache, run_block
 
@@ -282,6 +283,10 @@ class AdmmSolver:
     all-reduce and the linear prox (the asset-sharded consensus).
     """
 
+    # the counter (utils/profiling.COUNTS) of this class's solve iterations
+    _ITERS = "iters.base"
+
+    @spanned("solver.build")
     def __init__(
         self,
         compiled: CompiledProblem,
@@ -716,6 +721,7 @@ class AdmmSolver:
         edges = sum(2 * a["mask"].numel() for a in self.buckets.values())
         return math.sqrt(edges * self._n_shards / (self._fold[0] if per_point else 1))
 
+    @spanned("admm.solve")
     def _solve_fused_impl(self, c, lo, hi, rho, n_iters, buckets=None,
                           z0=None, nu0=None, util=None, merged=False):
         """Fixed-iteration solve on the fused-kernel path.
@@ -773,6 +779,8 @@ class AdmmSolver:
         z, nu, psi, w, st = self._iterate(z, nu, rho, c, lo, hi, buckets=buckets,
                                           util=util)
         r, sd, eps_pri, eps_dua = self._residuals(self._joint(st), self._sqrt_edges())
+        if self._ITERS:
+            count(self._ITERS, n_iters + 1)
         return RouteResult(
             objective=self._objective_value(c, psi, util),
             psi=psi,
@@ -862,6 +870,7 @@ class AdmmSolver:
 
     # ---- full solve ---------------------------------------------------------
 
+    @spanned("admm.solve")
     def _solve_impl(self, c, lo, hi, rho0, z0=None, nu0=None, max_iters=None,
                     buckets=None, util=None):
         """Residual-checked solve.  The loop reads one boolean back from the
@@ -895,24 +904,29 @@ class AdmmSolver:
         while k < budget:
             z, nu = run_block(self, "classic", step, check_every - 1, 1,
                               (z, nu), (rho, c, lo, hi, util), owner=buckets)
-            z, nu, psi, w, st = self._iterate(z, nu, rho, c, lo, hi,
-                                              buckets=buckets, util=util)
-            r, sd, eps_pri, eps_dua = self._residuals(self._joint(st), sqn)
-            k += check_every
-            if (opts.adapt_rho and (k % opts.adapt_every) < check_every
-                    and k < budget // 2):
-                # with check_every > 1 the counter advances in strides; fire
-                # whenever a stride crosses an adapt_every boundary
-                up = r > opts.adapt_ratio * sd
-                dn = sd > opts.adapt_ratio * r
-                one = torch.ones_like(rho)
-                fac = torch.where(
-                    up, one * opts.adapt_factor,
-                    torch.where(dn, one / opts.adapt_factor, one),
-                )
-                rho = rho * fac
-                nu = nu / fac
-            if not bool((r > eps_pri) | (sd > eps_dua)):
+            with span("admm.check"):
+                z, nu, psi, w, st = self._iterate(z, nu, rho, c, lo, hi,
+                                                  buckets=buckets, util=util)
+                r, sd, eps_pri, eps_dua = self._residuals(self._joint(st), sqn)
+                k += check_every
+                if self._ITERS:
+                    count(self._ITERS, check_every)
+                if (opts.adapt_rho and (k % opts.adapt_every) < check_every
+                        and k < budget // 2):
+                    # with check_every > 1 the counter advances in strides;
+                    # fire whenever a stride crosses an adapt_every boundary
+                    up = r > opts.adapt_ratio * sd
+                    dn = sd > opts.adapt_ratio * r
+                    one = torch.ones_like(rho)
+                    fac = torch.where(
+                        up, one * opts.adapt_factor,
+                        torch.where(dn, one / opts.adapt_factor, one),
+                    )
+                    rho = rho * fac
+                    nu = nu / fac
+                with span("host.sync"):
+                    running = bool((r > eps_pri) | (sd > eps_dua))
+            if not running:
                 break
 
         return RouteResult(
@@ -975,6 +989,7 @@ class AdmmSolver:
 
     # ---- batched solves: one fold, a stopping test per point ----------------
 
+    @spanned("admm.solve")
     def _solve_batch_impl(self, c, lo, hi, rho0, z0=None, nu0=None,
                           max_iters=None, buckets=None):
         """:meth:`_solve_impl` on a fold with every point on its own: its
@@ -1014,39 +1029,44 @@ class AdmmSolver:
         k = 0  # the iteration count of every point still running
         while True:
             live = (iters < budget) & ((r > eps_pri) | (sd > eps_dua))
-            if not bool(live.any()):
+            with span("host.sync"):
+                running = bool(live.any())
+            if not running:
                 break
             z_n, nu_n = run_block(self, "batch", step, check_every - 1, 1,
                                   (z, nu), (rho, c, lo, hi), owner=buckets)
-            z_n, nu_n, psi_n, w_n, st = self._iterate(z_n, nu_n, rho, c, lo, hi,
-                                                      buckets=buckets)
-            r_n, sd_n, ep_n, ed_n = self._residuals(st, sqn)
-            k += check_every
-            rho_n = rho
-            if (opts.adapt_rho and (k % opts.adapt_every) < check_every
-                    and k < budget // 2):
-                one = torch.ones_like(rho)
-                fac = torch.where(
-                    r_n > opts.adapt_ratio * sd_n, one * opts.adapt_factor,
-                    torch.where(sd_n > opts.adapt_ratio * r_n,
-                                one / opts.adapt_factor, one),
-                )
-                rho_n = rho * fac
-                nu_n = nu_n / self._per_asset(fac)
-            live_a = self._per_asset(live)
-            nu = torch.where(live_a, nu_n, nu)
-            psi = torch.where(live_a, psi_n, psi)
-            rho, r, sd, eps_pri, eps_dua = (
-                torch.where(live, new, old) for new, old in
-                ((rho_n, rho), (r_n, r), (sd_n, sd), (ep_n, eps_pri),
-                 (ed_n, eps_dua)))
-            iters = torch.where(live, iters + check_every, iters)
-            for name, (zD, zL) in z.items():
-                live_p = live.repeat_interleave(zD.shape[1] // T)
-                z[name] = (torch.where(live_p, z_n[name][0], zD),
-                           torch.where(live_p, z_n[name][1], zL))
-                w[name] = (torch.where(live_p, w_n[name][0], w[name][0]),
-                           torch.where(live_p, w_n[name][1], w[name][1]))
+            with span("admm.check"):
+                z_n, nu_n, psi_n, w_n, st = self._iterate(
+                    z_n, nu_n, rho, c, lo, hi, buckets=buckets)
+                r_n, sd_n, ep_n, ed_n = self._residuals(st, sqn)
+                k += check_every
+                if self._ITERS:
+                    count(self._ITERS, check_every)
+                rho_n = rho
+                if (opts.adapt_rho and (k % opts.adapt_every) < check_every
+                        and k < budget // 2):
+                    one = torch.ones_like(rho)
+                    fac = torch.where(
+                        r_n > opts.adapt_ratio * sd_n, one * opts.adapt_factor,
+                        torch.where(sd_n > opts.adapt_ratio * r_n,
+                                    one / opts.adapt_factor, one),
+                    )
+                    rho_n = rho * fac
+                    nu_n = nu_n / self._per_asset(fac)
+                live_a = self._per_asset(live)
+                nu = torch.where(live_a, nu_n, nu)
+                psi = torch.where(live_a, psi_n, psi)
+                rho, r, sd, eps_pri, eps_dua = (
+                    torch.where(live, new, old) for new, old in
+                    ((rho_n, rho), (r_n, r), (sd_n, sd), (ep_n, eps_pri),
+                     (ed_n, eps_dua)))
+                iters = torch.where(live, iters + check_every, iters)
+                for name, (zD, zL) in z.items():
+                    live_p = live.repeat_interleave(zD.shape[1] // T)
+                    z[name] = (torch.where(live_p, z_n[name][0], zD),
+                               torch.where(live_p, z_n[name][1], zL))
+                    w[name] = (torch.where(live_p, w_n[name][0], w[name][0]),
+                               torch.where(live_p, w_n[name][1], w[name][1]))
 
         return RouteResult(
             objective=self._asset_sum(c * psi),

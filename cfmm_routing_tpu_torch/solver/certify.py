@@ -52,6 +52,7 @@ import torch
 
 from .._device import host, resolve_device
 from ..models.utility import ConcaveUtility, CustomUtility, Objective
+from ..utils.profiling import spanned
 from .compiler import CompiledProblem
 
 __all__ = ["Certificate", "InfeasibilityCertificate", "certify",
@@ -386,6 +387,7 @@ def dual_bound(
     return support + _pool_supports(compiled, nu, evals=evals, device=device)
 
 
+@spanned("certify")
 def certify(
     compiled: CompiledProblem,
     objective,
@@ -562,6 +564,7 @@ def _add_pool_terms(compiled, nu, g_val, grad, device):
     return g_val, grad
 
 
+@spanned("certify")
 def polish_prices(
     compiled: CompiledProblem,
     objective,
@@ -696,6 +699,7 @@ def certify_infeasible(
                                     prices=u)
 
 
+@spanned("certify")
 def certify_batch(
     compiled: CompiledProblem,
     c,

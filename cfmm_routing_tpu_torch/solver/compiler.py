@@ -25,6 +25,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..models.pools import Pool
+from ..utils.profiling import spanned
 
 __all__ = [
     "ProblemSpec",
@@ -195,6 +196,7 @@ def _fill_bucket_numpy(table: PoolTable, rows, m, K, is_gm,
         np.sum(R * W, axis=1, out=k0)
 
 
+@spanned("route.compile")
 def compile_table(
     table: PoolTable,
     pad_pow2: bool = True,

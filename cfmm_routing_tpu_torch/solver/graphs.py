@@ -54,6 +54,7 @@ from torch.utils import _pytree as pytree
 from ..models.utility import CustomUtility
 from ..ops import _build
 from ..ops.prox import DeltaCustomUtility
+from ..utils.profiling import spanned
 
 __all__ = ["GraphCache", "run_block", "eager"]
 
@@ -172,6 +173,7 @@ class GraphCache:
             _build.LAUNCHES[name] += k * reps
         return pytree.tree_unflatten([x.clone() for x in entry.state], s_spec)
 
+    @spanned("graphs.capture")
     def _capture(self, step, n, s_leaves, s_spec, c_leaves, c_spec) -> _Entry:
         entry = _Entry()
         entry.state = [x.clone() for x in s_leaves]

@@ -39,6 +39,7 @@ import numpy as np
 
 from .._device import host
 from ..models.utility import ConcaveUtility, Objective
+from ..utils.profiling import spanned
 from .admm import RouteResult
 from .compiler import CompiledProblem, PoolTable
 
@@ -178,6 +179,7 @@ class Equilibration:
     d: np.ndarray
 
 
+@spanned("route.equilibrate")
 def equilibrate(
     table: PoolTable,
     objective,

@@ -51,6 +51,7 @@ from ..ops.projection_cuda import project_delta_grouped
 from ..ops.prox import (
     DeltaCustomUtility, DeltaUtility, delta_custom_prox, delta_utility_prox,
 )
+from ..utils.profiling import count, spanned
 from .admm import AdmmOptions, AdmmSolver, RouteResult, _F32_BIG, _fused_ok
 from .certify import certify, certify_batch, dual_bound, polish_prices
 from .compiler import CompiledProblem
@@ -67,6 +68,9 @@ class DeltaAdmmSolver(AdmmSolver):
     Topology (asset ids, masks, slot order, degree) is the base problem's;
     only the per-bucket projection changes.  The pass-varying delta arrays
     (X0, aD, aL, sS, nsig, nu0e) ride the ``buckets=`` override."""
+
+    # its iterations count as "iters.refine", in refine_device / refine_sweep
+    _ITERS = None
 
     def _delta_prox(self, yhat, c, nu, lo, hi, rho, util=None):
         """The re-centred prox.  Linear: ``c`` carries e0 = c_true/rho - nu0
@@ -610,6 +614,7 @@ def _delta_buckets_folded(fsolver, deltas, lambdas, eps, nu0f):
     return out, min_x0
 
 
+@spanned("refine")
 def refine_sweep(
     compiled: CompiledProblem,
     c,
@@ -737,6 +742,7 @@ def refine_sweep(
                                            fused=fused_fold)
                 it_ck = int(host(dres.iters))
                 total += it_ck
+                count("iters.refine", it_ck)
                 if it_ck < int(iters_per_pass) or bool(host(dres.converged)):
                     break
             dresh = to_host(dres)
@@ -756,6 +762,7 @@ def refine_sweep(
                                                 warm=dres)
                 it_ck = int(host(dres.iters).max())
                 total += it_ck
+                count("iters.refine", it_ck)
                 if it_ck < int(iters_per_pass) or bool(host(dres.converged).all()):
                     break
             dresh = to_host(dres)
@@ -815,6 +822,7 @@ def refine_sweep(
     )
 
 
+@spanned("refine")
 def refine_device(
     compiled: CompiledProblem,
     objective,
@@ -1004,6 +1012,7 @@ def refine_device(
             # planes stay on the device until a candidate is certified
             it = int(host(dres.iters))
             total += it
+            count("iters.refine", it)
             done = it < chunk_iters or bool(host(dres.converged))
             psi_cand = psi0 + eps * np.asarray(host(dres.psi), np.float64)
             prices_solve = np.asarray(host(dres.prices), np.float64)
