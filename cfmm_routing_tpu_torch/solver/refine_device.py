@@ -52,7 +52,9 @@ from ..ops.prox import (
     DeltaCustomUtility, DeltaUtility, delta_custom_prox, delta_utility_prox,
 )
 from ..utils.profiling import count, spanned
-from .admm import AdmmOptions, AdmmSolver, RouteResult, _F32_BIG, _fused_ok
+from .admm import (
+    AdmmOptions, AdmmSolver, RouteResult, _F32_BIG, _FUSED_BLOCK, _fused_ok,
+)
 from .certify import certify, certify_batch, dual_bound, polish_prices
 from .compiler import CompiledProblem
 from .refine import RefineResult, to_host
@@ -69,7 +71,8 @@ class DeltaAdmmSolver(AdmmSolver):
     only the per-bucket projection changes.  The pass-varying delta arrays
     (X0, aD, aL, sS, nsig, nu0e) ride the ``buckets=`` override."""
 
-    # its iterations count as "iters.refine", in refine_device / refine_sweep
+    # its iterations count as "iters.refine" and its checked ones as
+    # "checks.refine", in refine_device / refine_sweep
     _ITERS = None
 
     def _delta_prox(self, yhat, c, nu, lo, hi, rho, util=None):
@@ -528,6 +531,29 @@ def _on_accelerator(solver) -> bool:
     return solver.device.type == "cuda"
 
 
+def _check_cadence(objective, chunk_iters: int, options: AdmmOptions) -> int:
+    """``check_every`` of :func:`refine_device`'s own delta solver.
+
+    The largest divisor of ``chunk_iters`` that is at most ``_FUSED_BLOCK``:
+    on the card the stats-free iterations between two checks replay as one
+    captured block, and a chunk that does not converge stops at exactly
+    ``chunk_iters``.  With ``adapt_rho=False`` a check changes no iterate,
+    so a chunk run to its budget ends where a check every iteration would.
+    A :class:`CustomUtility` keeps ``options.check_every`` (by default 1,
+    eager): a block whose callable reads the host cannot be captured."""
+    if isinstance(objective, CustomUtility):
+        return options.check_every
+    n = max(1, int(chunk_iters))
+    return max(d for d in range(1, min(n, _FUSED_BLOCK) + 1) if n % d == 0)
+
+
+def _chunk_checks(solver, iters: int, fused: bool) -> int:
+    """The checked iterations of a correction chunk of ``iters``: the fused
+    path's one residual harvest, else one every ``check_every`` (the
+    classic loops advance in strides of it)."""
+    return 1 if fused else iters // max(1, int(solver.options.check_every))
+
+
 class SweepRefineResult:
     """Batched refinement output (see :func:`refine_sweep`)."""
 
@@ -743,6 +769,7 @@ def refine_sweep(
                 it_ck = int(host(dres.iters))
                 total += it_ck
                 count("iters.refine", it_ck)
+                count("checks.refine", _chunk_checks(fsolver, it_ck, fused_fold))
                 if it_ck < int(iters_per_pass) or bool(host(dres.converged)):
                     break
             dresh = to_host(dres)
@@ -763,6 +790,7 @@ def refine_sweep(
                 it_ck = int(host(dres.iters).max())
                 total += it_ck
                 count("iters.refine", it_ck)
+                count("checks.refine", _chunk_checks(solver, it_ck, False))
                 if it_ck < int(iters_per_pass) or bool(host(dres.converged).all()):
                     break
             dresh = to_host(dres)
@@ -849,9 +877,14 @@ def refine_device(
     (which the certificates need).  Returns host-side numpy arrays only.
 
     ``solver``: a pre-built :class:`DeltaAdmmSolver` (with
-    ``adapt_rho=False``) to reuse across calls.  ``device``: where the
-    correction solves and the certificates' eta search run; the card
-    unless ``"cpu"`` is given (a passed solver brings its own).
+    ``adapt_rho=False``) to reuse across calls; it keeps its own
+    ``check_every``.  Without one, the solver built here checks its
+    residuals every :func:`_check_cadence` iterations (25 for the default
+    ``chunk_iters``; a :class:`CustomUtility` keeps ``options``'), and on
+    the card replays the iterations between checks as captured blocks.
+    ``device``: where the correction solves and the certificates' eta
+    search run; the card unless ``"cpu"`` is given (a passed solver brings
+    its own).
 
     ``cert_space``: optional ``(cert_compiled, cert_objective, unscale_fn)``:
     refine in this (typically equilibrated) space but evaluate every
@@ -929,6 +962,7 @@ def refine_device(
             # rho adaptation off: the delta-dual iteration folds c/rho - nu0
             # into a per-solve constant that a penalty rescale would break
             eps_abs=1e-8, eps_rel=1e-8, adapt_rho=False,
+            check_every=_check_cadence(objective, chunk_iters, base_opts),
         )
         solver = DeltaAdmmSolver(compiled, dtype=torch.float32, options=opts,
                                  device=dev)
@@ -1013,6 +1047,7 @@ def refine_device(
             it = int(host(dres.iters))
             total += it
             count("iters.refine", it)
+            count("checks.refine", _chunk_checks(solver, it, fused))
             done = it < chunk_iters or bool(host(dres.converged))
             psi_cand = psi0 + eps * np.asarray(host(dres.psi), np.float64)
             prices_solve = np.asarray(host(dres.prices), np.float64)

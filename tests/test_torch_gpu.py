@@ -682,6 +682,39 @@ def test_graph_replay_matches_eager_bitwise(cuda_device, dtype):
             assert torch.equal(a.cpu(), b.cpu()) and torch.equal(c.cpu(), a.cpu()), name
 
 
+@pytest.mark.parametrize("flavour", ["linear", "utility"])
+def test_refine_device_replay_matches_eager_bitwise(cuda_device, flavour):
+    """``refine_device`` on an unpadded network builds its delta solver with
+    a check every 25 iterations: its classic correction solves replay the
+    iterations between checks as captured blocks, bitwise equal to the same
+    call inside ``graphs.eager()``, with the same launch counts; no chunk
+    runs past ``chunk_iters``."""
+    table, obj = random_arbitrage_table(16, 300, seed=4, reserve_scale=1.0)
+    compiled = compile_table(table)
+    if flavour == "utility":
+        obj = ConcaveUtility.linear(obj.c, lo=obj.lo, hi=obj.hi).with_log(1, c=1.0, b=2.0)
+    base = AdmmSolver(compiled, device=cuda_device, options=AdmmOptions(
+        max_iters=400, check_every=25)).solve(obj)
+    k = dict(target_gap=1e-12, max_passes=1, chunk_iters=50, chunks_per_pass=2,
+             polish=False)
+    with graphs.eager():
+        _build.reset_launch_counts()
+        want = refine_device(compiled, obj, base, **k)
+        eager_counts = dict(_build.LAUNCHES)
+    _build.reset_launch_counts()
+    got = refine_device(compiled, obj, base, **k)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == eager_counts and eager_counts["project_delta"] > 0
+    assert eager_counts.get("fused_step_delta", 0) == 0
+    assert got.iters == want.iters == 100
+    for a, b in zip(_leaves(got.result), _leaves(want.result)):
+        assert torch.equal(a.cpu(), b.cpu())
+    cg, cw = got.certificate, want.certificate
+    assert (cg.objective, cg.dual_bound, cg.gap_rel, cg.feasibility_rel) == (
+        cw.objective, cw.dual_bound, cw.gap_rel, cw.feasibility_rel)
+    assert np.array_equal(cg.prices, cw.prices)
+
+
 # ---- slice 7: the grouped base projection ------------------------------------
 
 def _check_project_grouped(solver, inputs):

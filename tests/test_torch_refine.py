@@ -16,7 +16,13 @@
   refuses an objective that is neither an ``Objective``, a
   ``ConcaveUtility`` nor a ``CustomUtility``, and a ``CustomUtility``
   (item 12b, ported) without its conjugate.
+* ``refine_device``'s own delta solver checks its residuals every
+  ``_check_cadence`` iterations (the largest divisor of ``chunk_iters`` up
+  to 25; a ``CustomUtility`` keeps its options' cadence): where no chunk
+  converges early the result is bitwise the one of a caller-built solver
+  that checks every iteration, and no chunk runs past ``chunk_iters``.
 """
+import dataclasses
 import logging
 
 import numpy as np
@@ -41,6 +47,7 @@ from cfmm_routing_tpu_torch.solver.admm import AdmmOptions
 from cfmm_routing_tpu_torch.solver.certify import certify, dual_bound, polish_prices
 from cfmm_routing_tpu_torch.solver.compiler import compile_spec, compile_table
 from cfmm_routing_tpu_torch.solver.refine import refine
+from cfmm_routing_tpu_torch.utils import profiling
 from cfmm_routing_tpu_torch.utils.synth import random_arbitrage_table
 
 torch.set_num_threads(1)
@@ -159,3 +166,45 @@ def test_left_out_entry_points_name_their_queue_item(arb, caplog):
     table, _ = random_arbitrage_table(8, 20, seed=1)
     native = compile_table(table, backend="native")
     assert native.n_pools == 20 and native.degree.sum() == native.n_slots
+
+
+def _refined_leaves(out):
+    """A RefineResult's arrays and numbers, in a fixed order."""
+    res, cert = out.result, out.certificate
+    leaves = [res.objective, res.psi, res.prices, res.iters, res.r_norm, res.s_norm,
+              res.converged, res.rho_final, out.iters, out.achieved]
+    leaves += [res.deltas[k] for k in sorted(res.deltas)]
+    leaves += [res.lambdas[k] for k in sorted(res.lambdas)]
+    leaves += [getattr(cert, f.name) for f in dataclasses.fields(cert)]
+    return [np.asarray(x) for x in leaves]
+
+
+def test_refine_device_cadence_leaves_the_iterates_unchanged(arb):
+    """Two chunks run to their budget: the default cadence (15 for
+    ``chunk_iters=30``, 4 checks in 60 iterations) gives bitwise the
+    trades, prices, certificate and iterations of a caller-built solver
+    that checks every iteration."""
+    compiled, obj, base = arb["compiled"], arb["obj"], arb["port_base"]
+    every = rd.DeltaAdmmSolver(compiled, dtype=torch.float32, device="cpu",
+                               options=AdmmOptions(adapt_rho=False, eps_abs=1e-8,
+                                                   eps_rel=1e-8, check_every=1))
+    k = dict(target_gap=1e-12, max_passes=1, chunk_iters=30, chunks_per_pass=2,
+             polish=False)
+    profiling.reset()
+    got = rd.refine_device(compiled, obj, base, device="cpu", **k)
+    counts = dict(profiling.COUNTS)
+    want = rd.refine_device(compiled, obj, base, solver=every, **k)
+    assert got.iters == want.iters == 60
+    assert counts == {"iters.refine": 60, "checks.refine": 4}
+    for a, b in zip(_refined_leaves(got), _refined_leaves(want), strict=True):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("chunk_iters,cadence", [(250, 25), (10, 10), (30, 15),
+                                                 ("custom", 1)])
+def test_check_cadence_divides_the_chunk(chunk_iters, cadence):
+    _, obj = arbitrage_instance()
+    if chunk_iters == "custom":
+        obj = CustomUtility(lambda psi: psi.sum(), obj.lo, obj.hi, smoothness=0.0)
+        chunk_iters = 250
+    assert rd._check_cadence(obj, chunk_iters, AdmmOptions()) == cadence

@@ -15,6 +15,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from cfmm_routing_tpu_torch import api
 from cfmm_routing_tpu_torch.models.reference_instances import arbitrage_instance
+from cfmm_routing_tpu_torch.models.utility import CustomUtility
 from cfmm_routing_tpu_torch.ops.projection import ProjectionConfig
 from cfmm_routing_tpu_torch.solver.admm import AdmmOptions, AdmmSolver
 from cfmm_routing_tpu_torch.solver.compiler import compile_spec
@@ -138,26 +139,45 @@ def test_base_counter_is_the_solves_iterations(path):
     assert want > 0 and profiling.COUNTS == {"iters.base": want}
 
 
-@pytest.mark.parametrize("entry", ["refine_device", "refine_sweep"])
+def _custom_quadratic(obj, curvature=0.1):
+    """U(psi) = c @ psi - curvature |psi|^2 / 2 on [0, 50], with its box-free
+    conjugate |c - nu|^2 / (2 curvature)."""
+    c = np.asarray(obj.c, np.float64)
+    ct = torch.as_tensor(c)
+    return CustomUtility(
+        lambda p: torch.dot(ct.to(p), p) - 0.5 * curvature * torch.dot(p, p),
+        np.zeros_like(c), np.full_like(c, 50.0), smoothness=curvature,
+        prox_iters=10,
+        conjugate=lambda nu: float((c - nu) @ (c - nu)) / (2.0 * curvature))
+
+
+@pytest.mark.parametrize("entry", ["refine_device", "refine_sweep", "custom"])
 def test_refine_counter_is_the_refinements_iterations(entry):
     """(d) ``iters.refine`` adds every correction chunk's iterations, what
-    the refinement reports; its delta solver adds nothing to ``iters.base``."""
+    the refinement reports, and ``checks.refine`` the checked ones among
+    them: one a cadence of 10 for ``refine_device(chunk_iters=10)``, every
+    one for ``refine_sweep``'s classic fold and for a ``CustomUtility``
+    (check_every 1); its delta solver adds nothing to ``iters.base``."""
     spec, obj = arbitrage_instance()
     compiled = compile_spec(spec)
     solver = AdmmSolver(compiled, options=SHORT, device="cpu")
-    if entry == "refine_device":
-        res = solver.solve(obj)
-        profiling.reset()
-        got = refine_device(compiled, obj, res, target_gap=1e-12, max_passes=1,
-                            chunk_iters=10, chunks_per_pass=3, device="cpu").iters
-    else:
+    if entry == "refine_sweep":
         c = np.stack([obj.c, 2 * np.asarray(obj.c)])
         lo, hi = np.zeros_like(c), np.full_like(c, np.inf)
         res = solver.solve_batch(c, lo, np.full_like(c, 1e6))
         profiling.reset()
         got = refine_sweep(compiled, c, lo, hi, res, target_gap=1e-12, max_passes=1,
                            iters_per_pass=10, device="cpu").iters
-    assert got > 0 and profiling.COUNTS == {"iters.refine": got}
+        checks = got
+    else:
+        if entry == "custom":
+            obj = _custom_quadratic(obj)
+        res = solver.solve(obj)
+        profiling.reset()
+        got = refine_device(compiled, obj, res, target_gap=1e-12, max_passes=1,
+                            chunk_iters=10, chunks_per_pass=3, device="cpu").iters
+        checks = got if entry == "custom" else got // 10
+    assert got > 0 and profiling.COUNTS == {"iters.refine": got, "checks.refine": checks}
 
 
 def test_spans_nest_by_request_and_roots_carry_counter_changes():
