@@ -12,9 +12,10 @@ launches its kernel, so a run can show which kernels it went through (the
 folded launches of the fused steps count under ``*_fold``, the merged
 K-group launches under ``fused_step_merged``).  The grouped kernels launch
 once per group of buckets with the same slot count: one launch of
-``project``, ``project_delta``, ``fused_step`` or ``fused_step_delta``
-(or their ``*_fold`` forms) covers every bucket of its group, geo-mean and
-constant-sum alike.
+``project``, ``project_delta``, ``fused_step``, ``fused_step_delta`` or
+``classic_step`` (or the fused steps' ``*_fold`` forms) covers every bucket
+of its group, geo-mean and constant-sum alike; ``classic_z`` ends a block
+of classic steps once per group and ``consensus`` runs once a step.
 """
 from __future__ import annotations
 
@@ -72,13 +73,21 @@ _LIBS = {
         "segment_sum.cu",
         {"cfmm_segment_sum": [_C] * 4 + [_P] * 6},
     ),
+    "classic_step": (
+        "classic_step.cu",
+        {"cfmm_classic_step": [_C, _C, _C, _P, _P, _C, _C, _D, _D, _P, _P, _C,
+                               _C, _P],
+         "cfmm_classic_z": [_C, _C, _C] + [_P] * 4,
+         "cfmm_consensus": [_C] * 3 + [_P] * 3},
+    ),
 }
 _HEADERS = ("projection.cuh", "projection_delta.cuh")
 
 LAUNCHES: Dict[str, int] = {"project": 0, "project_delta": 0,
                             "fused_step": 0, "fused_step_delta": 0,
                             "fused_step_fold": 0, "fused_step_delta_fold": 0,
-                            "fused_step_merged": 0, "segment_sum": 0}
+                            "fused_step_merged": 0, "segment_sum": 0,
+                            "classic_step": 0, "classic_z": 0, "consensus": 0}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

@@ -45,8 +45,19 @@ segment sum.
 same channel count K in one launch (one lane per slot) and one segment sum
 over the group's slot order; :func:`fused_step` is a group of one.
 
+:func:`classic_step`, :func:`consensus` and :func:`classic_z` run the
+classic iteration itself (``AdmmSolver._iterate`` without residual sums,
+linear objective) in the replayed stats-free blocks of
+``AdmmSolver._solve_impl``: one step launch per K-group (the previous
+iteration's z update, the gather of nu, the grouped projection, the
+relaxation and the consensus terms), the group's segment sum, and one
+consensus launch (the linear prox and dm = nu - mu), rounding every value
+as the torch ops they replace; ``classic_z`` materialises z at the end of a
+block.  Their plain versions are those torch ops.
+
 The CUDA kernels are ``csrc/fused_step.cu`` (``fused_step`` and
-``fused_step_merged``) and ``csrc/fused_step_delta.cu``.
+``fused_step_merged``), ``csrc/fused_step_delta.cu`` and
+``csrc/classic_step.cu``.
 Each writes its slots' consensus terms to a (K, m) plane that the
 segment-sum kernel (``ops/segment.py``) reduces per asset in a fixed order,
 so y is bitwise repeatable on the card.  On a CPU tensor the wrappers run
@@ -72,17 +83,21 @@ import torch
 from . import _build
 from .projection import ProjectionConfig, project_cs, project_gm
 from .projection_cuda import (
-    _KIND, MAX_GROUP, _check_group, _check_like, check_cuda_args, dtype_code,
-    group_outputs, launch_table,
+    _KIND, MAX_GROUP, _check_group, _check_like, _launch_grouped,
+    check_cuda_args, dtype_code, group_outputs, launch_table,
+    project_grouped_plain,
 )
 from .projection_delta import project_cs_delta, project_gm_delta
+from .prox import psi_prox
 from .segment import segment_sum, segment_sum_plain
 
 __all__ = ["fused_step", "fused_step_plain", "fused_step_grouped",
            "fused_step_grouped_plain", "fused_step_delta",
            "fused_step_delta_plain", "fused_step_delta_grouped",
            "fused_step_delta_grouped_plain", "fused_step_merged",
-           "fused_step_merged_plain", "class_spans"]
+           "fused_step_merged_plain", "class_spans", "classic_step",
+           "classic_step_plain", "classic_z", "classic_z_plain", "consensus",
+           "consensus_plain", "MAX_CONSENSUS_GROUPS"]
 
 _CLASS_KIND = {code: kind for kind, code in _KIND.items()}  # 2 -> ("cs", False)
 
@@ -516,3 +531,178 @@ def fused_step_delta(sD, sL, v, arrs, kind, needs_floor, alpha: float,
                                            {"bucket": arrs}, group, alpha,
                                            cfg, fold)
     return (*s_new["bucket"], *w["bucket"], y)
+
+
+# ---- the classic iteration's stats-free step (csrc/classic_step.cu) --------
+
+MAX_CONSENSUS_GROUPS = 32  # K-groups per consensus launch (the kernel's table)
+
+
+def classic_step_plain(src, nu, dm, buckets, group, alpha: float, beta: float,
+                       cfg: ProjectionConfig = ProjectionConfig()):
+    """The plain version of :func:`classic_step`, on any device: the torch
+    ops of a stats-free ``AdmmSolver._iterate`` for one K-group, in its
+    order, with the previous iteration's z update (``dm`` given) in front.
+    Returns (h, vals) as :func:`classic_step` does."""
+    inputs, zs = {}, {}
+    for name in group["names"]:
+        aD, aL = src[name]
+        arrs = buckets[name]
+        if dm is None:
+            zD, zL = aD, aL
+        else:
+            dme = _gather(dm, arrs, *aD.shape)
+            zD, zL = aD + dme, aL - dme
+        nue = _gather(nu, arrs, *aD.shape)
+        zs[name] = (zD, zL)
+        inputs[name] = (zD - nue, zL + nue)
+    proj = project_grouped_plain(inputs, buckets, group, cfg)
+    h, vals = {}, []
+    for name in group["names"]:
+        (zD, zL), (D, L) = zs[name], proj[name]
+        hD = alpha * D + beta * zD
+        hL = alpha * L + beta * zL
+        h[name] = (hD, hL)
+        vals.append((hL - hD).reshape(-1))
+    return h, torch.cat(vals)
+
+
+def _check_vector(t, ref, n, what):
+    if (t.dim() != 1 or t.shape[0] != n or t.dtype != ref.dtype
+            or t.device != ref.device or not t.is_contiguous()):
+        raise ValueError(f"{what}: asset vectors must be contiguous ({n},) "
+                         f"tensors of dtype {ref.dtype} on {ref.device}")
+
+
+def _check_asset(arrs, K, m, device, what):
+    asset = arrs["asset"]
+    if (asset.dtype != torch.int32 or asset.shape != (K, m)
+            or not asset.is_contiguous() or asset.device != device):
+        raise ValueError(f"{what}: asset ids must be a contiguous int32 "
+                         f"(K, m) tensor on {device}")
+
+
+def classic_step(src, nu, dm, buckets, group, alpha: float, beta: float,
+                 cfg: ProjectionConfig = ProjectionConfig()):
+    """One stats-free classic step for a group of buckets with the same slot
+    count K, in one launch (``csrc/classic_step.cu``): the z update of the
+    previous step, the gather of nu, the grouped projection, the relaxation
+    and the consensus terms.
+
+    src: bucket name -> (K, m) planes, z itself when ``dm`` is None (a
+    block's first step), else the previous step's relaxed planes h, with
+    z = h +- dm_e;  nu, dm: (n,) vectors;  buckets: name -> the solver's
+    device bucket dict;  group: an ``AdmmSolver._groups`` entry;  alpha and
+    beta = 1 - alpha: the relaxation's coefficients, each exact in the
+    planes' dtype.  Returns (h, vals): name -> (hD, hL), and the group's
+    consensus terms hL - hD, the buckets' planes flattened one after
+    another (the group's segment-sum input).  CPU tensors run
+    :func:`classic_step_plain`."""
+    names = group["names"]
+    ref = src[names[0]][0]
+    if ref.device.type == "cpu":
+        return classic_step_plain(src, nu, dm, buckets, group, alpha, beta, cfg)
+    _check_group(group, "classic_step")
+    n = nu.shape[0]
+    for t in (nu,) if dm is None else (nu, dm):
+        _check_vector(t, ref, n, "classic_step")
+    dims, sizes, ins = [], [], []
+    for name, (kind, floor) in zip(names, group["kinds"]):
+        aD, aL = src[name]
+        a = buckets[name]
+        gm = kind == "gm"
+        s, logk0 = (a["s"], a["logk0"]) if gm else (None, None)
+        K, m = check_cuda_args(
+            (aD, aL, a["R"], a["w"], a["mask"]) + ((s,) if gm else ()),
+            (a["gamma"], a["k0"]) + ((logk0,) if gm else ()), "classic_step")
+        _check_like(aD, ref, "classic_step")
+        _check_asset(a, K, m, ref.device, "classic_step")
+        dims += [m, _KIND[(kind, bool(floor))]]
+        sizes.append((K, m))
+        ins.append((aD, aL, a["asset"], a["R"], a["w"], s, a["mask"],
+                    a["gamma"], logk0, a["k0"]))
+    out, views = _launch_grouped(
+        "classic_step", "cfmm_classic_step", "classic_step", ref, names, dims,
+        sizes, ins, cfg, n_out=3,  # hD hL val
+        extra=(n, int(dm is not None), float(alpha), float(beta), nu.data_ptr(),
+               None if dm is None else dm.data_ptr()))
+    return {name: o[:2] for name, o in views.items()}, out[2]
+
+
+def classic_z_plain(h, dm, buckets, group):
+    """The plain version of :func:`classic_z`, on any device."""
+    out = {}
+    for name in group["names"]:
+        hD, hL = h[name]
+        dme = _gather(dm, buckets[name], *hD.shape)
+        out[name] = (hD + dme, hL - dme)
+    return out
+
+
+def classic_z(h, dm, buckets, group):
+    """The z update that ends a block of :func:`classic_step` calls, for one
+    K-group in one launch: name -> (hD + dm_e, hL - dm_e).  CPU tensors run
+    :func:`classic_z_plain`."""
+    names = group["names"]
+    ref = h[names[0]][0]
+    if ref.device.type == "cpu":
+        return classic_z_plain(h, dm, buckets, group)
+    _check_group(group, "classic_z")
+    _check_vector(dm, ref, dm.shape[0], "classic_z")
+    dims, sizes, ins = [], [], []
+    for name in names:
+        hD, hL = h[name]
+        a = buckets[name]
+        K, m = check_cuda_args((hD, hL, a["mask"]), (), "classic_z")
+        _check_like(hD, ref, "classic_z")
+        _check_asset(a, K, m, ref.device, "classic_z")
+        dims.append(m)
+        sizes.append((K, m))
+        ins.append((hD, hL, a["asset"], a["mask"]))
+    return _launch_grouped("classic_step", "cfmm_classic_z", "classic_z", ref,
+                           names, dims, sizes, ins, extra=(dm.data_ptr(),))[1]
+
+
+def consensus_plain(ys, degree, nu, c, lo, hi, rho):
+    """The plain version of :func:`consensus`, on any device: the groups'
+    sums added in group order, then the linear prox of ``AdmmSolver``'s
+    classic iteration (``ops/prox.py``'s ``psi_prox``)."""
+    y = ys[0]
+    for yg in ys[1:]:
+        y = y + yg
+    _, mu = psi_prox(y - 2.0 * degree * nu, degree, c, lo, hi, rho)
+    return mu, nu - mu
+
+
+def consensus(ys, degree, nu, c, lo, hi, rho):
+    """The consensus of one stats-free classic step with a linear objective,
+    in one launch (``csrc/classic_step.cu``): y = the K-groups' segment
+    sums ``ys`` added in group order, s = y - 2 d nu, the linear prox's mu
+    (``psi_prox``), and dm = nu - mu.
+
+    ys: at most :data:`MAX_CONSENSUS_GROUPS` (n,) vectors;  degree, nu, c,
+    lo, hi: (n,);  rho: the penalty, a one-element tensor.  Returns (mu,
+    dm).  CPU tensors run :func:`consensus_plain`."""
+    if nu.device.type == "cpu":
+        return consensus_plain(ys, degree, nu, c, lo, hi, rho)
+    if not 1 <= len(ys) <= MAX_CONSENSUS_GROUPS:
+        raise ValueError(f"consensus: 1 to {MAX_CONSENSUS_GROUPS} group sums, "
+                         f"not {len(ys)}")
+    n = nu.shape[0]
+    for t in (*ys, degree, nu, c, lo, hi):
+        _check_vector(t, nu, n, "consensus")
+    if (rho.numel() != 1 or rho.dtype != nu.dtype or rho.device != nu.device
+            or not rho.is_contiguous()):
+        raise ValueError("consensus: rho must be a one-element tensor of the "
+                         "vectors' dtype and device")
+    out = torch.empty((2, n), dtype=nu.dtype, device=nu.device)
+    _, c_ys = launch_table([], [y.data_ptr() for y in ys])
+    _, c_vecs = launch_table([], [t.data_ptr() for t in (
+        degree, nu, c, lo, hi, rho, out[0], out[1])])
+    entry = _build.library("classic_step").cfmm_consensus
+    with torch.cuda.device(nu.device):
+        stream = torch.cuda.current_stream(nu.device).cuda_stream
+        rc = entry(dtype_code(nu.dtype), len(ys), n, c_ys, c_vecs, stream)
+    _build.check_launch(rc, "consensus")
+    _build.LAUNCHES["consensus"] += 1
+    return out[0], out[1]

@@ -115,25 +115,30 @@ def launch_table(dims, ptrs):
     return (ctypes.c_int * len(dims))(*dims), (ctypes.c_void_p * len(ptrs))(*ptrs)
 
 
-def _launch_grouped(lib, entry, what, ref, names, dims, sizes, args, cfg):
+def _launch_grouped(lib, entry, what, ref, names, dims, sizes, args, cfg=None,
+                    n_out=2, extra=()):
     """One grouped launch of the C entry ``entry`` of library ``lib`` from
     the validated per-bucket ``dims``, ``sizes`` and input tensors ``args``
-    (None for a null pointer): returns name -> (out0, out1), per-bucket
-    (K, m) views of one allocation, and counts the launch under ``what``."""
-    _, views = group_outputs(ref, sizes, 2)
+    (None for a null pointer), called as ``entry(dtype, K, n_buckets, dims,
+    ptrs, *extra, [cfg's n_bisect, n_polish,] stream)`` with each bucket's
+    inputs then its ``n_out`` outputs in ``ptrs``.  Returns the (n_out, sum
+    K*m) output allocation and name -> its ``n_out`` per-bucket (K, m)
+    views, and counts the launch under ``what``."""
+    out, views = group_outputs(ref, sizes, n_out)
     ptrs = []
     for ins, outs in zip(args, views):
         ptrs += [None if t is None else t.data_ptr() for t in ins]
         ptrs += [t.data_ptr() for t in outs]
     c_dims, c_ptrs = launch_table(dims, ptrs)
+    steps = () if cfg is None else (int(cfg.n_bisect), int(cfg.n_polish))
     fn = getattr(_build.library(lib), entry)
     with torch.cuda.device(ref.device):
         stream = torch.cuda.current_stream(ref.device).cuda_stream
         rc = fn(dtype_code(ref.dtype), ref.shape[0], len(names), c_dims, c_ptrs,
-                int(cfg.n_bisect), int(cfg.n_polish), stream)
+                *extra, *steps, stream)
     _build.check_launch(rc, what)
     _build.LAUNCHES[what] += 1
-    return {name: tuple(outs) for name, outs in zip(names, views)}
+    return out, {name: tuple(outs) for name, outs in zip(names, views)}
 
 
 def project_grouped_plain(inputs, buckets, group,
@@ -184,7 +189,7 @@ def project_grouped(inputs, buckets, group,
         args.append((p, q, a["R"], a["w"], s, a["mask"], a["gamma"], logk0,
                      a["k0"]))
     return _launch_grouped("projection", "cfmm_project", "project", ref, names,
-                           dims, sizes, args, cfg)
+                           dims, sizes, args, cfg)[1]
 
 
 def project_gm_cuda(
@@ -259,7 +264,7 @@ def project_delta_grouped(inputs, buckets, group,
         args.append((p, q, a["X0"], a["w"], sS, a["aD"], a["aL"], a["mask"],
                      a["gamma"], a["nsig"]))
     return _launch_grouped("projection_delta", "cfmm_project_delta",
-                           "project_delta", ref, names, dims, sizes, args, cfg)
+                           "project_delta", ref, names, dims, sizes, args, cfg)[1]
 
 
 def _one(grouped, kind, p, q, arrs, cfg):

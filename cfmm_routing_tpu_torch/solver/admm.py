@@ -33,7 +33,12 @@ are CUDA-graph replays (``solver/graphs.py``), on the CPU Python loops.  On
 the card every consensus reduction is a fixed-order segment sum
 (``ops/segment.py``), one per group of buckets with the same channel count
 (:attr:`AdmmSolver._groups`), so two runs give bitwise-equal iterates; on
-the CPU it is ``index_add_``, which is sequential there.
+the CPU it is ``index_add_``, which is sequential there.  On the card the
+classic solve's stats-free blocks with a linear objective run as
+hand-written kernels (:meth:`AdmmSolver._classic_block`,
+``csrc/classic_step.cu``: one step launch per K-group around the grouped
+projection, its segment sum, one consensus launch), bitwise the iterates of
+the torch ops they replace.
 
 The methods that touch bucket arrays take an optional ``buckets=`` override
 (the refinement stage's delta arrays ride it; see
@@ -85,7 +90,8 @@ import torch.distributed as dist
 from .._device import host, resolve_device
 from ..models.utility import ConcaveUtility, CustomUtility, Objective
 from ..ops.iteration_cuda import (
-    class_spans, fused_step_grouped, fused_step_merged,
+    MAX_CONSENSUS_GROUPS, class_spans, classic_step, classic_z, consensus,
+    fused_step_grouped, fused_step_merged,
 )
 from ..ops.projection import ProjectionConfig
 from ..ops.projection_cuda import _KIND, MAX_GROUP, project_grouped
@@ -435,17 +441,24 @@ class AdmmSolver:
                 y = yb if y is None else y + yb
             return y
         if next(iter(planes.values())).device.type == "cuda":
-            y = None
-            for g in self._groups:
-                vals = [planes[nm].reshape(-1) for nm in g["names"]]
-                vals = vals[0].contiguous() if len(vals) == 1 else torch.cat(vals)
-                yg = segment_sum(vals, g["order"], g["seg"], self.n)
-                y = yg if y is None else y + yg
-            return y
+            return self._reduce_groups(planes)
         y = self._zeros(self.n)
         for name, vals in planes.items():
             y = y + self._zeros(self.n).index_add_(
                 0, buckets[name]["asset"].reshape(-1), vals.reshape(-1))
+        return y
+
+    def _reduce_groups(self, planes):
+        """The card's form of :meth:`_reduce_edges`: one fixed-order segment
+        sum per K-group over its buckets' planes one after another, the
+        groups' sums added in group order (on a CPU tensor the segment
+        sum's plain version)."""
+        y = None
+        for g in self._groups:
+            vals = [planes[nm].reshape(-1) for nm in g["names"]]
+            vals = vals[0].contiguous() if len(vals) == 1 else torch.cat(vals)
+            yg = segment_sum(vals, g["order"], g["seg"], self.n)
+            y = yg if y is None else y + yg
         return y
 
     # ---- single iteration ---------------------------------------------------
@@ -554,6 +567,56 @@ class AdmmSolver:
             u_norm2=u_norm2 * rho * rho,
         )
         return z_new, mu, psi, w_out, stats
+
+    # ---- the stats-free classic iteration as kernels ------------------------
+
+    def _step_kernels(self, util) -> bool:
+        """Whether :meth:`_solve_impl`'s stats-free blocks run as
+        :meth:`_classic_block`: on the card, in a dtype the kernels take,
+        with a linear objective, for this class's own :meth:`_iterate` with
+        the package's reduction and prox (no fold, ``segment_sum_fn``,
+        ``consensus_prox`` or process group).  Everything else runs the
+        torch ops of :meth:`_iterate`."""
+        return (self.device.type == "cuda"
+                and self.dtype in (torch.float32, torch.float64)
+                and util is None and self._fold is None
+                and self._segsum is None and self._consensus_prox is None
+                and self.axis_name is None
+                and type(self)._iterate is AdmmSolver._iterate
+                and len(self._groups) <= MAX_CONSENSUS_GROUPS)
+
+    @functools.cached_property
+    def _relax_coeffs(self):
+        """(alpha, 1 - alpha) as host floats, each rounded to the solve dtype
+        as :meth:`_iterate`'s tensors are."""
+        dt = np.float32 if self.dtype == torch.float32 else np.float64
+        alpha = dt(self.options.alpha)
+        return float(alpha), float(dt(1) - alpha)
+
+    def _classic_block(self, state, k, n, buckets):
+        """``n`` stats-free iterations of :meth:`_iterate` with a linear
+        objective, bitwise, as kernels (``ops/iteration_cuda.py``): per
+        iteration one :func:`classic_step` launch and one segment sum per
+        K-group and one :func:`consensus` launch.  Between iterations the z
+        update stays deferred, (h, dm); :func:`classic_z` applies it after
+        the last.  ``state``: (z, nu); ``k``: (rho, c, lo, hi, ...)."""
+        z, nu = state
+        rho, c, lo, hi = k[:4]
+        alpha, beta = self._relax_coeffs
+        cfg = self.options.projection
+        h, dm = z, None
+        for _ in range(n):
+            h_new, ys = {}, []
+            for g in self._groups:
+                hg, vals = classic_step(h, nu, dm, buckets, g, alpha, beta, cfg)
+                h_new.update(hg)
+                ys.append(segment_sum(vals, g["order"], g["seg"], self.n))
+            nu, dm = consensus(ys, self.degree, nu, c, lo, hi, rho)
+            h = h_new
+        z_new = {}
+        for g in self._groups:
+            z_new.update(classic_z(h, dm, buckets, g))
+        return {nm: z_new[nm] for nm in z}, nu
 
     # ---- fused-kernel iteration path ---------------------------------------
     # State representation:  z(t) = s(t) +/- wdef(t)_e  with s the array
@@ -874,7 +937,11 @@ class AdmmSolver:
     def _solve_impl(self, c, lo, hi, rho0, z0=None, nu0=None, max_iters=None,
                     buckets=None, util=None):
         """Residual-checked solve.  The loop reads one boolean back from the
-        device per check (every ``check_every`` iterations)."""
+        device per check (every ``check_every`` iterations).  Where
+        :meth:`_step_kernels` allows, the stats-free iterations between
+        checks run as :meth:`_classic_block` (bitwise the same iterates),
+        counted under ``iters.step``; the checked iteration is always
+        :meth:`_iterate`."""
         opts = self.options
         buckets = self.buckets if buckets is None else buckets
         budget = int(opts.max_iters if max_iters is None else max_iters)
@@ -895,15 +962,26 @@ class AdmmSolver:
         psi = self._zeros(self.n)
         w = {name: (torch.zeros_like(zD), torch.zeros_like(zL))
              for name, (zD, zL) in z.items()}
-        def step(state, k):  # one stats-free iteration
-            z_new, nu_new, _, _, _ = self._iterate(
-                *state, *k[:4], with_stats=False, buckets=buckets, util=k[4])
-            return {nm: z_new[nm] for nm in state[0]}, nu_new
+        if check_every > 1 and self._step_kernels(util):
+            def step(state, k):  # the check_every - 1 stats-free iterations
+                return self._classic_block(state, k, check_every - 1, buckets)
+
+            kernel_iters = check_every - 1
+            key, steps = ("classic_step", kernel_iters), 1
+        else:
+            def step(state, k):  # one stats-free iteration
+                z_new, nu_new, _, _, _ = self._iterate(
+                    *state, *k[:4], with_stats=False, buckets=buckets, util=k[4])
+                return {nm: z_new[nm] for nm in state[0]}, nu_new
+
+            key, steps, kernel_iters = "classic", check_every - 1, 0
 
         k = 0
         while k < budget:
-            z, nu = run_block(self, "classic", step, check_every - 1, 1,
-                              (z, nu), (rho, c, lo, hi, util), owner=buckets)
+            z, nu = run_block(self, key, step, steps, 1, (z, nu),
+                              (rho, c, lo, hi, util), owner=buckets)
+            if kernel_iters:
+                count("iters.step", kernel_iters)
             with span("admm.check"):
                 z, nu, psi, w, st = self._iterate(z, nu, rho, c, lo, hi,
                                                   buckets=buckets, util=util)

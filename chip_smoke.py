@@ -22,7 +22,12 @@ Phases (any failure raises and the script exits nonzero):
       ``segment_sum`` on every bucket and on each K-group's slot order;
       ``fused_step`` on every bucket (a group of one) and grouped, one
       launch + one segment sum per K-group (K=2: cs2f gm2 gm2f, K=4: cs4f
-      gm4), float32 and float64.
+      gm4), float32 and float64; the classic base's step kernels
+      (``classic_step`` per K-group as a block's first and as a deferred
+      step, ``consensus``, ``classic_z``) and a 24-step ``_classic_block``
+      against 24 stats-free ``_iterate`` calls, float32 at (24, 4) and
+      float64 at (48, 6), with the device time of a stats-free iteration
+      both ways.
    b. The grouped delta kernels: ``fused_step_delta_grouped`` (with its
       segment sum) and the standalone delta projection
       ``project_delta_grouped`` (``project_gm_delta`` + ``project_cs_delta``)
@@ -66,7 +71,9 @@ Phases (any failure raises and the script exits nonzero):
    24-iteration check blocks and the refinement's 25-iteration fused blocks
    as CUDA graphs): the two bitwise equal in the base, with the same final
    certificate and launches; the seconds of both.  Counts reset before each
-   run, read after; the
+   run, read after; each base block must be 24 kernel steps (``classic_step``
+   per K-group and ``consensus`` a step, ``classic_z`` per K-group a block)
+   and one checked iteration (``project`` per K-group); the
    fused delta kernel must run 2 launches per fused delta iteration (one
    per K-group) and the delta projection 2 per classic delta iteration, no
    host fallback may be taken, and the certificate must be finite and no
@@ -289,7 +296,18 @@ SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
     # one launch per channel count (phase 7)
     "fused_step_merged": ("cfmm_routing_tpu_torch/csrc/fused_step.cu",
                           "cfmm_routing_tpu/ops/iteration_pallas.py:837"),
+    # the classic base's replayed stats-free iterations (phases 2a and 5):
+    # one XLA program on the TPU, no Pallas kernel.  classic_step: one
+    # launch per K-group a step; consensus: one a step (the linear prox);
+    # classic_z: one per K-group a block
+    "classic_step": ("cfmm_routing_tpu_torch/csrc/classic_step.cu",
+                     "cfmm_routing_tpu/solver/admm.py:347 (_iterate)"),
+    "consensus": ("cfmm_routing_tpu_torch/csrc/classic_step.cu",
+                  "cfmm_routing_tpu/ops/prox.py:68 (psi_prox)"),
+    "classic_z": ("cfmm_routing_tpu_torch/csrc/classic_step.cu",
+                  "cfmm_routing_tpu/solver/admm.py:347 (_iterate's z update)"),
 }
+BASE_BLOCK = 24  # stats-free iterations between two checks of the classic base
 F32_BIG = float(np.finfo(np.float32).max) / 4
 
 
@@ -437,6 +455,9 @@ def count_plain_calls(counter):
                (iteration_cuda, "fused_step_delta_plain"),
                (iteration_cuda, "fused_step_delta_grouped_plain"),
                (iteration_cuda, "fused_step_merged_plain"),
+               (iteration_cuda, "classic_step_plain"),
+               (iteration_cuda, "classic_z_plain"),
+               (iteration_cuda, "consensus_plain"),
                (projection_cuda, "project_gm"), (projection_cuda, "project_cs"),
                (projection_cuda, "project_grouped_plain"),
                (projection_cuda, "project_gm_delta"),
@@ -2777,6 +2798,128 @@ def host_extras_phase(report, card, cfg_main):
     return launches
 
 
+def step_leaves(out):
+    """The tensors of a classic step's (h, vals) or a classic_z's z in a
+    fixed order."""
+    h, vals = out if isinstance(out, tuple) else (out, None)
+    return [t for name in sorted(h) for t in h[name]] + ([] if vals is None else [vals])
+
+
+def classic_kernel_checks(report, rows, solver, solver64, z, nu, objective, cfg_main,
+                          cfg64):
+    """Phase 2a's classic step kernels (``csrc/classic_step.cu``) on the 100k
+    buckets at the mid-solve state (z, nu), float32 at (24, 4) and float64
+    at (48, 6): ``classic_step`` on each K-group as a block's first step (z
+    given) and as a deferred step (h and dm given), ``consensus`` and
+    ``classic_z``, each bitwise equal to its plain version and to a second
+    launch; a ``BASE_BLOCK``-step ``_classic_block`` bitwise equal to as many
+    stats-free ``_iterate`` calls (the torch ops it replaces, with the
+    projection and segment-sum kernels).  Rows of device times (CUDA graphs)
+    of each kernel and its plain version with their bounds, and one
+    stats-free iteration both ways."""
+    from cfmm_routing_tpu_torch.ops.iteration_cuda import (
+        classic_step, classic_step_plain, classic_z, classic_z_plain, consensus,
+        consensus_plain,
+    )
+    from cfmm_routing_tpu_torch.ops.segment import segment_sum
+
+    iteration_ms = {}
+    for dtype, slv, cfg in ((torch.float32, solver, cfg_main),
+                            (torch.float64, solver64, cfg64)):
+        dname = str(dtype).split(".")[1]
+        es = 4 if dtype == torch.float32 else 8
+        if not slv._step_kernels(None):
+            raise AssertionError(f"2a classic step [{dname}]: the kernel path is not taken")
+        c, lo, hi = slv._objective_arrays(objective)
+        rho = slv._t(1.0)
+        zz = {nm: tuple(x.to(dtype) for x in z[nm]) for nm in z}
+        nn = nu.to(dtype)
+        alpha, beta = slv._relax_coeffs
+        bk, n = slv.buckets, slv.n
+
+        def checked(label, kfn, pfn, leaves=step_leaves):
+            got, again, want = kfn(), kfn(), pfn()
+            torch.cuda.synchronize()
+            bitwise(f"{label} [{dname}]", leaves(got), leaves(want))
+            bitwise(f"{label} [{dname}] second launch", leaves(again), leaves(got))
+            return want
+
+        # a block's first step (z given) per K-group, the consensus, then a
+        # deferred step (h, dm) per K-group and the block's closing z
+        h, ys = {}, []
+        for g in slv._groups:
+            hg, vals = checked(
+                f"classic_step[K={g['K']}] first step",
+                lambda: classic_step(zz, nn, None, bk, g, alpha, beta, cfg),
+                lambda: classic_step_plain(zz, nn, None, bk, g, alpha, beta, cfg))
+            h.update(hg)
+            ys.append(segment_sum(vals, g["order"], g["seg"], n))
+        cons = (lambda: consensus(ys, slv.degree, nn, c, lo, hi, rho),
+                lambda: consensus_plain(ys, slv.degree, nn, c, lo, hi, rho))
+        nu2, dm = checked("consensus", *cons, leaves=list)
+        row = dict(group=len(ys), dtype=dname, n=n, max_abs_err=0.0,
+                   ms=graph_ms(cons[0]), plain_ms=graph_ms(cons[1]))
+        # the groups' sums, d nu c lo hi in; mu dm out; ~12 operations an asset
+        row["bound_ms"], row["bound_by"] = bound_ms(es * (len(ys) + 7) * n, 12 * n, dtype)
+        rows["consensus"].append(row)
+        log(f"# consensus {dname} n={n} ({len(ys)} group sums): bitwise equal to plain and "
+            f"across launches; kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        for g in slv._groups:
+            K = g["K"]
+            ms = [int(bk[nm]["mask"].shape[1]) for nm in g["names"]]
+            step = (lambda: classic_step(h, nu2, dm, bk, g, alpha, beta, cfg),
+                    lambda: classic_step_plain(h, nu2, dm, bk, g, alpha, beta, cfg))
+            checked(f"classic_step[K={K}] deferred step", *step)
+            row = dict(group=K, buckets=g["names"], dtype=dname, K=K, m=sum(ms),
+                       cfg=list(cfg), max_abs_err=0.0, ms=graph_ms(step[0]),
+                       plain_ms=graph_ms(step[1], n=2, reps=3))
+            # a slot reads aD aL R w (s) mask and its int32 asset id and
+            # writes hD hL val; a pool reads gamma (logk0) k0; nu and dm once
+            # a launch; the projection's operations
+            n_b = sum((9 if kind == "gm" else 8) * K * m * es + 4 * K * m
+                      + (3 if kind == "gm" else 2) * m * es
+                      for (kind, _), m in zip(g["kinds"], ms)) + 2 * n * es
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                n_b, sum(projection_flops(cfg, K, m) for m in ms), dtype)
+            rows["classic_step"].append(row)
+            log(f"# classic_step K={K} {g['names']} {dname} m={sum(ms)}: a first and a "
+                f"deferred step bitwise equal to plain and across launches; kernel "
+                f"{row['ms']:.4f} ms  plain {row['plain_ms']:.2f} ms  bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+            zfn = (lambda: classic_z(h, dm, bk, g), lambda: classic_z_plain(h, dm, bk, g))
+            checked(f"classic_z[K={K}]", *zfn)
+            row = dict(group=K, buckets=g["names"], dtype=dname, K=K, m=sum(ms),
+                       max_abs_err=0.0, ms=graph_ms(zfn[0]), plain_ms=graph_ms(zfn[1]))
+            # hD hL mask and the asset id in, zD zL out, dm once; 3 operations
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                sum((5 * es + 4) * K * m for m in ms) + n * es, 3 * K * sum(ms), dtype)
+            rows["classic_z"].append(row)
+            log(f"# classic_z K={K} {dname}: bitwise equal to plain and across launches; "
+                f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+        # a whole block against the torch ops it replaces
+        k = (rho, c, lo, hi)
+        got = slv._classic_block((zz, nn), k, BASE_BLOCK, bk)
+        want = (zz, nn)
+        for _ in range(BASE_BLOCK):
+            zw, nw, _, _, _ = slv._iterate(*want, rho, c, lo, hi, with_stats=False)
+            want = ({nm: zw[nm] for nm in zz}, nw)
+        torch.cuda.synchronize()
+        bitwise(f"_classic_block({BASE_BLOCK}) [{dname}] vs {BASE_BLOCK} _iterate calls",
+                step_leaves(got[0]) + [got[1]], step_leaves(want[0]) + [want[1]])
+        iteration_ms[dname] = dict(
+            step_kernels=graph_ms(lambda: slv._classic_block((zz, nn), k, BASE_BLOCK, bk),
+                                  n=2, reps=5) / BASE_BLOCK,
+            torch_ops=graph_ms(lambda: slv._iterate(zz, nn, rho, c, lo, hi,
+                                                    with_stats=False), n=5, reps=5))
+        log(f"# 2a a stats-free classic iteration {dname}: {BASE_BLOCK} replayed kernel steps "
+            f"bitwise equal to as many _iterate calls; "
+            f"{iteration_ms[dname]['step_kernels']:.4f} ms an iteration on the kernels vs "
+            f"{iteration_ms[dname]['torch_ops']:.4f} ms on the torch ops (CUDA graphs)")
+    report["classic_iteration_ms"] = iteration_ms
+
+
 def build_report(build_dir):
     """Registers and spills of every kernel in the ``-Xptxas=-v`` logs kept
     beside the built libraries ({library: {kernel: [registers, spill
@@ -2841,8 +2984,9 @@ def package_times(root):
       ``fused_step`` on each bucket, ``project_gm_cuda`` /
       ``project_cs_cuda`` on each bucket at the classic iteration's input,
       one whole fused iteration (``AdmmSolver._iterate_fused``) and one
-      stats-free classic iteration (``AdmmSolver._iterate``, the body of
-      the classic replayed block), ``fused_step_merged`` on each merged
+      stats-free classic iteration (``AdmmSolver._iterate``, and where the
+      package has it ``AdmmSolver._classic_block``, the body of the classic
+      replayed block), ``fused_step_merged`` on each merged
       K-group and one whole merged fused iteration
       (``AdmmSolver._iterate_fused_merged``); where the package has it,
       ``project_grouped`` on each K-group;
@@ -2919,6 +3063,9 @@ def package_times(root):
             z = solver.fused_to_z(s, wdef, buckets)
             row["classic_iteration_ms"] = graph_ms(lambda: solver._iterate(
                 z, nu, rho, c, lo, hi, with_stats=False, buckets=buckets), n=5, reps=3)
+            if hasattr(solver, "_classic_block"):  # the replayed block's form
+                row["classic_block_iteration_ms"] = graph_ms(lambda: solver._classic_block(
+                    (z, nu), (rho, c, lo, hi), BASE_BLOCK, buckets), n=2, reps=3) / BASE_BLOCK
             pin = {}
             row["project_ms"] = {}
             for name, arrs in buckets.items():
@@ -2944,7 +3091,8 @@ def package_times(root):
         log(f"# {label}: fused_step per bucket {sum(row['fused_step_ms'].values()):.4f} ms, "
             f"a whole fused iteration {row['fused_iteration_ms']:.4f} ms"
             + (f", segment_sum per bucket {sum(row['segment_sum_ms'].values()):.4f} ms, a "
-               f"stats-free classic iteration {row['classic_iteration_ms']:.4f} ms"
+               f"stats-free classic iteration {row['classic_iteration_ms']:.4f} ms (torch "
+               f"ops), {row.get('classic_block_iteration_ms')} ms (step kernels)"
                if T == 1 else ""))
         return row
 
@@ -3100,9 +3248,9 @@ def main(argv=None):
     from cfmm_routing_tpu_torch.ops import _build
     from cfmm_routing_tpu_torch.ops import projection as plain
     from cfmm_routing_tpu_torch.ops.iteration_cuda import (
-        fused_step, fused_step_delta, fused_step_delta_grouped,
-        fused_step_delta_grouped_plain, fused_step_grouped, fused_step_grouped_plain,
-        fused_step_plain,
+        classic_step_plain, classic_z_plain, consensus_plain, fused_step,
+        fused_step_delta, fused_step_delta_grouped, fused_step_delta_grouped_plain,
+        fused_step_grouped, fused_step_grouped_plain, fused_step_plain,
     )
     from cfmm_routing_tpu_torch.ops.projection_cuda import (
         project_cs_cuda, project_cs_delta_cuda, project_delta_grouped,
@@ -3157,6 +3305,9 @@ def main(argv=None):
         swaps = [(admm_mod, "fused_step_grouped", fused_step_grouped_plain),
                  (admm_mod, "project_grouped", project_grouped_plain),
                  (admm_mod, "segment_sum", segment_sum_plain),
+                 (admm_mod, "classic_step", classic_step_plain),
+                 (admm_mod, "classic_z", classic_z_plain),
+                 (admm_mod, "consensus", consensus_plain),
                  (rd_mod, "fused_step_delta_grouped", fused_step_delta_grouped_plain),
                  (rd_mod, "project_delta_grouped", project_delta_grouped_plain)]
         saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
@@ -3331,6 +3482,9 @@ def main(argv=None):
         grouped_ms={d: t[0] for d, t in proj.items()},
         per_bucket_ms={d: t[1] for d, t in proj.items()}, per_bucket=per_bucket,
         registers=proj_regs, sass_loops=[lp for lp in loops if lp["library"] == "projection"])
+    # the classic step kernels of the base's replayed blocks, at (z, nu)
+    classic_kernel_checks(report, rows, solver, solver64, z, nu, eq.objective, cfg_main,
+                          cfg64)
     # the grouped fused step: one launch + one segment sum per K-group
     for g, g64 in zip(solver._groups, solver64._groups):
         K = g["K"]
@@ -3814,7 +3968,7 @@ def main(argv=None):
             res = base_solver.solve(eq.objective)
             torch.cuda.synchronize()
             base_s = time.perf_counter() - t_base0
-            base_project = _build.LAUNCHES["project"]
+            base_launches = dict(_build.LAUNCHES)
             r0 = unscale(to_host(res))
             entry = certify(cert_compiled, obj, r0.deltas, r0.lambdas, r0.prices,
                             psi_claimed=r0.psi)
@@ -3826,7 +3980,7 @@ def main(argv=None):
             torch.cuda.synchronize()
             t_end = time.perf_counter()
         return dict(res=r0, base_iters=int(res.iters), converged=bool(res.converged),
-                    base_s=base_s, base_project=base_project,
+                    base_s=base_s, base_launches=base_launches,
                     base_groups=len(base_solver._groups), entry=entry, out=out,
                     chunks=dsolver.chunks, groups=[g["names"] for g in dsolver._groups],
                     refine_s=t_end - t0,
@@ -3837,9 +3991,11 @@ def main(argv=None):
     rt = certified_route("replayed")
     rd_log.removeHandler(chunk_log)
     for mode, r in (("eager", route_eager), ("replayed", rt)):
+        bl = r["base_launches"]
         log(f"# certified route ({mode}): base {r['base_iters']} classic iterations in "
-            f"{r['base_s']:.3f} s (converged {r['converged']}; {r['base_project']} project "
-            f"launches, one per K-group an iteration); refinement {r['out'].iters} "
+            f"{r['base_s']:.3f} s (converged {r['converged']}; launches: project "
+            f"{bl['project']}, classic_step {bl['classic_step']}, consensus "
+            f"{bl['consensus']}, classic_z {bl['classic_z']}); refinement {r['out'].iters} "
             f"iterations ({r['chunks']} chunks) in {r['refine_s']:.3f} s; "
             f"{r['wall_s']:.3f} s from the base solve's start to the accepted certificate "
             f"(host clock; network set-up before it {setup_s:.3f} s)")
@@ -3870,11 +4026,19 @@ def main(argv=None):
     if launches5["project_delta"] != n_groups * rt["chunks"]:
         raise AssertionError(f"project_delta launches {launches5['project_delta']} != "
                              f"{n_groups} K-groups x {rt['chunks']} classic delta iterations")
-    if rt["base_project"] != rt["base_groups"] * rt["base_iters"]:
-        raise AssertionError(f"the base made {rt['base_project']} project launches, not "
-                             f"{rt['base_groups']} K-groups x {rt['base_iters']} classic "
-                             "iterations")
-    missing = [k for k in ("project", "project_delta", "segment_sum") if launches5[k] == 0]
+    # each block of the base: BASE_BLOCK replayed kernel steps, then one
+    # checked iteration (_iterate, the grouped projection)
+    blocks, rest = divmod(rt["base_iters"], BASE_BLOCK + 1)
+    groups = rt["base_groups"]
+    want = dict(project=groups * blocks, classic_step=groups * BASE_BLOCK * blocks,
+                consensus=BASE_BLOCK * blocks, classic_z=groups * blocks)
+    got = {k: rt["base_launches"][k] for k in want}
+    if rest or got != want:
+        raise AssertionError(f"the base's {rt['base_iters']} iterations made launches "
+                             f"{got}, not {want} ({groups} K-groups, {blocks} blocks of "
+                             f"{BASE_BLOCK} kernel steps and one checked iteration)")
+    missing = [k for k in ("project", "project_delta", "segment_sum", "classic_step",
+                           "consensus", "classic_z") if launches5[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the certified route: {missing}")
     if fallbacks:

@@ -57,6 +57,7 @@ from cfmm_routing_tpu_torch.solver.refine_device import (
 from cfmm_routing_tpu_torch.utils.synth import (
     mixed_width_arbitrage, random_arbitrage_table,
 )
+from test_torch_classic_step import GlueSolver
 
 pytestmark = pytest.mark.gpu
 
@@ -980,3 +981,128 @@ def test_cli_solve_at_100k_launches_the_kernels(cuda_device, tmp_path, capsys, m
     assert np.isfinite(out["objective"]) and len(out["psi"]) == 256
     for kernel in ("project", "segment_sum", "project_delta"):
         assert _build.LAUNCHES[kernel] > 0, (kernel, dict(_build.LAUNCHES))
+
+
+# ---- the classic step kernels (csrc/classic_step.cu) ------------------------
+
+def _classic_chain(solver, k, z, nu, n, plain_ops):
+    """``n`` stats-free classic steps from (z, nu) through the kernels of
+    ``csrc/classic_step.cu`` or their plain versions, each K-group's
+    consensus terms reduced by the segment-sum kernel.  Returns (z, nu)."""
+    from cfmm_routing_tpu_torch.ops import iteration_cuda as it
+
+    step, cons, zfin = ((it.classic_step_plain, it.consensus_plain, it.classic_z_plain)
+                        if plain_ops else (it.classic_step, it.consensus, it.classic_z))
+    rho, c, lo, hi = k
+    alpha, beta = solver._relax_coeffs
+    h, dm = z, None
+    for _ in range(n):
+        h_new, ys = {}, []
+        for g in solver._groups:
+            hg, vals = step(h, nu, dm, solver.buckets, g, alpha, beta, CFG_BASE)
+            h_new.update(hg)
+            ys.append(segment_sum(vals, g["order"], g["seg"], solver.n))
+        nu, dm = cons(ys, solver.degree, nu, c, lo, hi, rho)
+        h = h_new
+    out = {}
+    for g in solver._groups:
+        out.update(zfin(h, dm, solver.buckets, g))
+    return out, nu
+
+
+CFG_BASE = plain.ProjectionConfig(24, 4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_classic_step_kernels_match_plain_at_100k(cuda_device, dtype):
+    """The step, consensus and z kernels launched directly on the 100k
+    network's buckets (K = 2: cs2f gm2 gm2f; K = 4: cs4f gm4), 25 steps from
+    a random state with a box that clips: bitwise equal to their plain
+    versions, one ``classic_step`` launch per K-group a step, one
+    ``consensus`` a step, one ``classic_z`` per K-group."""
+    table, obj = random_arbitrage_table(256, 100_000, seed=7)
+    solver = AdmmSolver(compile_table(table), dtype=dtype, device=cuda_device,
+                        options=AdmmOptions(alpha=1.6, projection=CFG_BASE))
+    rng = np.random.default_rng(3)
+    z = {name: tuple(solver._t(rng.uniform(-2.0, 2.0, tuple(a["mask"].shape)))
+                     * a["mask"] for _ in range(2))
+         for name, a in solver.buckets.items()}
+    nu = solver._t(rng.normal(size=solver.n))
+    lo = np.where(rng.random(solver.n) < 0.5, -0.05, -1e3)
+    hi = np.where(rng.random(solver.n) < 0.5, 0.05, 1e3)
+    c, lo, hi = solver._objective_arrays(Objective(obj.c, lo=lo, hi=hi))
+    k = (solver._t(0.7), c, lo, hi)
+    groups = len(solver._groups)
+    _build.reset_launch_counts()
+    got_z, got_nu = _classic_chain(solver, k, z, nu, 25, plain_ops=False)
+    assert (_build.LAUNCHES["classic_step"], _build.LAUNCHES["consensus"],
+            _build.LAUNCHES["classic_z"]) == (25 * groups, 25, groups)
+    want_z, want_nu = _classic_chain(solver, k, z, nu, 25, plain_ops=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got_nu, want_nu)
+    for name in z:
+        for i in range(2):
+            assert torch.equal(got_z[name][i], want_z[name][i]), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_classic_solve_on_kernels_matches_glue_bitwise(cuda_device, dtype):
+    """A whole ``AdmmSolver.solve`` on a 10k network, its stats-free blocks
+    through the step kernels: bitwise equal to the same solve through the
+    torch ops of ``_iterate`` (a subclass with its own ``_iterate``), and
+    to itself inside ``graphs.eager()``; 24 of every 25 iterations counted
+    under ``iters.step``, none for the glue."""
+    from cfmm_routing_tpu_torch.utils import profiling
+
+    table, obj = random_arbitrage_table(64, 10_000, seed=7)
+    compiled = compile_table(table)
+    opts = AdmmOptions(max_iters=400, eps_abs=1e-7, eps_rel=1e-7, check_every=25,
+                       projection=CFG_BASE)
+    solver = AdmmSolver(compiled, dtype=dtype, device=cuda_device, options=opts)
+    glue = GlueSolver(compiled, dtype=dtype, device=cuda_device, options=opts)
+    profiling.reset()
+    got = solver.solve(obj)
+    iters = int(got.iters)
+    assert profiling.COUNTS["iters.step"] == iters // 25 * 24 > 0
+    assert profiling.COUNTS["iters.base"] == iters
+    want = glue.solve(obj)
+    assert profiling.COUNTS["iters.step"] == iters // 25 * 24
+    with graphs.eager():
+        eager = solver.solve(obj)
+    torch.cuda.synchronize()
+    assert int(want.iters) == int(eager.iters) == iters
+    for a, b, e in zip(_leaves(got), _leaves(want), _leaves(eager)):
+        assert torch.equal(a.cpu(), b.cpu()) and torch.equal(e.cpu(), a.cpu())
+
+
+@pytest.mark.parametrize("case", ["K3-5-12", "K40", "n7000"])
+def test_classic_step_kernels_any_k_and_wide_n(cuda_device, case):
+    """Lanes per slot at K = 3, 5, 12 (idle lanes masked), one thread per
+    pool at K = 40, and 7,000 assets, whose nu and dm do not fit the step
+    kernel's 48 KB of shared memory and are read from global memory: 5
+    kernel steps bitwise equal to their plain versions, float32 and
+    float64."""
+    if case == "n7000":
+        table, obj = random_arbitrage_table(7000, 3000, seed=5)
+        compiled = compile_table(table)
+    else:
+        widths = (3, 5, 12) if case == "K3-5-12" else (40,)
+        spec, obj = mixed_width_arbitrage(widths=widths,
+                                          n_assets=48 if 40 in widths else 16, seed=2)
+        compiled = compile_spec(spec, pad_pow2=False)
+    for dtype in (torch.float32, torch.float64):
+        solver = AdmmSolver(compiled, dtype=dtype, device=cuda_device,
+                            options=AdmmOptions(alpha=1.6, projection=CFG_BASE))
+        rng = np.random.default_rng(4)
+        z = {name: tuple(solver._t(rng.uniform(-2.0, 2.0, tuple(a["mask"].shape)))
+                         * a["mask"] for _ in range(2))
+             for name, a in solver.buckets.items()}
+        nu = solver._t(rng.normal(size=solver.n))
+        k = (solver._t(0.7), *solver._objective_arrays(obj))
+        got_z, got_nu = _classic_chain(solver, k, z, nu, 5, plain_ops=False)
+        want_z, want_nu = _classic_chain(solver, k, z, nu, 5, plain_ops=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got_nu, want_nu), (case, dtype)
+        for name in z:
+            for i in range(2):
+                assert torch.equal(got_z[name][i], want_z[name][i]), (case, dtype, name)

@@ -106,6 +106,7 @@ def test_wrappers_run_plain_version_on_cpu_tensors():
     assert set(_build.LAUNCHES) == {
         "project", "project_delta",
         "fused_step", "fused_step_delta", "fused_step_fold",
-        "fused_step_delta_fold", "fused_step_merged", "segment_sum"}
+        "fused_step_delta_fold", "fused_step_merged", "segment_sum",
+        "classic_step", "classic_z", "consensus"}
     assert all(n == 0 for n in _build.LAUNCHES.values())
 
