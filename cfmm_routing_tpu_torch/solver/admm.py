@@ -40,9 +40,9 @@ hand-written kernels (:meth:`AdmmSolver._classic_block`,
 projection, its segment sum, one consensus launch), bitwise the iterates of
 the torch ops they replace.
 
-The methods that touch bucket arrays take an optional ``buckets=`` override
-(the refinement stage's delta arrays ride it; see
-``solver/refine_device.py``).
+The methods that touch bucket arrays take an optional ``buckets=`` override:
+the refinement stage's delta arrays ride it, and its solver replaces three
+hooks of the one iteration (``solver/refine_device.py``).
 
 The objective is a linear :class:`Objective`, a separable
 :class:`ConcaveUtility` or a non-separable :class:`CustomUtility`; a utility
@@ -465,7 +465,7 @@ class AdmmSolver:
 
     def _project_groups(self, inputs, buckets):
         """Project every bucket's (p, q) = ``inputs[name]`` onto its trading
-        sets, one :func:`project_grouped` launch per K-group
+        sets, one :meth:`_project_group` launch per K-group
         (:attr:`_groups`) on the card, each bucket's plain projection on
         the CPU.  ``buckets``: the arrays to project with (the solver's own,
         or an override with the same names).  Returns name -> (D, L)."""
@@ -475,9 +475,36 @@ class AdmmSolver:
             if missing:
                 raise KeyError(f"the bucket arrays lack {missing}, which the "
                                f"solver's K = {g['K']} group projects")
-            out.update(project_grouped(inputs, buckets, g,
-                                       cfg=self.options.projection))
+            out.update(self._project_group(inputs, buckets, g))
         return out
+
+    # ---- the iteration's hooks, which a correction solver replaces --------
+
+    def _edge_dual(self, nu, name, buckets):
+        """The dual on bucket ``name``'s edges, as the projection input
+        takes it: (zD - it, zL + it)."""
+        return self._bcast_nu(nu, name, buckets)
+
+    def _project_group(self, inputs, buckets, g):
+        """One K-group's projection: :func:`project_grouped`."""
+        return project_grouped(inputs, buckets, g, cfg=self.options.projection)
+
+    def _fused_group(self, s, v, buckets, g, alpha):
+        """One K-group's fused step: :func:`fused_step_grouped`."""
+        return fused_step_grouped(s, v, buckets, g, alpha,
+                                  cfg=self.options.projection, fold=self._fold)
+
+    def _consensus(self, yhat, nu, c, lo, hi, rho, util=None):
+        """(psi, mu) from the consensus sum ``yhat`` (summed over every
+        rank): the prox at yhat - 2 d nu."""
+        return self._prox(yhat - 2.0 * self.degree * nu, c, lo, hi, rho, util)
+
+    def _base_hooks(self) -> bool:
+        """Whether the projection input, the projection and the consensus
+        step are this class's own: the step kernels and ``consensus_prox``
+        implement those and no other."""
+        return all(getattr(type(self), m) is getattr(AdmmSolver, m)
+                   for m in ("_edge_dual", "_project_group", "_consensus"))
 
     def _prox(self, s, c, lo, hi, rho, util=None):
         """The consensus prox: linear (``util=None``), separable concave (a
@@ -510,7 +537,7 @@ class AdmmSolver:
         alpha = self._alpha
         inputs = {}
         for name in buckets:
-            nu_e = self._bcast_nu(nu, name, buckets)
+            nu_e = self._edge_dual(nu, name, buckets)
             zD, zL = z[name]
             inputs[name] = (zD - nu_e, zL + nu_e)
         proj = self._project_groups(inputs, buckets)
@@ -528,11 +555,11 @@ class AdmmSolver:
             cterm[name] = hL - hD
         yhat = self._reduce_edges(cterm, buckets)
 
-        if util is None and self._consensus_prox is not None:
+        if (util is None and self._consensus_prox is not None
+                and self._base_hooks()):
             psi, mu = self._consensus_prox(yhat, nu, c, lo, hi, rho)
         else:
-            s = self._psum(yhat) - 2.0 * self.degree * nu
-            psi, mu = self._prox(s, c, lo, hi, rho, util)
+            psi, mu = self._consensus(self._psum(yhat), nu, c, lo, hi, rho, util)
 
         z_new = {}
         w_out = {}
@@ -573,16 +600,17 @@ class AdmmSolver:
     def _step_kernels(self, util) -> bool:
         """Whether :meth:`_solve_impl`'s stats-free blocks run as
         :meth:`_classic_block`: on the card, in a dtype the kernels take,
-        with a linear objective, for this class's own :meth:`_iterate` with
-        the package's reduction and prox (no fold, ``segment_sum_fn``,
-        ``consensus_prox`` or process group).  Everything else runs the
-        torch ops of :meth:`_iterate`."""
+        with a linear objective, for this class's own :meth:`_iterate` and
+        hooks (:meth:`_base_hooks`) with the package's reduction and prox
+        (no fold, ``segment_sum_fn``, ``consensus_prox`` or process group).
+        Everything else runs the torch ops of :meth:`_iterate`."""
         return (self.device.type == "cuda"
                 and self.dtype in (torch.float32, torch.float64)
                 and util is None and self._fold is None
                 and self._segsum is None and self._consensus_prox is None
                 and self.axis_name is None
                 and type(self)._iterate is AdmmSolver._iterate
+                and self._base_hooks()
                 and len(self._groups) <= MAX_CONSENSUS_GROUPS)
 
     @functools.cached_property
@@ -656,7 +684,7 @@ class AdmmSolver:
 
     def _iterate_fused(self, s, wdef, nu, rho, c, lo, hi, buckets=None,
                        util=None):
-        """One fused iteration: one ``fused_step_grouped`` launch and one
+        """One fused iteration: one :meth:`_fused_group` launch and one
         segment sum per group of buckets with the same channel count
         (:attr:`_groups`), the groups' y added in group order."""
         self._check_fused_reduction()
@@ -667,16 +695,12 @@ class AdmmSolver:
         s_new = {}
         w_out = {}
         for g in self._groups:
-            sg, wg, yg = fused_step_grouped(
-                s, v, buckets, g, alpha, cfg=self.options.projection,
-                fold=self._fold,
-            )
+            sg, wg, yg = self._fused_group(s, v, buckets, g, alpha)
             s_new.update(sg)
             w_out.update(wg)
             y = yg if y is None else y + yg
         yhat = self._psum(unpack(y)) - 2.0 * (1.0 - alpha) * self.degree * wdef
-        svec = yhat - 2.0 * self.degree * nu
-        psi, mu = self._prox(svec, c, lo, hi, rho, util)
+        psi, mu = self._consensus(yhat, nu, c, lo, hi, rho, util)
         wdef_new = (1.0 - alpha) * wdef + nu - mu
         return s_new, wdef_new, mu, psi, w_out
 
@@ -762,8 +786,7 @@ class AdmmSolver:
             w_out.append((D, L))
             y = y + yp
         yhat = self._psum(unpack(y)) - 2.0 * (1.0 - alpha) * self.degree * wdef
-        svec = yhat - 2.0 * self.degree * nu
-        psi, mu = self._prox(svec, c, lo, hi, rho, util)
+        psi, mu = self._consensus(yhat, nu, c, lo, hi, rho, util)
         wdef_new = (1.0 - alpha) * wdef + nu - mu
         return sm_new, wdef_new, mu, psi, w_out
 
@@ -933,6 +956,21 @@ class AdmmSolver:
 
     # ---- full solve ---------------------------------------------------------
 
+    def _rho_factor(self, k, budget, check_every, r, sd, rho):
+        """The penalty's factor after the checked iteration ``k``, or None:
+        with ``adapt_rho``, when the stride of ``check_every`` that ended at
+        ``k`` crossed an ``adapt_every`` boundary before half the budget,
+        ``adapt_factor`` up where r > ratio * s, down where s > ratio * r,
+        else 1 (``rho``'s shape: a scalar, or (T,) on a batched fold)."""
+        opts = self.options
+        if not (opts.adapt_rho and (k % opts.adapt_every) < check_every
+                and k < budget // 2):
+            return None
+        one = torch.ones_like(rho)
+        return torch.where(
+            r > opts.adapt_ratio * sd, one * opts.adapt_factor,
+            torch.where(sd > opts.adapt_ratio * r, one / opts.adapt_factor, one))
+
     @spanned("admm.solve")
     def _solve_impl(self, c, lo, hi, rho0, z0=None, nu0=None, max_iters=None,
                     buckets=None, util=None):
@@ -946,13 +984,7 @@ class AdmmSolver:
         buckets = self.buckets if buckets is None else buckets
         budget = int(opts.max_iters if max_iters is None else max_iters)
         sqn = self._sqrt_edges()
-        if z0 is None:
-            z0 = {
-                name: (self._zeros(*arrs["mask"].shape),
-                       self._zeros(*arrs["mask"].shape))
-                for name, arrs in buckets.items()
-            }
-        z = z0
+        z = self.fused_init(buckets)[0] if z0 is None else z0
         nu = self._zeros(self.n) if nu0 is None else nu0
         rho = self._t(rho0)
         check_every = max(1, int(opts.check_every))
@@ -989,17 +1021,8 @@ class AdmmSolver:
                 k += check_every
                 if self._ITERS:
                     count(self._ITERS, check_every)
-                if (opts.adapt_rho and (k % opts.adapt_every) < check_every
-                        and k < budget // 2):
-                    # with check_every > 1 the counter advances in strides;
-                    # fire whenever a stride crosses an adapt_every boundary
-                    up = r > opts.adapt_ratio * sd
-                    dn = sd > opts.adapt_ratio * r
-                    one = torch.ones_like(rho)
-                    fac = torch.where(
-                        up, one * opts.adapt_factor,
-                        torch.where(dn, one / opts.adapt_factor, one),
-                    )
+                fac = self._rho_factor(k, budget, check_every, r, sd, rho)
+                if fac is not None:
                     rho = rho * fac
                     nu = nu / fac
                 with span("host.sync"):
@@ -1083,13 +1106,7 @@ class AdmmSolver:
         T = self._fold[0]
         budget = int(opts.max_iters if max_iters is None else max_iters)
         sqn = self._sqrt_edges(per_point=True)
-        if z0 is None:
-            z0 = {
-                name: (self._zeros(*arrs["mask"].shape),
-                       self._zeros(*arrs["mask"].shape))
-                for name, arrs in buckets.items()
-            }
-        z = dict(z0)
+        z = dict(self.fused_init(buckets)[0] if z0 is None else z0)
         nu = self._zeros(self.n) if nu0 is None else nu0
         rho = self._t(rho0).expand(T).clone()
         check_every = max(1, int(opts.check_every))
@@ -1121,14 +1138,8 @@ class AdmmSolver:
                 if self._ITERS:
                     count(self._ITERS, check_every)
                 rho_n = rho
-                if (opts.adapt_rho and (k % opts.adapt_every) < check_every
-                        and k < budget // 2):
-                    one = torch.ones_like(rho)
-                    fac = torch.where(
-                        r_n > opts.adapt_ratio * sd_n, one * opts.adapt_factor,
-                        torch.where(sd_n > opts.adapt_ratio * r_n,
-                                    one / opts.adapt_factor, one),
-                    )
+                fac = self._rho_factor(k, budget, check_every, r_n, sd_n, rho)
+                if fac is not None:
                     rho_n = rho * fac
                     nu_n = nu_n / self._per_asset(fac)
                 live_a = self._per_asset(live)

@@ -11,7 +11,7 @@ certified gap by f32 correction solves on the card, certified in f64.
     O(eps)-relative quantities, so f32 carries ~eps * 1e-7 absolute
     precision on the correction.
 3.  Run the same consensus ADMM on the correction problem with the dual
-    RE-CENTRED at the base prices (:meth:`DeltaAdmmSolver._iterate`: the
+    RE-CENTRED at the base prices (:class:`DeltaAdmmSolver`: the
     state dual is dnu = nu - nu0, so no degree-amplified O(d*|nu|) f32
     products enter the consensus).  On the card the iteration is the fused
     ``fused_step_delta`` kernel, one launch per group of buckets with the
@@ -67,15 +67,35 @@ _LOG = logging.getLogger("cfmm_routing_tpu_torch.refine_device")
 
 class DeltaAdmmSolver(AdmmSolver):
     """The consensus-ADMM solver re-targeted at shifted-scaled trading sets.
-    Topology (asset ids, masks, slot order, degree) is the base problem's;
-    only the per-bucket projection changes.  The pass-varying delta arrays
-    (X0, aD, aL, sS, nsig, nu0e) ride the ``buckets=`` override."""
+    Topology (asset ids, masks, slot order, degree) and the iteration are
+    the base problem's but for three hooks: the projection input adds the
+    pre-broadcast base-dual plane ``nu0e``, the projection is onto the
+    shifted sets, and the consensus step is the re-centred prox (never a
+    ``consensus_prox``: a sharded correction solve all-reduces and runs it
+    on every rank).  The pass-varying delta arrays (X0, aD, aL, sS, nsig,
+    nu0e) ride the ``buckets=`` override.
+
+    The state dual is the DELTA dual dnu := nu_full - nu0 and ``c`` carries
+    e0 := c_true/rho - nu0 (a utility: its :class:`DeltaUtility`), so the
+    base dual enters only through ``nu0e``, with no degree amplification."""
 
     # its iterations count as "iters.refine" and its checked ones as
     # "checks.refine", in refine_device / refine_sweep
     _ITERS = None
 
-    def _delta_prox(self, yhat, c, nu, lo, hi, rho, util=None):
+    def _edge_dual(self, nu, name, buckets):
+        return buckets[name]["nu0e"] + self._bcast_nu(nu, name, buckets)
+
+    def _project_group(self, inputs, buckets, g):
+        return project_delta_grouped(inputs, buckets, g,
+                                     cfg=self.options.projection)
+
+    def _fused_group(self, s, v, buckets, g, alpha):
+        return fused_step_delta_grouped(s, v, buckets, g, alpha,
+                                        cfg=self.options.projection,
+                                        fold=self._fold)
+
+    def _consensus(self, yhat, nu, c, lo, hi, rho, util=None):
         """The re-centred prox.  Linear: ``c`` carries e0 = c_true/rho - nu0
         and ``nu`` the delta dual dnu, both small, so no O(d*|nu0|) product
         is formed:  psi = clip(yhat + 2 d (e0 - dnu)),  dmu = dnu + (psi -
@@ -94,101 +114,6 @@ class DeltaAdmmSolver(AdmmSolver):
         dmu = nu + (psi - yhat) / (2.0 * d_safe)
         return psi, torch.where(live, dmu, torch.zeros_like(dmu))
 
-    def _iterate(self, z, nu, rho, c, lo, hi, with_stats=True, buckets=None,
-                 util=None):
-        """Delta-dual iteration: ``nu`` carries the DELTA dual
-        dnu := nu_full - nu0 and, for a linear objective, ``c`` the folded
-        constant e0 := c_true/rho - nu0 (f64-computed, small); a utility
-        carries its fold constant in the :class:`DeltaUtility` ``util``.
-        The base dual enters the projection input only through the
-        pre-broadcast plane ``nu0e`` (no degree amplification)."""
-        buckets = self.buckets if buckets is None else buckets
-        alpha = self._alpha
-        inputs = {}
-        for name, arrs in buckets.items():
-            off = arrs["nu0e"] + self._bcast_nu(nu, name, buckets)
-            zD, zL = z[name]
-            inputs[name] = (zD - off, zL + off)
-        proj = {}
-        for g in self._groups:  # one projection launch per group
-            proj.update(project_delta_grouped(inputs, buckets, g,
-                                              cfg=self.options.projection))
-        w_hat = {}
-        cterm = {}
-        w_norm2 = self._zeros()
-        for name in buckets:
-            zD, zL = z[name]
-            D, L = proj[name]
-            if with_stats:
-                w_norm2 = w_norm2 + (self._plane_sum(D * D) + self._plane_sum(L * L))
-            hD = alpha * D + (1.0 - alpha) * zD
-            hL = alpha * L + (1.0 - alpha) * zL
-            w_hat[name] = (D, L, hD, hL)
-            cterm[name] = hL - hD
-        yhat = self._psum(self._reduce_edges(cterm, buckets))
-
-        psi, dmu = self._delta_prox(yhat, c, nu, lo, hi, rho, util)
-
-        z_new = {}
-        w_out = {}
-        r2 = self._zeros()
-        s2 = self._zeros()
-        z_norm2 = self._zeros()
-        for name in buckets:
-            D, L, hD, hL = w_hat[name]
-            dmu_e = self._bcast_nu(nu - dmu, name, buckets)
-            znD = hD + dmu_e
-            znL = hL - dmu_e
-            if with_stats:
-                zD, zL = z[name]
-                s2 = s2 + (self._plane_sum((znD - zD) ** 2)
-                           + self._plane_sum((znL - zL) ** 2))
-                rD = D - znD
-                rL = L - znL
-                r2 = r2 + (self._plane_sum(rD * rD) + self._plane_sum(rL * rL))
-                z_norm2 = z_norm2 + (self._plane_sum(znD * znD)
-                                     + self._plane_sum(znL * znL))
-            z_new[name] = (znD, znL)
-            w_out[name] = (D, L)
-
-        if with_stats and self.axis_name is not None:
-            r2, s2, w_norm2, z_norm2 = self._psum(
-                torch.stack([r2, s2, w_norm2, z_norm2])).unbind(0)
-        u_norm2 = self._asset_sum(2.0 * self.degree * dmu * dmu)
-        stats = dict(
-            r2=r2, s2=s2 * rho * rho, w_norm2=w_norm2, z_norm2=z_norm2,
-            u_norm2=u_norm2 * rho * rho,
-        )
-        return z_new, dmu, psi, w_out, stats
-
-    def _iterate_fused(self, s, wdef, nu, rho, c, lo, hi, buckets=None,
-                       util=None):
-        """Fused delta iteration: one ``fused_step_delta`` launch and one
-        segment sum per group of buckets with the same channel count
-        (``AdmmSolver._groups``), the groups' y added in group order.  The
-        deferred-broadcast identity z = s +/- wdef_e is untouched by the
-        re-centring (nu0e enters only the projection input, inside the
-        kernel), so the O(n) recursion is the base fused path's."""
-        self._check_fused_reduction()
-        buckets = self.buckets if buckets is None else buckets
-        alpha = float(self.options.alpha)
-        v, unpack = self._fold_pack(wdef - nu)
-        y = None
-        s_new = {}
-        w_out = {}
-        for g in self._groups:
-            sg, wg, yg = fused_step_delta_grouped(
-                s, v, buckets, g, alpha, cfg=self.options.projection,
-                fold=self._fold,
-            )
-            s_new.update(sg)
-            w_out.update(wg)
-            y = yg if y is None else y + yg
-        yhat = self._psum(unpack(y)) - 2.0 * (1.0 - alpha) * self.degree * wdef
-        psi, mu = self._delta_prox(yhat, c, nu, lo, hi, rho, util)
-        wdef_new = (1.0 - alpha) * wdef + nu - mu
-        return s_new, wdef_new, mu, psi, w_out
-
     def solve_fused(self, *a, **k):
         raise ValueError(
             "DeltaAdmmSolver's fused path needs the per-pass delta bucket "
@@ -196,58 +121,19 @@ class DeltaAdmmSolver(AdmmSolver):
         )
 
     def delta_buckets(self, base: RouteResult, eps: float, nu0=None):
-        """Pass-varying device arrays for the correction problem.
+        """Pass-varying device arrays for the correction problem: the one
+        point of :func:`_delta_buckets_folded`.
 
         ``base``: a host RouteResult in the units of the solver's
         CompiledProblem.  ``nu0``: the f32-exact base scaled dual; when
         given, every bucket gains the pre-broadcast ``nu0e`` plane the
         delta-dual iteration reads.  Returns (buckets, min_x0) with min_x0
-        the smallest real-slot post-trade reserve: callers fall back to the
-        host path unless it is positive (the log-domain constraint needs
-        x0 > 0)."""
-        out = {}
-        min_x0 = np.inf
-        nu0_ext = (None if nu0 is None
-                   else np.concatenate([np.asarray(nu0, np.float64), [0.0]]))
-        for name, b in self.compiled.buckets.items():
-            kind, _ = self._meta[name]
-            D0 = np.asarray(base.deltas[name], np.float64)  # (K, m)
-            L0 = np.asarray(base.lambdas[name], np.float64)
-            maskT = b.mask.T
-            gamma = b.gamma[:, 0][None, :]
-            if kind == "gm":
-                x0 = (b.reserves + b.shift).T + gamma * D0 - L0
-                x0 = np.where(maskT > 0, x0, 1.0)
-                logx0 = np.log(np.maximum(x0, 1e-300))
-                nsig = -(np.sum(b.weights.T * logx0, axis=0) - b.logk0)
-                real = np.where(maskT > 0, x0, np.inf)
-                min_x0 = min(min_x0, float(np.min(real, initial=np.inf)))
-            else:
-                x0 = b.reserves.T + gamma * D0 - L0
-                x0 = np.where(maskT > 0, x0, 1.0)
-                s0 = np.sum(b.weights.T * np.where(maskT > 0, x0, 0.0), axis=0)
-                nsig = -(s0 - b.k0) / eps  # scaled linear slack target
-            planes = dict(
-                w=b.weights.T,
-                # lower-bounded: an extreme eps must not underflow X0 to 0
-                # (it divides the constraint argument u = v / X0)
-                X0=np.where(maskT > 0, np.maximum(x0 / eps, 1e-30), 1.0),
-                aD=-D0 / eps,
-                aL=-L0 / eps,
-                sS=b.shift.T / eps,
-                nsig=nsig,
-            )
-            if nu0_ext is not None:
-                planes["nu0e"] = nu0_ext[b.asset].T * maskT
-            arrs = dict(self.buckets[name])  # asset/mask/gamma/order reused
-            for key, val in planes.items():
-                # f64 -> working dtype on the host, then one upload
-                arrs[key] = torch.as_tensor(
-                    np.ascontiguousarray(val).astype(_np_dtype(self.dtype)),
-                    device=self.device,
-                )
-            out[name] = arrs
-        return out, min_x0
+        the smallest real-slot post-trade reserve."""
+        trades = [{k: np.asarray(v)[None] for k, v in planes.items()}
+                  for planes in (base.deltas, base.lambdas)]  # (1, K, m)
+        out, min_x0 = _delta_buckets_folded(
+            self, *trades, [eps], None if nu0 is None else np.asarray(nu0)[None])
+        return out, float(min_x0[0])
 
     def solve_delta(
         self,
@@ -403,7 +289,6 @@ def _curvature_scale(objective, psi0: np.ndarray) -> float:
     declared smoothness of a :class:`CustomUtility`.  The delta objective's
     curvature is eps times this, which sets the eps-regime penalty of
     :func:`refine_device`."""
-    _check_objective(objective)
     if isinstance(objective, CustomUtility):
         return float(objective.smoothness)
     if not isinstance(objective, ConcaveUtility):
@@ -420,15 +305,6 @@ def _curvature_scale(objective, psi0: np.ndarray) -> float:
                  np.where(k == 3, np.abs(c * (1.0 - p)) * y ** (p - 2.0), 0.0)),
     )
     return float(np.max(curv, initial=0.0))
-
-
-def _delta_precise(objective) -> bool:
-    """Whether the re-centred (delta-dual) iteration covers the objective:
-    every linear one and every separable atom (linear, quad and log in
-    closed form, power through the expm1/log1p stationary solve of
-    ``delta_utility_prox``)."""
-    _check_objective(objective)
-    return True
 
 
 def _delta_objective(objective, psi0: np.ndarray, eps: float):
@@ -485,11 +361,11 @@ def _objective_value(objective, psi: np.ndarray) -> float:
 
 
 def _compose(compiled, base, delta: RouteResult, eps: float, objective,
-             prices=None):
+             prices):
     """f64 host composition of the refined point: D = D0 + eps*a, clamped
     to the orthant (the scaled bound is exact to f32, so the clamp moves a
     coordinate by at most ~1e-7*eps*|D0|, toward feasibility).  psi is
-    recomputed from the composed trades."""
+    recomputed from the composed trades; ``prices`` are the true prices."""
     deltas = {}
     lambdas = {}
     for name in compiled.buckets:
@@ -501,8 +377,6 @@ def _compose(compiled, base, delta: RouteResult, eps: float, objective,
             L0 + eps * np.asarray(delta.lambdas[name], np.float64), 0.0)
     composed = base._replace(deltas=deltas, lambdas=lambdas)
     psi = _psi_from_trades(compiled, composed)
-    if prices is None:
-        prices = np.asarray(delta.prices, np.float64)
     return composed._replace(
         objective=np.float64(_objective_value(objective, psi)),
         psi=psi,
@@ -526,11 +400,6 @@ def _psi_from_trades(compiled, point: RouteResult) -> np.ndarray:
     return psi[: compiled.n_assets]
 
 
-def _on_accelerator(solver) -> bool:
-    """Whether the solver runs on the card (the fused kernel's device)."""
-    return solver.device.type == "cuda"
-
-
 def _check_cadence(objective, chunk_iters: int, options: AdmmOptions) -> int:
     """``check_every`` of :func:`refine_device`'s own delta solver.
 
@@ -547,11 +416,16 @@ def _check_cadence(objective, chunk_iters: int, options: AdmmOptions) -> int:
     return max(d for d in range(1, min(n, _FUSED_BLOCK) + 1) if n % d == 0)
 
 
-def _chunk_checks(solver, iters: int, fused: bool) -> int:
-    """The checked iterations of a correction chunk of ``iters``: the fused
-    path's one residual harvest, else one every ``check_every`` (the
-    classic loops advance in strides of it)."""
-    return 1 if fused else iters // max(1, int(solver.options.check_every))
+def _count_chunk(solver, dres, fused: bool) -> int:
+    """A correction chunk's iterations (the most of any point's), counted
+    under ``iters.refine``, and its checked ones under ``checks.refine``:
+    the fused path's one residual harvest, else one every ``check_every``
+    (the classic loops advance in strides of it)."""
+    it = int(host(dres.iters).max())
+    count("iters.refine", it)
+    count("checks.refine", 1 if fused else it // max(
+        1, int(solver.options.check_every)))
+    return it
 
 
 class SweepRefineResult:
@@ -584,14 +458,17 @@ def _psi_batch(compiled, deltas, lambdas):
 
 
 def _delta_buckets_folded(fsolver, deltas, lambdas, eps, nu0f):
-    """Folded delta bucket arrays: per-point (T, K, m) trades -> (K, T*m)
-    planes on a FOLDED solver (``solver/fold.py``).
+    """The delta bucket arrays of T points: per-point (T, K, m) trades ->
+    (K, T*m) planes on a FOLDED solver (``solver/fold.py``), or T = 1 on an
+    unfolded one (:meth:`DeltaAdmmSolver.delta_buckets`).
 
     ``eps``: (T,) per-point correction scales, broadcast to each point's
     pool block; ``nu0f``: (T, n) float32-exact scaled base duals (their
-    fold feeds the pre-broadcast nu0e plane through the folded asset ids).
-    Returns (buckets, min_x0 (T,)): min_x0 is per POINT, so one degenerate
-    re-centre only sidelines its own grid point."""
+    fold feeds the pre-broadcast nu0e plane through the folded asset ids),
+    or None for no nu0e plane.  Returns (buckets, min_x0 (T,)): min_x0 is
+    the smallest real-slot post-trade reserve per POINT, so one degenerate
+    re-centre only sidelines its own grid point; callers fall back unless
+    it is positive (the log-domain constraint needs x0 > 0)."""
     from .fold import fold_planes, fold_vec
 
     np_dt = _np_dtype(fsolver.dtype)
@@ -599,13 +476,14 @@ def _delta_buckets_folded(fsolver, deltas, lambdas, eps, nu0f):
     T = eps.shape[0]
     D0f = fold_planes(deltas)
     L0f = fold_planes(lambdas)
-    nu0_ext = np.concatenate([fold_vec(nu0f), [0.0]])
+    nu0_ext = (None if nu0f is None else
+               np.concatenate([np.asarray(fold_vec(nu0f), np.float64), [0.0]]))
     out = {}
     min_x0 = np.full(T, np.inf)
     for name, b in fsolver.compiled.buckets.items():
         kind, _ = fsolver._meta[name]
-        D0 = D0f[name]  # (K, m_f)
-        L0 = L0f[name]
+        D0 = np.asarray(D0f[name], np.float64)  # (K, m_f)
+        L0 = np.asarray(L0f[name], np.float64)
         maskT = b.mask.T
         gamma = b.gamma[:, 0][None, :]
         m_f = maskT.shape[1]
@@ -616,28 +494,65 @@ def _delta_buckets_folded(fsolver, deltas, lambdas, eps, nu0f):
             logx0 = np.log(np.maximum(x0, 1e-300))
             nsig = -(np.sum(b.weights.T * logx0, axis=0) - b.logk0)
             real = np.where(maskT > 0, x0, np.inf)
-            min_x0 = np.minimum(
-                min_x0, np.min(real.reshape(-1, T, m_f // T), axis=(0, 2)))
+            min_x0 = np.minimum(min_x0, np.min(real.reshape(-1, T, m_f // T),
+                                               axis=(0, 2), initial=np.inf))
         else:
             x0 = b.reserves.T + gamma * D0 - L0
             x0 = np.where(maskT > 0, x0, 1.0)
             s0 = np.sum(b.weights.T * np.where(maskT > 0, x0, 0.0), axis=0)
-            nsig = -(s0 - b.k0) / eps_col[0]
+            nsig = -(s0 - b.k0) / eps_col[0]  # scaled linear slack target
         planes = dict(
             w=b.weights.T,
+            # lower-bounded: an extreme eps must not underflow X0 to 0
+            # (it divides the constraint argument u = v / X0)
             X0=np.where(maskT > 0, np.maximum(x0 / eps_col, 1e-30), 1.0),
             aD=-D0 / eps_col,
             aL=-L0 / eps_col,
             sS=b.shift.T / eps_col,
             nsig=nsig,
-            nu0e=nu0_ext[b.asset].T * maskT,
         )
-        arrs = dict(fsolver.buckets[name])
+        if nu0_ext is not None:
+            planes["nu0e"] = nu0_ext[b.asset].T * maskT
+        arrs = dict(fsolver.buckets[name])  # asset/mask/gamma/order reused
         for key, val in planes.items():
+            # f64 -> working dtype on the host, then one upload
             arrs[key] = torch.as_tensor(
                 np.ascontiguousarray(val).astype(np_dt), device=fsolver.device)
         out[name] = arrs
     return out, min_x0
+
+
+def _correction_eps(eps_factor: float, err, deltas, lambdas, T: int):
+    """(T,) per-point correction scales eps: ``eps_factor`` x the point's
+    certificate error (at least 1e-12) x its trade scale, at least 1e-10 x
+    that scale.  The trade scale is the largest |D| or |L| of any of the
+    point's slots ((T, K, m) planes, or (K, m) with T = 1), at least 1:
+    eps is in solve-space PER-SLOT trade units (a per-asset psi scale
+    oversizes it by the fan-in and the fixed-penalty solve crawls)."""
+    scale = np.ones(T)
+    for k in deltas:
+        scale = np.maximum(scale, np.maximum(
+            np.abs(np.asarray(deltas[k])).reshape(T, -1).max(axis=1),
+            np.abs(np.asarray(lambdas[k])).reshape(T, -1).max(axis=1)))
+    return np.clip(eps_factor * np.maximum(err, 1e-12) * scale, 1e-10 * scale,
+                   np.inf)
+
+
+def _penalty(use_eps, eps, rho_base, curv: float = 0.0):
+    """A correction solve's penalty: 'eps' (``use_eps``), eps * max(curv,
+    1) in [1e-6, 4] (curv is 0 for a linear objective), else 'base', the
+    base solve's penalty in [0.25, 4] (a collapsed base rho blows nu0 =
+    prices/rho up and the delta-dual design's f32 noise with it)."""
+    return np.where(use_eps, np.clip(eps * max(curv, 1.0), 1e-6, 4.0),
+                    np.clip(rho_base, 0.25, 4.0))
+
+
+def _nu0_f32(prices, rho):
+    """nu0 = prices / rho rounded to float32 ONCE: the same values go into
+    the nu0e planes, e0 and the price reconstruction, which makes the
+    re-centring exact."""
+    return ((np.asarray(prices, np.float64) / rho)
+            .astype(np.float32).astype(np.float64))
 
 
 @spanned("refine")
@@ -707,7 +622,7 @@ def refine_sweep(
 
             fsolver, _ = folded_solver(compiled, T, opts, torch.float32,
                                        cls=DeltaAdmmSolver, device=dev)
-            fused_fold = _fused_ok(fsolver) and _on_accelerator(fsolver)
+            fused_fold = _fused_ok(fsolver) and fsolver.device.type == "cuda"
         else:
             solver = DeltaAdmmSolver(compiled, dtype=torch.float32, options=opts,
                                      device=dev)
@@ -738,16 +653,9 @@ def refine_sweep(
         flip = live & (scores > 0.5 * prev_scores)
         use_eps[flip] = ~use_eps[flip]
         prev_scores = scores.copy()
-        # per-point correction scale from that point's trades and score
-        scale = np.ones(T)
-        for k in deltas:
-            scale = np.maximum(scale, np.maximum(
-                np.abs(deltas[k]).reshape(T, -1).max(axis=1),
-                np.abs(lambdas[k]).reshape(T, -1).max(axis=1)))
-        eps = np.clip(eps_factor * np.maximum(scores, 1e-12) * scale,
-                      1e-10 * scale, np.inf)
-        rho = np.where(use_eps, np.clip(eps, 1e-6, 4.0), np.clip(rho_f, 0.25, 4.0))
-        nu0f = (prices / rho[:, None]).astype(np.float32).astype(np.float64)
+        eps = _correction_eps(eps_factor, scores, deltas, lambdas, T)
+        rho = _penalty(use_eps, eps, rho_f)
+        nu0f = _nu0_f32(prices, rho[:, None])
         lo_d = np.clip((lo - psi0) / eps[:, None], -_F32_BIG, _F32_BIG)
         hi_d = np.clip((hi - psi0) / eps[:, None], -_F32_BIG, _F32_BIG)
         # warm-chained chunks against THIS pass's centre until the grid's
@@ -766,10 +674,8 @@ def refine_sweep(
                 dres = fsolver.solve_delta(dobj_f, bdict_f, nu0_fold, 1.0,
                                            iters_per_pass, warm=dres,
                                            fused=fused_fold)
-                it_ck = int(host(dres.iters))
+                it_ck = _count_chunk(fsolver, dres, fused_fold)
                 total += it_ck
-                count("iters.refine", it_ck)
-                count("checks.refine", _chunk_checks(fsolver, it_ck, fused_fold))
                 if it_ck < int(iters_per_pass) or bool(host(dres.converged)):
                     break
             dresh = to_host(dres)
@@ -787,10 +693,8 @@ def refine_sweep(
                 dres = solver.solve_delta_batch(e0, lo_d, hi_d, dnu_start, rho,
                                                 bdict, axes, iters_per_pass,
                                                 warm=dres)
-                it_ck = int(host(dres.iters).max())
+                it_ck = _count_chunk(solver, dres, False)
                 total += it_ck
-                count("iters.refine", it_ck)
-                count("checks.refine", _chunk_checks(solver, it_ck, False))
                 if it_ck < int(iters_per_pass) or bool(host(dres.converged).all()):
                     break
             dresh = to_host(dres)
@@ -975,7 +879,8 @@ def refine_device(
             "eps_rel=1e-8))"
         )
     if fused is None:
-        fused = _fused_ok(solver) and _on_accelerator(solver) and not is_custom
+        fused = (_fused_ok(solver) and solver.device.type == "cuda"
+                 and not is_custom)
     elif fused and not _fused_ok(solver):
         raise ValueError(
             "fused=True needs every bucket's pool count to be a multiple of "
@@ -993,32 +898,14 @@ def refine_device(
         score_entry = max(abs(cert.gap_rel), cert.feasibility_rel)
         psi0 = _psi_from_trades(compiled, cur)
         cur = cur._replace(psi=psi0)
-        # eps in solve-space PER-SLOT trade units (a per-asset psi scale
-        # oversizes it by the fan-in and the fixed-penalty solve crawls)
-        scale = max(1.0, max(
-            max(float(np.max(np.abs(np.asarray(cur.deltas[k])))),
-                float(np.max(np.abs(np.asarray(cur.lambdas[k])))))
-            for k in cur.deltas
-        ))
-        err = max(cert.feasibility_rel, abs(cert.gap_rel), 1e-12)
-        eps = float(np.clip(eps_factor * err * scale, 1e-10 * scale, np.inf))
+        eps = float(_correction_eps(
+            eps_factor, max(cert.feasibility_rel, abs(cert.gap_rel)),
+            cur.deltas, cur.lambdas, 1)[0])
         curv = _curvature_scale(objective, psi0)
-        if rho0 is not None:
-            rho = float(rho0)
-        elif mode == "eps":
-            rho = float(np.clip(eps * max(curv, 1.0), 1e-6, 4.0))
-        else:
-            # a collapsed base rho blows nu0 = prices/rho up and the
-            # delta-dual design's f32 noise with it: clamp into [0.25, 4]
-            rho = float(np.clip(np.asarray(cur.rho_final), 0.25, 4.0))
-        precise = _delta_precise(objective)
-        # f32-round nu0 ONCE and use the identical values in the nu0e
-        # planes, in e0, and in the price reconstruction: consistency of
-        # the re-centring constant is what makes the fold exact
-        nu0f = ((np.asarray(cur.prices, np.float64) / rho)
-                .astype(np.float32).astype(np.float64))
-        bdict, min_x0 = solver.delta_buckets(cur, eps,
-                                             nu0=nu0f if precise else None)
+        rho = float(rho0 if rho0 is not None else
+                    _penalty(mode == "eps", eps, cur.rho_final, curv))
+        nu0f = _nu0_f32(cur.prices, rho)
+        bdict, min_x0 = solver.delta_buckets(cur, eps, nu0=nu0f)
         if not (min_x0 > 0.0) or not np.isfinite(min_x0):
             _LOG.warning(
                 "refine_device: base point has a non-positive post-trade "
@@ -1044,15 +931,11 @@ def refine_device(
                                       warm=dwarm, fused=fused)
             # cheap solve-space gate on the small (n,) leaves; the trade
             # planes stay on the device until a candidate is certified
-            it = int(host(dres.iters))
+            it = _count_chunk(solver, dres, fused)
             total += it
-            count("iters.refine", it)
-            count("checks.refine", _chunk_checks(solver, it, fused))
             done = it < chunk_iters or bool(host(dres.converged))
             psi_cand = psi0 + eps * np.asarray(host(dres.psi), np.float64)
-            prices_solve = np.asarray(host(dres.prices), np.float64)
-            if precise:
-                prices_solve = rho * nu0f + prices_solve
+            prices_solve = rho * nu0f + np.asarray(host(dres.prices), np.float64)
             dualb = dual_bound(compiled, objective, prices_solve, evals=(8, 4),
                                device=dev)
             obj_cand = _objective_value(objective, psi_cand)
@@ -1077,10 +960,8 @@ def refine_device(
                 continue
             dwarm = dres
             dhost = to_host(dres)
-            prices_true = (rho * nu0f + np.asarray(dhost.prices, np.float64)
-                           if precise else None)
             cand = _compose(compiled, center, dhost, eps, objective,
-                            prices=prices_true)
+                            rho * nu0f + np.asarray(dhost.prices, np.float64))
             cand_cert = _cert(cand)
             _LOG.debug(
                 "refine chunk: r=%.2e s=%.2e gap=%.2e feas=%.2e (eps=%.3g rho=%.3g)",
