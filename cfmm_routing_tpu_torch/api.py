@@ -15,6 +15,11 @@ refined route with its certificate.  ``sweep`` solves every grid point of
 a trade-size frontier in one batched solve and certifies or refines the
 whole grid at once.  The solve runs on the card unless ``device="cpu"`` is
 passed (with the other solver keywords: ``dtype=``, ``options=``).
+
+``route`` (and so ``arbitrage`` and ``liquidate``) keeps the solvers it
+builds for itself across calls: a route on a network that an earlier route
+solved takes that route's solvers and replays their captured blocks
+(``solver/_solver_cache.py``), with bitwise the answers of new solvers.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ import torch
 
 from ._device import host
 from .models.utility import ConcaveUtility, Objective
+from .solver import _solver_cache
 from .solver.admm import AdmmOptions, AdmmSolver, RouteResult
 from .solver.compiler import PoolTable, ProblemSpec, compile_table
 from .utils.profiling import spanned
@@ -92,6 +98,15 @@ def make_solver_compiled(compiled, dtype: torch.dtype = torch.float32,
                          device=None) -> AdmmSolver:
     return AdmmSolver(compiled, dtype=dtype, options=options or AdmmOptions(),
                       device=device)
+
+
+def _own_solver(compiled, dtype: torch.dtype = torch.float32,
+                options: Optional[AdmmOptions] = None, device=None) -> AdmmSolver:
+    """:func:`make_solver_compiled` for a route's own solver: inside the
+    route's lease, a solver kept from an earlier route on the same network
+    (``solver/_solver_cache.py``)."""
+    return _solver_cache.own(AdmmSolver, compiled, dtype,
+                             options or AdmmOptions(), device)
 
 
 @spanned("route.result")
@@ -185,7 +200,7 @@ def _solve_preconditioned(spec, objective, certify, solver_kwargs,
     table, spec = _table_and_spec(spec)
     eq = equilibrate(table, objective)
     compiled_eq = compile_table(eq.table, spec=spec)
-    solver = make_solver_compiled(compiled_eq, **solver_kwargs)
+    solver = _own_solver(compiled_eq, **solver_kwargs)
     res = solver.solve(eq.objective)
     if refine_to is not None:
         return _refined_route(
@@ -232,12 +247,21 @@ def route(
     if not isinstance(objective, (Objective, ConcaveUtility)):
         raise TypeError("objective must be an Objective or ConcaveUtility")
     _reject(solver, precondition, refine_to)
-    if solver is None:
-        solver_kwargs = _floor_options(solver_kwargs, refine_to)
-    if precondition:
-        return _solve_preconditioned(spec, objective, certify, solver_kwargs,
-                                     refine_to=refine_to)
-    solver = solver or make_solver(spec, **solver_kwargs)
+    if solver is not None:
+        return _solve(solver, objective, certify, refine_to)
+    solver_kwargs = _floor_options(solver_kwargs, refine_to)
+    # the route's own solvers: kept from an earlier route on the same
+    # network where there is one, and kept for the next
+    with _solver_cache.lease():
+        if precondition:
+            return _solve_preconditioned(spec, objective, certify, solver_kwargs,
+                                         refine_to=refine_to)
+        table, spec = _table_and_spec(spec)
+        solver = _own_solver(compile_table(table, spec=spec), **solver_kwargs)
+        return _solve(solver, objective, certify, refine_to)
+
+
+def _solve(solver, objective, certify, refine_to) -> Route:
     res = solver.solve(objective)
     if refine_to is not None:
         return _refined_route(solver, solver.compiled, objective, res, refine_to)

@@ -162,6 +162,18 @@ class RouteResult(NamedTuple):
     rho_final: torch.Tensor  # penalty at exit (prices == rho_final * nu)
 
 
+def _dev(a, dtype, device) -> torch.Tensor:
+    """A host array as a device tensor of ``dtype``."""
+    return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+
+
+def _bucket_values(b) -> dict:
+    """A bucket's reserve-dependent arrays, slot-major: everything of its
+    device arrays that a new reserve state of the same network changes."""
+    return dict(R=b.reserves.T, w=b.weights.T, s=b.shift.T, gamma=b.gamma[:, 0],
+                logk0=b.logk0, k0=b.k0)
+
+
 def _bucket_device_arrays(compiled: CompiledProblem, dtype, device, fold=None):
     """Slot-major (K, m) device copies, plus the fixed slot order of the
     deterministic reduction (``order``, ``seg``: ``ops/segment.py``).
@@ -178,23 +190,13 @@ def _bucket_device_arrays(compiled: CompiledProblem, dtype, device, fold=None):
         asset = np.where(b.mask > 0, b.asset, pad_id).astype(np.int32)
         if asset.size and (asset.min() < 0 or asset.max() >= compiled.n_assets):
             raise ValueError(f"bucket {name!r} has asset ids outside [0, n)")
-
-        def dev(a, dt=dtype):
-            return torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)
-
         order, seg = slot_order(asset.T, b.mask.T, compiled.n_assets)
-
-        out[name] = dict(
-            R=dev(b.reserves.T),
-            w=dev(b.weights.T),
-            s=dev(b.shift.T),
-            gamma=dev(b.gamma[:, 0]),
-            logk0=dev(b.logk0),
-            k0=dev(b.k0),
-            mask=dev(b.mask.T),
-            asset=dev(asset.T, torch.int32),
-            order=dev(order, torch.int32),
-            seg=dev(seg, torch.int32),
+        out[name] = {k: _dev(v, dtype, device) for k, v in _bucket_values(b).items()}
+        out[name].update(
+            mask=_dev(b.mask.T, dtype, device),
+            asset=_dev(asset.T, torch.int32, device),
+            order=_dev(order, torch.int32, device),
+            seg=_dev(seg, torch.int32, device),
         )
     return out
 
@@ -347,6 +349,19 @@ class AdmmSolver:
         enters, which every ``buckets=`` override (reserve scenarios, delta
         arrays) shares."""
         return bucket_groups(self)
+
+    def _refresh(self, compiled: CompiledProblem) -> None:
+        """Take on ``compiled``, a reserve state of this solver's network
+        (the same buckets, asset ids, masks and degree): its values are
+        copied into the bucket tensors in place, so the blocks captured on
+        them replay as they are, and the host-side readers of
+        ``self.compiled`` see the new problem.  (The merged K-groups copy
+        the bucket arrays and are not refreshed: a route's solvers, the
+        only ones refreshed, never build them.)"""
+        for name, arrs in self.buckets.items():
+            for key, val in _bucket_values(compiled.buckets[name]).items():
+                arrs[key].copy_(_dev(val, self.dtype, self.device))
+        self.compiled = compiled
 
     def _t(self, x) -> torch.Tensor:
         """A tensor of the solve dtype on the solver's device."""

@@ -52,6 +52,7 @@ from ..ops.prox import (
     DeltaCustomUtility, DeltaUtility, delta_custom_prox, delta_utility_prox,
 )
 from ..utils.profiling import count, spanned
+from . import _solver_cache
 from .admm import (
     AdmmOptions, AdmmSolver, RouteResult, _F32_BIG, _FUSED_BLOCK, _fused_ok,
 )
@@ -82,6 +83,7 @@ class DeltaAdmmSolver(AdmmSolver):
     # its iterations count as "iters.refine" and its checked ones as
     # "checks.refine", in refine_device / refine_sweep
     _ITERS = None
+    _planes = None  # the arrays of _pass_buckets, made at its first call
 
     def _edge_dual(self, nu, name, buckets):
         return buckets[name]["nu0e"] + self._bcast_nu(nu, name, buckets)
@@ -134,6 +136,22 @@ class DeltaAdmmSolver(AdmmSolver):
         out, min_x0 = _delta_buckets_folded(
             self, *trades, [eps], None if nu0 is None else np.asarray(nu0)[None])
         return out, float(min_x0[0])
+
+    def _pass_buckets(self, base: RouteResult, eps: float, nu0):
+        """:meth:`delta_buckets` with ``nu0``, written into arrays this
+        solver keeps: every call returns the same dict of the same tensors,
+        so the blocks captured on them replay in every pass (the arrays of
+        :func:`refine_device`'s own solver, which no caller sees)."""
+        out, min_x0 = self.delta_buckets(base, eps, nu0=nu0)
+        if self._planes is None:
+            self._planes = out
+        else:
+            for name, arrs in out.items():
+                for key, x in arrs.items():
+                    kept = self._planes[name][key]
+                    if kept is not x:  # the pass's planes; not the topology's
+                        kept.copy_(x)
+        return self._planes, min_x0
 
     def solve_delta(
         self,
@@ -785,7 +803,11 @@ def refine_device(
     ``check_every``.  Without one, the solver built here checks its
     residuals every :func:`_check_cadence` iterations (25 for the default
     ``chunk_iters``; a :class:`CustomUtility` keeps ``options``'), and on
-    the card replays the iterations between checks as captured blocks.
+    the card replays the iterations between checks as captured blocks; it
+    writes every pass's delta arrays into the same tensors, so a block is
+    captured once for all passes.  Inside ``api.route`` it is the solver of
+    an earlier route on the same network where there is one
+    (``solver/_solver_cache.py``).
     ``device``: where the correction solves and the certificates' eta
     search run; the card unless ``"cpu"`` is given (a passed solver brings
     its own).
@@ -858,7 +880,8 @@ def refine_device(
         return RefineResult(result=unscale_fn(cur), certificate=cert, iters=0,
                             achieved=True)
 
-    if solver is None:
+    own = solver is None
+    if own:
         opts = dataclasses.replace(
             base_opts,
             max_iters=max(base_opts.max_iters, chunk_iters),
@@ -868,8 +891,10 @@ def refine_device(
             eps_abs=1e-8, eps_rel=1e-8, adapt_rho=False,
             check_every=_check_cadence(objective, chunk_iters, base_opts),
         )
-        solver = DeltaAdmmSolver(compiled, dtype=torch.float32, options=opts,
-                                 device=dev)
+        # inside api.route, the delta solver of an earlier route on this
+        # network (solver/_solver_cache.py)
+        solver = _solver_cache.own(DeltaAdmmSolver, compiled, torch.float32,
+                                   opts, dev)
     elif solver.options.adapt_rho:
         raise ValueError(
             "refine_device needs a solver with adapt_rho=False: the "
@@ -905,7 +930,8 @@ def refine_device(
         rho = float(rho0 if rho0 is not None else
                     _penalty(mode == "eps", eps, cur.rho_final, curv))
         nu0f = _nu0_f32(cur.prices, rho)
-        bdict, min_x0 = solver.delta_buckets(cur, eps, nu0=nu0f)
+        bdict, min_x0 = (solver._pass_buckets(cur, eps, nu0f) if own else
+                         solver.delta_buckets(cur, eps, nu0=nu0f))
         if not (min_x0 > 0.0) or not np.isfinite(min_x0):
             _LOG.warning(
                 "refine_device: base point has a non-positive post-trade "

@@ -18,6 +18,8 @@ group of buckets with the same K, one lane per slot up to K = 32, one
 thread per pool above) must equal their plain versions bit for bit, and a
 folded, merged or refined solve run twice must give bitwise-equal results.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -1106,3 +1108,86 @@ def test_classic_step_kernels_any_k_and_wide_n(cuda_device, case):
         for name in z:
             for i in range(2):
                 assert torch.equal(got_z[name][i], want_z[name][i]), (case, dtype, name)
+
+
+# ---- a route's kept solvers ---------------------------------------------------
+
+def _route_leaves(route):
+    """Every number of an ``api.route`` Route, certificate fields included."""
+    out = [route.objective, route.psi, route.prices, route.iters, route.converged,
+           route.r_norm, route.s_norm, *route.deltas, *route.lambdas]
+    if route.certificate is not None:
+        out += [getattr(route.certificate, f.name)
+                for f in dataclasses.fields(route.certificate)]
+    return [np.asarray(x) for x in out]
+
+
+def _same_route(a, b) -> bool:
+    return all(np.array_equal(x, y) for x, y in
+               zip(_route_leaves(a), _route_leaves(b), strict=True))
+
+
+def test_kept_solvers_replay_bitwise_at_10k(cuda_device, monkeypatch):
+    """``api.route(precondition=True, refine_to=1e-6)`` at 10k pools with the
+    benchmark cell's options, block A then block B (every reserve moved by
+    exp(N(0, 0.1))): B's route takes both kept solvers, captures no graph,
+    and equals bit for bit B's route on new solvers.  Stale arrays would
+    show: B's route on A's base arrays (a refresh that copies nothing) and
+    on A's last delta planes (a pass that copies none of its own) both
+    answer otherwise."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cfmm_routing_tpu_torch import api
+    from cfmm_routing_tpu_torch.solver import _solver_cache
+    from cfmm_routing_tpu_torch.utils import profiling
+
+    table, obj = random_arbitrage_table(64, 10_000, seed=7)
+    opts = AdmmOptions(max_iters=3000, eps_abs=1e-7, eps_rel=1e-7, check_every=25,
+                       projection=CFG_BASE)
+    refined = dict(precondition=True, refine_to=1e-6, options=opts, device=cuda_device)
+    base_only = dict(precondition=True, certify=True, options=opts, device=cuda_device)
+
+    def block(k):
+        rng = np.random.default_rng(k)
+        scale = np.exp(rng.normal(0.0, 0.1, table.reserves.shape))
+        return dataclasses.replace(table, reserves=table.reserves * scale)
+
+    def fresh(k, **kw):
+        _solver_cache.clear()
+        return api.route(block(k), obj, **kw)
+
+    profiling.reset()
+    a = fresh(1, **refined)
+    assert profiling.COUNTS["iters.refine"] > 0  # A built its correction solver
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        b = api.route(block(2), obj, **refined)
+    torch.cuda.synchronize()
+    assert profiling.COUNTS["solvers.reused"] == 2 and profiling.COUNTS["iters.refine"] > 0
+    assert not [r for r in profiling.spans() if r.name == "graphs.capture"]
+    want = fresh(2, **refined)
+    assert not _same_route(a, b)
+    assert _same_route(b, want)
+
+    # B's base route on A's base arrays
+    fresh(1, **base_only)
+    monkeypatch.setattr(AdmmSolver, "_refresh",
+                        lambda self, compiled: setattr(self, "compiled", compiled))
+    stale = api.route(block(2), obj, **base_only)
+    monkeypatch.undo()
+    assert not _same_route(stale, fresh(2, **base_only))
+
+    # B's refined route on A's last delta planes
+    fresh(1, **refined)
+    copies = DeltaAdmmSolver._pass_buckets
+
+    def kept_planes(self, base, eps, nu0):
+        if self._planes is None:
+            return copies(self, base, eps, nu0)
+        return self._planes, self.delta_buckets(base, eps, nu0=nu0)[1]
+
+    monkeypatch.setattr(DeltaAdmmSolver, "_pass_buckets", kept_planes)
+    stale = api.route(block(2), obj, **refined)
+    monkeypatch.undo()
+    assert not _same_route(stale, want)
+    _solver_cache.clear()
