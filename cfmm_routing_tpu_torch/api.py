@@ -5,6 +5,9 @@
     sweep(spec, give, receive, amounts)   ~ two-asset.py
     route(spec, objective)                ~ any linear objective + box, or a
                                             separable concave utility
+    route_scenarios(spec, objective, reserve_scale)
+                                          ~ one linear route per reserve
+                                            state of the network, folded
 
 Each call returns a :class:`Route` with per-pool trades in spec order, the
 net trade vector, dual prices, and solver diagnostics; ``certify=True``
@@ -20,6 +23,7 @@ passed (with the other solver keywords: ``dtype=``, ``options=``).
 builds for itself across calls: a route on a network that an earlier route
 solved takes that route's solvers and replays their captured blocks
 (``solver/_solver_cache.py``), with bitwise the answers of new solvers.
+``route_scenarios`` keeps its folded solvers the same way.
 """
 from __future__ import annotations
 
@@ -35,11 +39,11 @@ from .models.utility import ConcaveUtility, Objective
 from .solver import _solver_cache
 from .solver.admm import AdmmOptions, AdmmSolver, RouteResult
 from .solver.compiler import PoolTable, ProblemSpec, compile_table
-from .utils.profiling import spanned
+from .utils.profiling import count, span, spanned
 
 __all__ = [
-    "Route", "Sweep", "arbitrage", "liquidate", "sweep", "route", "make_solver",
-    "make_solver_compiled",
+    "Route", "Sweep", "arbitrage", "liquidate", "sweep", "route",
+    "route_scenarios", "make_solver", "make_solver_compiled",
 ]
 
 _LOG = logging.getLogger("cfmm_routing_tpu_torch.api")
@@ -101,12 +105,13 @@ def make_solver_compiled(compiled, dtype: torch.dtype = torch.float32,
 
 
 def _own_solver(compiled, dtype: torch.dtype = torch.float32,
-                options: Optional[AdmmOptions] = None, device=None) -> AdmmSolver:
+                options: Optional[AdmmOptions] = None, device=None,
+                fold=None) -> AdmmSolver:
     """:func:`make_solver_compiled` for a route's own solver: inside the
     route's lease, a solver kept from an earlier route on the same network
     (``solver/_solver_cache.py``)."""
     return _solver_cache.own(AdmmSolver, compiled, dtype,
-                             options or AdmmOptions(), device)
+                             options or AdmmOptions(), device, fold=fold)
 
 
 @spanned("route.result")
@@ -266,6 +271,194 @@ def _solve(solver, objective, certify, refine_to) -> Route:
     if refine_to is not None:
         return _refined_route(solver, solver.compiled, objective, res, refine_to)
     return _route_from(solver, res, objective, certify)
+
+
+def _scenario_scale(reserve_scale, n_pools: int) -> np.ndarray:
+    scale = np.asarray(reserve_scale, np.float64)
+    if scale.ndim != 2 or scale.shape[0] < 1 or scale.shape[1] != n_pools:
+        raise ValueError(f"reserve_scale must be (S >= 1, n_pools={n_pools}); "
+                         f"got {scale.shape}")
+    if not np.all(np.isfinite(scale) & (scale > 0)):
+        raise ValueError("reserve_scale must hold finite positive multipliers")
+    return scale
+
+
+@spanned("route")
+def route_scenarios(
+    spec: ProblemSpec,
+    objective: Objective,
+    reserve_scale,
+    precondition: bool = False,
+    refine_to: Optional[float] = None,
+    pad_pools_to: Optional[int] = 128,
+    **solver_kwargs,
+) -> List[Route]:
+    """One route of a linear :class:`Objective` per reserve state of the
+    network: state s is ``spec`` with every pool's reserves multiplied by
+    ``reserve_scale[s, pool]`` ((S, n_pools), pools in spec order).
+    Returns S :class:`Route`, each in the original units.
+
+    The S states are one scenario fold (``solver/fold.py``), solved at
+    once: the base is :meth:`AdmmSolver.solve` over the fold with the
+    options' budget, checks and penalty updates and the fold's joint
+    stopping test, its stats-free iterations on the ``fused_step(fold=)``
+    kernel on the card when every bucket's pool count is a multiple of 128
+    (``pad_pools_to``), classic otherwise.
+    ``precondition=True`` equilibrates once on ``spec``'s own reserves.
+    ``refine_to``: :func:`~.solver.refine_device.refine_sweep` refines every
+    state at once (``fused_step_delta(fold=)`` on the card), each state's
+    delta arrays from its own reserves, and certifies every state in
+    float64 in the original units against its own reserves; a state it
+    leaves short is finished by :func:`~.solver.refine_device.refine_device`
+    on that state's own problem.  Every Route then carries its certificate
+    and ``converged`` says whether it met ``refine_to``; without
+    ``refine_to`` no certificate is made and ``converged`` is the base
+    solve's joint test.
+
+    The folded base and delta solvers are kept across calls on one network
+    (``solver/_solver_cache.py``), with bitwise the answers of new
+    solvers.  ``dtype=``, ``options=`` and ``device=`` go to the base
+    solver, as in :func:`route`."""
+    from .solver.admm import _fused_ok
+    from .solver.fold import fold_compiled, fold_vec, unfold_route
+
+    if not isinstance(objective, Objective):
+        raise TypeError("route_scenarios takes a linear Objective, not "
+                        f"{type(objective).__name__}")
+    _reject(None, precondition, refine_to)
+    table, spec = _table_and_spec(spec)
+    scale = _scenario_scale(reserve_scale, table.n_pools)
+    S, n = scale.shape[0], table.n_assets
+    count("scenarios.points", S)
+    solver_kwargs = _floor_options(solver_kwargs, refine_to)
+    pad = 1 if pad_pools_to is None else int(pad_pools_to)
+    with _solver_cache.lease():
+        eq = None
+        solve_table, solve_obj = table, objective
+        if precondition:
+            from .solver.precondition import equilibrate
+
+            eq = equilibrate(table, objective)
+            solve_table, solve_obj = eq.table, eq.objective
+        compiled = compile_table(solve_table, spec=spec, pad_pools_to=pad)
+        cert_compiled = (compile_table(table, spec=spec, pad_pools_to=pad)
+                         if eq is not None and refine_to is not None else compiled)
+        with span("scenarios.reserves"):
+            folded = fold_compiled(compiled, S, scale)
+            cert_folded = (folded if cert_compiled is compiled
+                           else fold_compiled(cert_compiled, S, scale))
+            solver = _own_solver(folded, fold=(S, n), **solver_kwargs)
+        opts = solver.options
+        c = np.tile(np.asarray(solve_obj.c, np.float64), (S, 1))
+        lo = np.tile(np.asarray(solve_obj.lo, np.float64), (S, 1))
+        hi = np.tile(np.asarray(solve_obj.hi, np.float64), (S, 1))
+        res = solver.solve(Objective(fold_vec(c), lo=fold_vec(lo), hi=fold_vec(hi)),
+                           fused=_fused_ok(solver) and solver.device.type == "cuda")
+        batch = unfold_route(res, S, c=c)
+        unscale = None
+        if eq is not None:
+            from .solver.precondition import unscale_result
+
+            def unscale(r):
+                return unscale_result(r, eq.d, compiled)
+        if refine_to is not None:
+            return _refined_scenarios(compiled, cert_compiled, folded, cert_folded,
+                                      solve_obj, objective, (c, lo, hi), batch,
+                                      refine_to, unscale, opts, solver.device)
+        return _scenario_routes(compiled, batch if unscale is None else unscale(batch),
+                                objective)
+
+
+def _refined_scenarios(compiled, cert_compiled, folded, cert_folded, solve_obj,
+                       objective, cld, batch, refine_to, unscale, options,
+                       device):
+    """:func:`route_scenarios`' refinement: every state through
+    ``refine_sweep``, then each state it leaves short through
+    ``refine_device`` on the state's own problem, both with the base's
+    ``options`` (their projection; their own budgets and tolerances).
+    Returns the S Routes."""
+    from .solver.fold import scenario_point
+    from .solver.refine_device import _psi_batch, refine_device, refine_sweep
+
+    S = batch.psi.shape[0]
+    cert = tuple(np.tile(np.asarray(x, np.float64), (S, 1))
+                 for x in (objective.c, objective.lo, objective.hi))
+    out = refine_sweep(
+        compiled, *cld, batch, target_gap=refine_to, options=options,
+        iters_per_pass=125, device=device, scenarios=folded,
+        cert_space=None if unscale is None else (cert_compiled, cert_folded,
+                                                 cert, unscale))
+    refined = batch._replace(deltas=out.deltas, lambdas=out.lambdas,
+                             prices=out.prices, iters=batch.iters + out.iters)
+    if unscale is not None:
+        refined = unscale(refined)
+    certs, achieved = list(out.certificates), out.achieved.copy()
+    short = np.flatnonzero(~achieved)
+    if len(short):
+        with span("scenarios.fallback"):
+            for t in short:
+                count("scenarios.fallback")
+                point = RouteResult(
+                    objective=out.objectives[t], psi=np.zeros(compiled.n_assets),
+                    prices=out.prices[t],
+                    deltas={k: v[t] for k, v in out.deltas.items()},
+                    lambdas={k: v[t] for k, v in out.lambdas.items()},
+                    iters=batch.iters[t], r_norm=np.zeros(()), s_norm=np.zeros(()),
+                    converged=np.asarray(False), rho_final=batch.rho_final[t])
+                cert_space = None if unscale is None else (
+                    scenario_point(cert_compiled, cert_folded, t), objective, unscale)
+                got = refine_device(scenario_point(compiled, folded, t), solve_obj,
+                                    point, target_gap=refine_to, options=options,
+                                    cert_space=cert_space, device=device)
+                certs[t], achieved[t] = got.certificate, bool(got.achieved)
+                refined.prices[t] = host(got.result.prices)
+                refined.iters[t] += got.iters
+                for k in refined.deltas:
+                    refined.deltas[k][t] = host(got.result.deltas[k])
+                    refined.lambdas[k][t] = host(got.result.lambdas[k])
+    refined = refined._replace(
+        psi=_psi_batch(compiled, refined.deltas, refined.lambdas))
+    return _scenario_routes(compiled, refined, objective, certs, achieved)
+
+
+def _scenario_routes(compiled, batch, objective, certs=None,
+                     achieved=None) -> List[Route]:
+    """The S Routes of a batched host result in the original units: each
+    state's per-pool trades in spec order (views of one slot-ordered
+    array per state), its objective the certificate's where there is
+    one."""
+    S = batch.psi.shape[0]
+    widths = np.asarray(compiled.widths, np.int64)
+    ends = np.cumsum(widths)
+    starts = ends - widths
+    flat = {}
+    for what in ("deltas", "lambdas"):
+        out = np.zeros((S, int(ends[-1]) if len(ends) else 0))
+        for name, b in compiled.buckets.items():
+            planes = np.asarray(getattr(batch, what)[name])  # (S, K, m)
+            pids = np.asarray(b.pool_ids)
+            for j in range(planes.shape[1]):
+                sel = widths[pids] > j
+                out[:, starts[pids[sel]] + j] = planes[:, j, :len(pids)][:, sel]
+        flat[what] = out
+    bounds = list(zip(starts.tolist(), ends.tolist()))
+    routes = []
+    for t in range(S):
+        cert = None if certs is None else certs[t]
+        psi = np.asarray(batch.psi[t], np.float64)
+        d, lam = flat["deltas"][t], flat["lambdas"][t]
+        routes.append(Route(
+            objective=(float(np.asarray(objective.c, np.float64) @ psi)
+                       if cert is None else float(cert.objective)),
+            psi=psi,
+            prices=np.asarray(batch.prices[t], np.float64),
+            deltas=[d[a:e] for a, e in bounds],
+            lambdas=[lam[a:e] for a, e in bounds],
+            iters=int(batch.iters[t]),
+            converged=bool(batch.converged[t] if achieved is None else achieved[t]),
+            r_norm=float(batch.r_norm[t]), s_norm=float(batch.s_norm[t]),
+            certificate=cert))
+    return routes
 
 
 def arbitrage(

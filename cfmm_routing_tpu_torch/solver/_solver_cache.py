@@ -12,7 +12,8 @@ answers are bitwise the same.
 
 Only the solvers that the program builds for itself are kept:
 ``api.route``'s own (no ``solver=``) and the delta solver that
-``refine_device`` builds inside such a route.  :func:`lease` is a route's
+``refine_device`` builds inside such a route, and ``api.route_scenarios``'
+folded base solver and the folded delta solver of its ``refine_sweep``.  :func:`lease` is a route's
 scope; inside it :func:`own` takes a kept solver whose key matches, else
 builds one, and a lease that ends without raising puts what it took back.
 An entry serves one route at a time: while a route holds it, it is out of
@@ -34,7 +35,7 @@ import numpy as np
 from .._device import resolve_device
 from ..utils.profiling import count, span
 
-_CAP = 8  # solvers kept: a route on a network holds two
+_CAP = 8  # solvers kept: a route on a network holds two, scenarios three
 _KEPT: "OrderedDict[tuple, object]" = OrderedDict()
 _LOCK = threading.Lock()
 _LEASE: "contextvars.ContextVar[_Lease | None]" = contextvars.ContextVar(
@@ -92,24 +93,26 @@ def lease():
             _KEPT.popitem(last=False)
 
 
-def own(cls, compiled, dtype, options, device):
-    """A ``cls`` solver of ``compiled``: inside a lease, a kept one of the
-    same class, dtype, device, options and :func:`fingerprint`, refreshed
-    with ``compiled``'s values and counted under ``solvers.reused``, else a
-    new one."""
+def own(cls, compiled, dtype, options, device, fold=None):
+    """A ``cls`` solver of ``compiled`` (a scenario fold of ``fold`` = (T,
+    n_pt) points where given): inside a lease, a kept one of the same class,
+    dtype, device, options, fold and :func:`fingerprint`, refreshed with
+    ``compiled``'s values and counted under ``solvers.reused``, else a new
+    one."""
+    kw = {} if fold is None else {"fold": fold}
     held = _LEASE.get()
     if held is None:
-        return cls(compiled, dtype=dtype, options=options, device=device)
+        return cls(compiled, dtype=dtype, options=options, device=device, **kw)
     with span("solver.build"):  # the key and the refresh; a build has its own
         device = resolve_device(device)
-        key = (cls, dtype, device, options, held.fingerprint(compiled))
+        key = (cls, dtype, device, options, fold, held.fingerprint(compiled))
         with _LOCK:
             solver = _KEPT.pop(key, None)
         if solver is not None:
             solver._refresh(compiled)
             count("solvers.reused")
     if solver is None:
-        solver = cls(compiled, dtype=dtype, options=options, device=device)
+        solver = cls(compiled, dtype=dtype, options=options, device=device, **kw)
     held.taken.append((key, solver))
     return solver
 

@@ -988,13 +988,16 @@ class AdmmSolver:
 
     @spanned("admm.solve")
     def _solve_impl(self, c, lo, hi, rho0, z0=None, nu0=None, max_iters=None,
-                    buckets=None, util=None):
+                    buckets=None, util=None, fused=False):
         """Residual-checked solve.  The loop reads one boolean back from the
         device per check (every ``check_every`` iterations).  Where
         :meth:`_step_kernels` allows, the stats-free iterations between
         checks run as :meth:`_classic_block` (bitwise the same iterates),
         counted under ``iters.step``; the checked iteration is always
-        :meth:`_iterate`."""
+        :meth:`_iterate`.  ``fused``: the stats-free iterations run as
+        fused iterations (:meth:`_iterate_fused`) from the fused state
+        z = s + 0_e, materialized back to z for the checked iteration, as a
+        fused :class:`~.driver.ChunkedDriver` chunk does."""
         opts = self.options
         buckets = self.buckets if buckets is None else buckets
         budget = int(opts.max_iters if max_iters is None else max_iters)
@@ -1009,7 +1012,18 @@ class AdmmSolver:
         psi = self._zeros(self.n)
         w = {name: (torch.zeros_like(zD), torch.zeros_like(zL))
              for name, (zD, zL) in z.items()}
-        if check_every > 1 and self._step_kernels(util):
+        if fused:
+            def step(state, k):  # the check_every - 1 stats-free iterations
+                z, nu = state
+                s, wdef = dict(z), self._zeros(self.n)
+                for _ in range(check_every - 1):
+                    s, wdef, nu, _, _ = self._iterate_fused(
+                        s, wdef, nu, *k[:4], buckets=buckets, util=k[4])
+                z_new = self.fused_to_z(s, wdef, buckets)
+                return {nm: z_new[nm] for nm in z}, nu
+
+            key, steps, kernel_iters = ("fused_stride", check_every - 1), 1, 0
+        elif check_every > 1 and self._step_kernels(util):
             def step(state, k):  # the check_every - 1 stats-free iterations
                 return self._classic_block(state, k, check_every - 1, buckets)
 
@@ -1081,16 +1095,25 @@ class AdmmSolver:
         rho: Optional[float] = None,
         warm: Optional[RouteResult] = None,
         max_iters: Optional[int] = None,
+        fused: bool = False,
     ) -> RouteResult:
         """Solve for an :class:`Objective` (linear), a separable
         :class:`ConcaveUtility` or a non-separable :class:`CustomUtility`.
         ``warm`` continues from a prior result at the penalty it adapted
         to; ``max_iters`` overrides ``options.max_iters`` for this call.
+        ``fused=True`` runs the stats-free iterations between checks on the
+        fused kernels (on a fold ``fused_step(fold=)``; every bucket's pool
+        count per point a multiple of 128; not a :class:`CustomUtility`),
+        with the same checks, penalty updates and stopping test.
 
         On the card a :class:`CustomUtility`'s check blocks are captured once
         per instance (``solver/graphs.py`` keys them by its identity); a
         ``fn`` that reads the host makes the capture raise."""
-        c, lo, hi, util = self._pack(objective, custom=True)
+        if fused and not _fused_ok(self):
+            raise ValueError(
+                "fused=True needs every bucket's pool count (per scenario "
+                "point) to be a multiple of 128: compile with pad_pools_to=128")
+        c, lo, hi, util = self._pack(objective, custom=not fused)
         if rho is not None:
             rho_v = rho
         elif warm is not None:
@@ -1101,7 +1124,7 @@ class AdmmSolver:
         if warm is not None:
             z0, nu0 = self.warm_state(warm, rho_v)
         return self._solve_impl(c, lo, hi, rho_v, z0, nu0, max_iters=max_iters,
-                                util=util)
+                                util=util, fused=bool(fused))
 
     # ---- batched solves: one fold, a stopping test per point ----------------
 

@@ -710,6 +710,7 @@ def certify_batch(
     prices: np.ndarray,
     psi_claimed: Optional[np.ndarray] = None,
     device=None,
+    scenarios: Optional[CompiledProblem] = None,
 ):
     """Certify T candidate routings at once (linear objectives).
 
@@ -718,12 +719,21 @@ def certify_batch(
     T :class:`Certificate`, each as rigorous as :func:`certify`'s: the same
     math, float64 numpy feasibility broadcast over T, and the geo-mean dual
     bound as one batched float64 torch evaluation on ``device`` (the card
-    unless ``"cpu"``)."""
+    unless ``"cpu"``).
+
+    ``scenarios``: T reserve states of the network, as the reserve-scaled
+    fold ``fold.fold_compiled(compiled, T, reserve_scale)``; point t is
+    certified against its own block of the fold's reserves and invariants
+    (``compiled`` gives the topology).  Without it every point has
+    ``compiled``'s reserves."""
     n = compiled.n_assets
     c = np.asarray(c, np.float64)
     lo = np.asarray(lo, np.float64)
     hi = np.asarray(hi, np.float64)
     T = c.shape[0]
+    if scenarios is not None and scenarios.n_pools != T * compiled.n_pools:
+        raise ValueError(f"scenarios holds {scenarios.n_pools} pools, not "
+                         f"{T} points of {compiled.n_pools}")
 
     nu = np.array(host(prices), dtype=np.float64, copy=True)  # (T, n)
     free = ~np.isfinite(lo) & ~np.isfinite(hi)
@@ -748,19 +758,25 @@ def certify_batch(
         L = np.swapaxes(np.asarray(host(lambdas[name]), np.float64), 1, 2)
         mask = b.mask[None]
         g = b.gamma[:, 0][None, :, None]
-        x = b.reserves[None] + g * D - L
+        # per point (T, m, K) reserves and (T, m) invariants
+        if scenarios is None:
+            R, logk0, k0 = b.reserves[None], b.logk0[None], b.k0[None]
+        else:
+            sb = scenarios.buckets[name]
+            R = sb.reserves.reshape(T, *b.reserves.shape)
+            logk0, k0 = sb.logk0.reshape(T, -1), sb.k0.reshape(T, -1)
+        x = R + g * D - L
         nneg_slot = (np.maximum(-D, -L).clip(min=0.0) * mask).reshape(T, -1)
         nneg_viol = np.maximum(nneg_viol, np.max(nneg_slot, axis=1, initial=0.0))
         if b.kind == "gm":
             y = np.where(mask > 0, np.maximum(x + b.shift[None], _TINY), 1.0)
             h = np.sum(b.weights[None] * np.log(y), axis=2)  # (T, m)
             phi_viol = np.maximum(
-                phi_viol, np.max(b.logk0[None] - h, axis=1, initial=0.0))
+                phi_viol, np.max(logk0 - h, axis=1, initial=0.0))
         else:
             tot = np.sum(b.weights[None] * np.maximum(x, 0.0), axis=2)
             phi_viol = np.maximum(phi_viol, np.max(
-                (b.k0[None] - tot) / np.maximum(b.k0[None], 1.0),
-                axis=1, initial=0.0))
+                (k0 - tot) / np.maximum(k0, 1.0), axis=1, initial=0.0))
         flat_ids = b.asset.reshape(-1)
         idx = (flat_ids[None, :] + (n + 1) * np.arange(T)[:, None]).reshape(-1)
         np.maximum.at(nneg_a.reshape(-1), idx, nneg_slot.reshape(-1))
@@ -781,15 +797,15 @@ def certify_batch(
         gam = b.gamma[:, 0]
         if b.kind == "gm":
             dual_pools += np.sum(_gm_bound(
-                nu_s, b.reserves, b.weights, b.shift, gam, b.logk0, b.mask,
-                device=device), axis=1)
+                nu_s, R, b.weights, b.shift, gam, logk0, b.mask,
+                device=device), axis=-1)
         else:
             q_safe = np.where(b.mask[None] > 0, b.weights[None], 1.0)
             ratio = np.where(b.mask[None] > 0, nu_s / q_safe, np.inf)
             cstar = np.min(ratio, axis=2) / gam[None]
             gain = np.maximum(nu_s - q_safe * cstar[..., None], 0.0)
             dual_pools += np.sum(
-                np.where(b.mask[None] > 0, b.reserves[None] * gain, 0.0),
+                np.where(b.mask[None] > 0, R * gain, 0.0),
                 axis=(1, 2),
             )
 

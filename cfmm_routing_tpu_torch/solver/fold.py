@@ -23,6 +23,7 @@ the first asset of their point (``admm._bucket_device_arrays``).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict
 
 import numpy as np
@@ -36,6 +37,7 @@ from .compiler import Bucket, CompiledProblem
 
 __all__ = [
     "fold_compiled",
+    "scenario_point",
     "fold_vec",
     "unfold_vec",
     "fold_planes",
@@ -119,6 +121,20 @@ def fold_compiled(
         widths=np.tile(compiled.widths, T),
         spec=None,
     )
+
+
+def scenario_point(compiled: CompiledProblem, scenarios: CompiledProblem,
+                   t: int) -> CompiledProblem:
+    """Point ``t`` of ``scenarios``, a reserve-scaled fold
+    ``fold_compiled(compiled, T, reserve_scale)``, as a problem of its own:
+    ``compiled`` with the point's reserves and invariants."""
+    buckets = {}
+    for name, b in compiled.buckets.items():
+        rows = slice(t * b.m, (t + 1) * b.m)
+        sb = scenarios.buckets[name]
+        buckets[name] = dataclasses.replace(
+            b, reserves=sb.reserves[rows], logk0=sb.logk0[rows], k0=sb.k0[rows])
+    return dataclasses.replace(compiled, buckets=buckets)
 
 
 def fold_vec(x) -> np.ndarray:

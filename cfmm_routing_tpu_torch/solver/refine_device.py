@@ -139,10 +139,16 @@ class DeltaAdmmSolver(AdmmSolver):
 
     def _pass_buckets(self, base: RouteResult, eps: float, nu0):
         """:meth:`delta_buckets` with ``nu0``, written into arrays this
-        solver keeps: every call returns the same dict of the same tensors,
-        so the blocks captured on them replay in every pass (the arrays of
-        :func:`refine_device`'s own solver, which no caller sees)."""
+        solver keeps (:meth:`_keep`)."""
         out, min_x0 = self.delta_buckets(base, eps, nu0=nu0)
+        return self._keep(out), min_x0
+
+    def _keep(self, out):
+        """A pass's delta arrays ``out``, written into arrays this solver
+        keeps: every call returns the same dict of the same tensors, so the
+        blocks captured on them replay in every pass (the arrays of the
+        solvers :func:`refine_device` and :func:`refine_sweep` build for
+        themselves, which no caller sees)."""
         if self._planes is None:
             self._planes = out
         else:
@@ -151,7 +157,7 @@ class DeltaAdmmSolver(AdmmSolver):
                     kept = self._planes[name][key]
                     if kept is not x:  # the pass's planes; not the topology's
                         kept.copy_(x)
-        return self._planes, min_x0
+        return self._planes
 
     def solve_delta(
         self,
@@ -588,6 +594,8 @@ def refine_sweep(
     eps_factor: float = 10.0,
     fold: Optional[bool] = None,
     device=None,
+    scenarios: Optional[CompiledProblem] = None,
+    cert_space=None,
 ) -> SweepRefineResult:
     """Refine EVERY point of a batched sweep to a certified gap with ONE
     correction solve per pass (linear objectives).
@@ -613,7 +621,21 @@ def refine_sweep(
     The delta dual starts at 0: the base dual enters only through e0 and
     the nu0e planes.  ``device``: where the solves and the certificates'
     eta search run (the card unless ``"cpu"``; a passed solver brings its
-    own)."""
+    own).
+
+    ``scenarios``: T reserve states of one network instead of one network
+    (``api.route_scenarios``), as the reserve-scaled fold
+    ``fold.fold_compiled(compiled, T, reserve_scale)``: the folded delta
+    solver is built on it, so each point's delta arrays read its own
+    reserves, and each point is certified against them.  Its solver is
+    kept across calls on the network (``solver/_solver_cache.py``, inside
+    a lease).  ``cert_space``: optional ``(cert_compiled, cert_scenarios,
+    (c, lo, hi), unscale_fn)``: refine in this (typically equilibrated)
+    space but certify every point in the space ``unscale_fn`` maps a
+    batched host RouteResult to, against ``cert_compiled`` (and the fold
+    ``cert_scenarios`` of its reserve states, or None) and the (T, n)
+    objectives given there.  The returned trades and prices stay in this
+    space; the certificates and objectives are in ``cert_space``'s."""
     c = np.asarray(c, np.float64)
     lo = np.asarray(lo, np.float64)
     hi = np.asarray(hi, np.float64)
@@ -627,6 +649,9 @@ def refine_sweep(
 
     if fold is None:
         fold = solver is None  # a caller-built solver keeps the batched path
+    if scenarios is not None and not (fold and solver is None):
+        raise ValueError("refine_sweep(scenarios=) runs folded on its own "
+                         "solver: drop solver= and fold=False")
     fsolver = None
     fused_fold = False
     if solver is None:
@@ -635,11 +660,19 @@ def refine_sweep(
             base, max_iters=int(iters_per_pass), eps_abs=1e-8, eps_rel=1e-8,
             adapt_rho=False,
         )
-        if fold:
+        if scenarios is not None:
+            # checks as refine_device's own solver makes them: the classic
+            # chunks replay their stats-free blocks on the card
+            opts = dataclasses.replace(opts, check_every=_check_cadence(
+                Objective(c[0], lo[0], hi[0]), iters_per_pass, base))
+            fsolver = _solver_cache.own(DeltaAdmmSolver, scenarios, torch.float32,
+                                        opts, dev, fold=(T, compiled.n_assets))
+        elif fold:
             from .fold import folded_solver
 
             fsolver, _ = folded_solver(compiled, T, opts, torch.float32,
                                        cls=DeltaAdmmSolver, device=dev)
+        if fsolver is not None:
             fused_fold = _fused_ok(fsolver) and fsolver.device.type == "cuda"
         else:
             solver = DeltaAdmmSolver(compiled, dtype=torch.float32, options=opts,
@@ -653,9 +686,29 @@ def refine_sweep(
     def _score(cert):
         return max(abs(cert.gap_rel), cert.feasibility_rel)
 
+    if cert_space is None:
+        cert_compiled, cert_scen, (cc, clo, chi) = compiled, scenarios, (c, lo, hi)
+        unscale_fn = None
+    else:
+        cert_compiled, cert_scen, (cc, clo, chi), unscale_fn = cert_space
+        cc, clo, chi = (np.asarray(x, np.float64) for x in (cc, clo, chi))
+
+    def _in_cert(D, L, P, psi):
+        """(deltas, lambdas, prices, psi) of T points in cert_space's units."""
+        if unscale_fn is None:
+            return D, L, P, psi
+        pt = unscale_fn(RouteResult(
+            objective=None, psi=psi, prices=P, deltas=D, lambdas=L, iters=None,
+            r_norm=None, s_norm=None, converged=None, rho_final=None))
+        return pt.deltas, pt.lambdas, pt.prices, pt.psi
+
+    def _certify(D, L, P, psi):
+        D, L, P, psi = _in_cert(D, L, P, psi)
+        return certify_batch(cert_compiled, cc, clo, chi, D, L, P,
+                             psi_claimed=psi, device=dev, scenarios=cert_scen)
+
     psi0 = _psi_batch(compiled, deltas, lambdas)
-    certs = certify_batch(compiled, c, lo, hi, deltas, lambdas, prices,
-                          psi_claimed=psi0, device=dev)
+    certs = _certify(deltas, lambdas, prices, psi0)
     total = 0
     # per-point penalty regime (refine_device's two-mode ladder): points
     # start on the base penalty; a live point whose score fails to halve in
@@ -684,6 +737,7 @@ def refine_sweep(
 
             bdict_f, min_x0 = _delta_buckets_folded(fsolver, deltas, lambdas,
                                                     eps, nu0f)
+            bdict_f = fsolver._keep(bdict_f)
             dobj_f = Objective(fold_vec(c / rho[:, None]), lo=fold_vec(lo_d),
                                hi=fold_vec(hi_d))
             nu0_fold = fold_vec(nu0f)
@@ -724,8 +778,7 @@ def refine_sweep(
         cand_L = {k: np.maximum(lambdas[k] + e * d_lambdas[k], 0.0) for k in deltas}
         cand_prices = rho[:, None] * nu0f + d_prices
         cand_psi = _psi_batch(compiled, cand_D, cand_L)
-        cand_certs = certify_batch(compiled, c, lo, hi, cand_D, cand_L,
-                                   cand_prices, psi_claimed=cand_psi, device=dev)
+        cand_certs = _certify(cand_D, cand_L, cand_prices, cand_psi)
         improved = False
         for t in np.flatnonzero(live):
             if min_x0[t] <= 0 or not np.isfinite(min_x0[t]):
@@ -749,21 +802,28 @@ def refine_sweep(
         else:
             pass_fails = 0
     # near-miss stragglers whose blocker is pure dual looseness get the
-    # per-point L-BFGS price polish
-    for t in range(T):
+    # per-point L-BFGS price polish, on the point's own problem in
+    # cert_space's units
+    polish = [t for t in range(T) if _score(certs[t]) > target_gap and (
+        0.0 < certs[t].gap_rel <= max(20.0 * target_gap, 1e-5)
+        and certs[t].feasibility_rel <= target_gap)]
+    if polish:
+        from .fold import scenario_point
+
+        pD, pL, pP, ppsi = _in_cert(deltas, lambdas, prices, psi0)
+    for t in polish:
         ct = certs[t]
-        if _score(ct) <= target_gap or not (
-                0.0 < ct.gap_rel <= max(20.0 * target_gap, 1e-5)
-                and ct.feasibility_rel <= target_gap):
-            continue
-        obj_t = Objective(c[t], lo=lo[t], hi=hi[t])
-        nu_p = polish_prices(compiled, obj_t, prices[t], max_evals=60, device=dev)
-        cert_p = certify(compiled, obj_t, {k: v[t] for k, v in deltas.items()},
-                         {k: v[t] for k, v in lambdas.items()}, nu_p,
-                         psi_claimed=psi0[t], device=dev)
+        comp_t = (cert_compiled if cert_scen is None else
+                  scenario_point(cert_compiled, cert_scen, t))
+        obj_t = Objective(cc[t], lo=clo[t], hi=chi[t])
+        nu_p = polish_prices(comp_t, obj_t, pP[t], max_evals=60, device=dev)
+        cert_p = certify(comp_t, obj_t, {k: v[t] for k, v in pD.items()},
+                         {k: v[t] for k, v in pL.items()}, nu_p,
+                         psi_claimed=ppsi[t], device=dev)
         if cert_p.gap_abs < ct.gap_abs:
             certs[t] = cert_p
-            prices[t] = cert_p.prices
+            if unscale_fn is None:
+                prices[t] = cert_p.prices
     achieved = np.array([_score(ct) <= target_gap for ct in certs])
     return SweepRefineResult(
         deltas=deltas, lambdas=lambdas, prices=prices,

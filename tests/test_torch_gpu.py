@@ -1191,3 +1191,70 @@ def test_kept_solvers_replay_bitwise_at_10k(cuda_device, monkeypatch):
     monkeypatch.undo()
     assert not _same_route(stale, want)
     _solver_cache.clear()
+
+
+# ---- reserve scenarios: the fold kernels in a certified route ------------------
+
+def test_route_scenarios_at_100k_certifies_on_the_fold_kernels(cuda_device, monkeypatch):
+    """``api.route_scenarios(precondition=True, refine_to=1e-6)`` over 8
+    reserve states (uniform(0.7, 1.3) per pool) of the 100k network with
+    the scenario cell's options: every state certified; the base and the
+    refinement run ``fused_step(fold=)`` and ``fused_step_delta(fold=)``
+    and no plain version of a kernel runs; a second call on the network
+    (other states) builds and captures nothing and equals, bit for bit,
+    that call on new solvers."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cfmm_routing_tpu_torch import api
+    from cfmm_routing_tpu_torch.ops import iteration_cuda, projection_cuda, segment
+    from cfmm_routing_tpu_torch.solver import _solver_cache
+    from cfmm_routing_tpu_torch.utils import profiling
+
+    table, obj = random_arbitrage_table(256, 100_000, seed=7)
+    opts = AdmmOptions(max_iters=3000, eps_abs=1e-7, eps_rel=1e-7, check_every=25,
+                       projection=CFG_BASE)
+
+    def scale(k):
+        return np.random.default_rng(k).uniform(0.7, 1.3, size=(8, table.n_pools))
+
+    def call(k):
+        return api.route_scenarios(table, obj, scale(k), precondition=True,
+                                   refine_to=1e-6, pad_pools_to=128, options=opts,
+                                   device=cuda_device)
+
+    plain_calls = []
+    for mod in (iteration_cuda, projection_cuda, segment):
+        for name in [n for n in dir(mod) if n.endswith("_plain")]:
+            monkeypatch.setattr(mod, name, lambda *a, _n=name, **k: plain_calls.append(_n))
+    _solver_cache.clear()
+    profiling.reset()
+    _build.reset_launch_counts()
+    a = call(1)
+    torch.cuda.synchronize()
+    assert all(r.converged for r in a) and len(a) == 8
+    for r in a:
+        assert abs(r.certificate.gap_rel) <= 1e-6 and r.certificate.feasibility_rel <= 1e-6
+    assert _build.LAUNCHES["fused_step_fold"] > 0
+    assert _build.LAUNCHES["fused_step_delta_fold"] > 0
+    assert profiling.COUNTS["scenarios.points"] == 8
+    if not profiling.COUNTS.get("scenarios.fallback"):  # a short state runs unfolded
+        assert _build.LAUNCHES["fused_step"] == _build.LAUNCHES["fused_step_delta"] == 0
+    assert plain_calls == []
+
+    built = []
+    init = AdmmSolver.__init__
+    monkeypatch.setattr(AdmmSolver, "__init__",
+                        lambda self, *a, **k: built.append(1) or init(self, *a, **k))
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        b = call(2)
+    torch.cuda.synchronize()
+    monkeypatch.setattr(AdmmSolver, "__init__", init)
+    assert profiling.COUNTS["solvers.reused"] >= 2 and built == []
+    assert not [r for r in profiling.spans() if r.name == "graphs.capture"]
+    assert all(r.converged for r in b)
+    _solver_cache.clear()
+    want = call(2)
+    assert not _same_route(a[0], b[0])
+    assert all(_same_route(x, y) for x, y in zip(b, want, strict=True))
+    _solver_cache.clear()
